@@ -1,0 +1,88 @@
+"""Shared helpers for the hand-written CUDA kernels and their wrappers.
+
+Mirrors `repro.kernels.common`.  The dispatch rule replaces the JAX
+package's `interpret_default()`: a wrapper launches its CUDA kernel for
+CUDA tensors and runs its plain PyTorch version for CPU tensors, and
+nothing else (no fallback from a failed launch to the plain version).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["next_bucket", "running_topk_scan", "pad_to", "padded_size",
+           "on_cpu"]
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True iff every tensor lies on the host: the only case in which a
+    wrapper runs its plain version.  Mixed placements raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors on mixed devices: "
+                     f"{[str(t.device) for t in tensors]}")
+
+
+def next_bucket(n: int, minimum: int = 1, maximum: int | None = None) -> int:
+    """Smallest power-of-two bucket >= max(n, minimum), optionally capped.
+
+    Callers that see ragged sizes (owner-side encryption batches) pad to
+    bucketed shapes; the owner's DCE randomization scale is taken over
+    the whole padded batch, so the bucket rule is part of the
+    ciphertext distribution, not only a cache key.
+    """
+    if n < 0:
+        raise ValueError(f"negative size {n}")
+    b = max(minimum, 1)
+    while b < n:
+        b <<= 1
+    if maximum is not None and b > maximum:
+        if n > maximum:
+            raise ValueError(f"size {n} exceeds bucket cap {maximum}")
+        b = maximum
+    return b
+
+
+def running_topk_scan(dist_fn, n: int, nq: int, k: int, chunk: int,
+                      device: torch.device):
+    """Streaming top-k merge: fold `chunk`-row distance blocks into a
+    running (nq, k) ascending state.
+
+    `dist_fn(start)` returns the (nq, chunk) distance block for rows
+    [start, start+chunk), with rows past the database already +inf.
+    Ties go to the lowest id, as `jax.lax.top_k` keeps them: the merge
+    is a stable ascending sort of [best, block], in which running
+    entries precede the block and block columns keep their order.
+    Merge positions < k select from the running ids, the rest are
+    `start + (pos - k)`, so no (nq, chunk) id block is materialized.
+    Returns (dists (nq, k) ascending, ids (nq, k) int64; unfilled -1).
+    """
+    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32,
+                        device=device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device=device)
+    for start in range(0, n, chunk):
+        d_blk = dist_fn(start)
+        cat_d = torch.cat([best_d, d_blk], dim=1)
+        vals, pos = torch.sort(cat_d, dim=1, stable=True)
+        best_d, pos = vals[:, :k], pos[:, :k]
+        from_best = torch.gather(best_i, 1, pos.clamp(max=k - 1))
+        best_i = torch.where(pos < k, from_best, start + (pos - k))
+    return best_d, best_i
+
+
+def pad_to(x: torch.Tensor, axis: int, multiple: int,
+           value: float = 0.0) -> torch.Tensor:
+    """Right-pad `axis` of x up to a multiple."""
+    rem = (-x.shape[axis]) % multiple
+    if rem == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = rem
+    return torch.cat([x, x.new_full(shape, value)], dim=axis)
+
+
+def padded_size(n: int, multiple: int) -> int:
+    return n + ((-n) % multiple)

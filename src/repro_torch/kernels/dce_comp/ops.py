@@ -1,0 +1,49 @@
+"""Public wrappers for the dce_comp kernel: the tournament refine.
+
+Counterpart of `repro.kernels.dce_comp.ops`.  `jax.lax.top_k` keeps the
+lowest index among equal values and `torch.topk` promises no tie order,
+so the top-k by wins here is a stable ascending sort of `-wins`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .dce_comp import batched_z_matrix, z_matrix
+
+__all__ = ["z_matrix", "batched_z_matrix", "top_k_by_wins",
+           "batched_top_k_by_wins"]
+
+
+def top_k_by_wins(C: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k of a DCE-encrypted candidate set (refine phase).
+
+    Ranks the n candidates by pairwise-comparison win counts from the Z
+    kernel.  DCE comparisons reflect true distances (Theorem 3), so win
+    counts sort identically to distances.  -> (k,) int64 local indices.
+    """
+    return batched_top_k_by_wins(C[None], t[None], k)[0]
+
+
+def batched_top_k_by_wins(C: torch.Tensor, T: torch.Tensor, k: int, *,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched refine: per-query exact top-k of DCE candidate sets.
+
+    C: (B, n, 4, D) candidate ciphertexts, T: (B, D) trapdoors, valid:
+    optional (B, n) bool mask of real candidate slots -> (B, k) int64
+    local indices, descending win count (ascending true distance), ties
+    to the lowest index.  With `valid`, wins count against real rivals
+    only and padded slots get -1, so they rank last.
+    """
+    Z = batched_z_matrix(C, T)
+    n = C.shape[1]
+    # Exclude the diagonal: Z_ii is mathematically 0 but floats to +-eps.
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=Z.device)[None]
+    win_mask = (Z < 0) & offdiag
+    if valid is not None:
+        win_mask = win_mask & valid[:, None, :]    # wins vs real rivals only
+    wins = win_mask.sum(dim=-1)
+    if valid is not None:
+        wins = torch.where(valid, wins, -1)        # padded slots rank last
+    k = min(k, n)
+    return torch.sort(-wins, dim=-1, stable=True).indices[:, :k]

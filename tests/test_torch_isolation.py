@@ -1,0 +1,170 @@
+"""Guards of the PyTorch port: it stands alone, it defaults to the card,
+and its kernel wrappers never cross between kernel and plain version.
+
+This file imports neither JAX nor the JAX package, so its CUDA tests
+also run where JAX is not installed:
+
+    python -m pytest -m cuda tests/test_torch_isolation.py
+"""
+
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dce, dcpe, ppanns, secure_knn
+from repro_torch.kernels import _build
+from repro_torch.kernels.dce_comp import dce_comp
+from repro_torch.kernels.l2_topk import l2_topk
+from repro_torch.serving.search_engine import SecureSearchEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have "
+                    "no CPU mode")
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import repro_torch, repro_torch.core, repro_torch.serving, "
+            "repro_torch.obs, repro_torch.data.synth, repro_torch.kernels."
+            "l2_topk, repro_torch.kernels.dce_comp\n"
+            "bad = [m for m, mod in sys.modules.items() if mod is not None "
+            "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.findall(text), path
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a CUDA device, device=None raises instead of carrying on
+    on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    C_sap = np.zeros((4, 8), np.float32)
+    C_dce = np.zeros((4, 4, dce.ciphertext_dim(8)), np.float32)
+    owner = ppanns.DataOwner(d=8, sap_beta=1.0)
+    X = np.ones((3, 8), np.float32)
+    for call in (lambda: SecureSearchEngine(C_sap, C_dce),
+                 lambda: owner.encrypt_vectors(X),
+                 lambda: dce.encrypt_torch(X, owner.keys.dce_key),
+                 lambda: dcpe.encrypt_torch(X, owner.keys.sap_key),
+                 lambda: secure_knn.refine_tournament(
+                     C_dce, np.arange(4), np.ones(C_dce.shape[-1]), 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("CPU tensor reached the kernel launch path")
+    monkeypatch.setattr(_build, "function", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    before = (l2_topk.launches, dce_comp.launches)
+    out = l2_topk.pairwise_sq_dists(torch.ones(2, 3), torch.ones(4, 3))
+    torch.testing.assert_close(out, torch.zeros(2, 4))
+    Z = dce_comp.batched_z_matrix(torch.ones(2, 5, 4, 6), torch.ones(2, 6))
+    assert Z.shape == (2, 5, 5)
+    assert (l2_topk.launches, dce_comp.launches) == before
+
+
+def test_mixed_devices_refused():
+    meta = torch.empty(2, 3, device="meta")
+    with pytest.raises(ValueError, match="mixed devices"):
+        l2_topk.pairwise_sq_dists(torch.ones(2, 3), meta)
+
+
+def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
+    """In a directory that holds only chip_smoke.py it cannot import the
+    port; without a CUDA device it stops at once.  Either way: a non-zero
+    exit and no result line."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--n", "100"],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120, env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+# ------------------------------------------------------- on the card only
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
+    _needs_card()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(l2_topk, "plain_pairwise_sq_dists", refuse)
+    monkeypatch.setattr(dce_comp, "plain_batched_z_matrix", refuse)
+    before = (l2_topk.launches, dce_comp.launches)
+    Q = torch.randn(5, 33, device="cuda")
+    X = torch.randn(70, 33, device="cuda")
+    l2_topk.pairwise_sq_dists(Q, X)
+    dce_comp.batched_z_matrix(torch.randn(3, 9, 4, 40, device="cuda"),
+                              torch.randn(3, 40, device="cuda"))
+    torch.cuda.synchronize()
+    assert (l2_topk.launches, dce_comp.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d", [(1, 1, 2), (33, 70, 96), (5, 300, 960)])
+def test_l2_kernel_matches_plain_on_the_card(nq, n, d):
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(nq + n + d)
+    Q = torch.randn(nq, d, device="cuda", generator=g)
+    X = torch.randn(n, d, device="cuda", generator=g)
+    got = l2_topk.pairwise_sq_dists(Q, X)
+    want = l2_topk.plain_pairwise_sq_dists(Q, X)
+    scale = (Q * Q).sum(1)[:, None] + (X * X).sum(1)[None, :]
+    assert ((got - want).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d", [(1, 5, 4), (3, 80, 128), (2, 33, 17)])
+def test_z_kernel_matches_plain_on_the_card(B, n, d):
+    _needs_card()
+    key = dce.keygen(d, seed=d)
+    rng = np.random.default_rng(d)
+    C = torch.as_tensor(dce.encrypt(rng.standard_normal((B * n, d)), key,
+                                    seed=1).reshape(B, n, 4, -1),
+                        device="cuda")
+    T = torch.as_tensor(dce.trapgen(rng.standard_normal((B, d)), key,
+                                    seed=2), device="cuda")
+    got = dce_comp.batched_z_matrix(C, T)
+    want = dce_comp.plain_batched_z_matrix(C, T)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    _needs_card()
+    Q = torch.randn(4, 8, device="cuda")
+    with pytest.raises(TypeError):
+        l2_topk.pairwise_sq_dists(Q.double(), Q.double())
+    with pytest.raises(ValueError):
+        l2_topk.pairwise_sq_dists(Q, torch.randn(8, 4, device="cuda").T)
+    with pytest.raises(ValueError):
+        dce_comp.batched_z_matrix(torch.randn(2, 3, 4, 8, device="cuda"),
+                                  torch.randn(3, 8, device="cuda"))
