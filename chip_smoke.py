@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one card.
 
-    python3 chip_smoke.py            # SIFT1M scale: n = 1,000,000, d = 128
+    python3 chip_smoke.py            # flat path at SIFT1M scale (n = 1M),
+                                     # graph path at n = 100,000, d = 128
+    python3 chip_smoke.py --graph-n 20000 --n 20000 --queries 64  # quick
 
 Phases, each of which fails the run (non-zero exit, no final line):
 
 1. Device and build: the card's name and power limit, the torch and
    CUDA versions, and the build of the CUDA kernels from
    `src/repro_torch/csrc/` (with nvcc's register and spill report).
+   Then the graph path's corpus is made and encrypted on the card, and
+   the owner's HNSW build over it (host numpy, minutes at 100k rows)
+   starts in a worker process, so it runs while phases 2 and 3 use the
+   card.
 2. Kernels against their plain PyTorch versions on the card, at the
-   shapes the main path gives them, with times (CUDA events), bounds
-   and a library yardstick.  Tolerances, all because the hand kernel and
-   cuBLAS sum in different orders in true fp32:
+   shapes the main paths give them, with times (CUDA events), bounds
+   and a library yardstick where one PyTorch call computes the same
+   function.  Tolerances:
      l2 tiles: |kernel - plain| <= 1e-5 * (||q||^2 + ||x||^2);
      Z tiles:  |kernel - plain| <= 1e-5 * max|Z|, and equal signs
-               wherever |Z_plain| > 1e-5 * max|Z|.
-3. The main path: a synthetic SIFT-width corpus (clustered Gaussians)
+               wherever |Z_plain| > 1e-5 * max|Z|;
+     both because the hand kernel and cuBLAS sum in different orders in
+     true fp32.
+     graph_expand (layer-0 beam search) on a synthetic random adjacency
+     (some -1 slots, some rows with ok = 0) over integer-valued rows, so
+     every distance is exact in both summation orders: beam-slot ids
+     must agree in >= 99.9% of slots and distances within 1e-5
+     relative where the ids agree (exact equality is expected).
+3. The flat path: a synthetic SIFT-width corpus (clustered Gaussians)
    encrypted on the card by `DataOwner.encrypt_vectors`, queries
    encrypted by `User`, and `SecureSearchEngine(backend="flat")` on the
    card answering them in batches of 32 (k = 10, k' = 80), once through
-   the kernels and once with both kernels swapped for their plain
+   the kernels and once with the kernels swapped for their plain
    versions.  Final ids must agree in >= 99.9% of slots and recall@10
    within 0.005 (ulp-level near-ties at the k' boundary may flip).  A
    small database is also searched on the card and on the host (plain
    versions) from the numpy encryption: the ids must be equal.
+4. The graph path, after the flat engine is freed:
+   `SecureSearchEngine(backend=GraphFilter(index))` over the HNSW of
+   phase 1 (M = 8, ef_construction = 48), the same batches, k = 10,
+   ratio_k = 8, ef_search = 96: once through the kernels (graph_expand
+   once per batch, dce_comp for the refine), once with both swapped for
+   their plain versions (same limits as the flat path), and the
+   per-query host walk (`HNSWGraphFilter`) on the first 64 queries.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -34,7 +54,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -56,6 +78,13 @@ L2_RTOL = 1e-5
 Z_RTOL = 1e-5
 MIN_ID_AGREEMENT = 0.999
 MAX_RECALL_GAP = 0.005
+GRAPH_RTOL = 1e-5
+OWNER_SEED = 0
+# graph path: the owner's HNSW build settings (those of BENCH_graph.json)
+GRAPH_M = 8
+GRAPH_EF_CONSTRUCTION = 48
+EF_SEARCH = 96
+ORACLE_QUERIES = 64
 
 
 def log(*parts):
@@ -102,18 +131,41 @@ def device_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Test-only switch: route the main path's two kernel entry points to
-    their plain PyTorch versions (cuBLAS products), for the comparison
-    run.  The port itself has no such switch."""
+    """Test-only switch: route the main paths' kernel entry points to
+    their plain PyTorch versions, for the comparison runs.  The port
+    itself has no such switch."""
     from repro_torch.kernels.dce_comp import dce_comp, ops as dce_ops
+    from repro_torch.kernels.graph_expand import graph_expand
+    from repro_torch.kernels.graph_expand import ops as graph_ops
     from repro_torch.kernels.l2_topk import l2_topk, ops as l2_ops
-    saved = (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix)
+    saved = (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
+             graph_ops.expand_layer0)
     l2_ops.pairwise_sq_dists = l2_topk.plain_pairwise_sq_dists
     dce_ops.batched_z_matrix = dce_comp.plain_batched_z_matrix
+    graph_ops.expand_layer0 = graph_expand.plain_expand_layer0
     try:
         yield
     finally:
-        l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix = saved
+        (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
+         graph_ops.expand_layer0) = saved
+
+
+def kernel_wrappers() -> dict:
+    """The kernel wrappers by kernel name; each counts its launches."""
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.graph_expand import graph_expand
+    from repro_torch.kernels.l2_topk import l2_topk
+    return {"l2_topk": l2_topk, "dce_comp": dce_comp,
+            "graph_expand": graph_expand}
+
+
+def kernel_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def reset_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
 
 
 # --------------------------------------------------------------- phase 2
@@ -223,16 +275,102 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
     }
 
 
+def graph_inputs(R: int, M0: int, d: int, nq: int, gen):
+    """A synthetic layer-0 graph: random ids with ~10% -1 slots, ~2% of
+    rows with ok = 0, integer-valued rows and queries in [-8, 8] (every
+    fp32 distance exact in any summation order), random entry points,
+    and query 0 with entry -1 (an empty graph's query)."""
+    import torch
+    dev = torch.device("cuda")
+    C = torch.randint(-8, 9, (R, d), generator=gen, device=dev).float()
+    Q = torch.randint(-8, 9, (nq, d), generator=gen, device=dev).float()
+    neigh0 = torch.randint(0, R, (R, M0), generator=gen, device=dev,
+                           dtype=torch.int32)
+    neigh0[torch.rand((R, M0), generator=gen, device=dev) < 0.1] = -1
+    ok = torch.rand(R, generator=gen, device=dev) > 0.02
+    ep = torch.randint(0, R, (nq,), generator=gen, device=dev)
+    ep[0] = -1
+    ep_d = ((C[ep.clamp(min=0)] - Q) ** 2).sum(-1)
+    ep_d = torch.where(ep >= 0, ep_d, float("inf"))
+    return neigh0, ok, C, Q, ep, ep_d
+
+
+def graph_expand_bound(hops, edges, R: int, M0: int, d: int,
+                       ef_cap: int) -> tuple[float, str]:
+    """K6's bound from what this run's walks needed: per hop the M0 ids
+    of the expanded row; per scored edge (a fresh neighbour: valid, ok,
+    not yet visited) its row of d floats and its ok flag, and 3d fp32
+    operations (sub, mul, add); once per query its query row and entry
+    point; and the outputs (beam ids and distances, hops, edges and the
+    visited words).  Padding slots, rows with ok = 0 and neighbours
+    already visited need no row."""
+    nq = hops.shape[0]
+    n_hops, n_edges = int(hops.sum()), int(edges.sum())
+    nbytes = (n_hops * M0 * 4.0 + n_edges * (4.0 * d + 1.0)
+              + nq * (4.0 * d + 8.0)
+              + nq * (ef_cap * 8.0 + 8.0 + ((R + 31) // 32) * 4.0))
+    return bound(n_edges * 3.0 * d, nbytes)
+
+
+def check_graph_expand(R: int, M0: int, d: int, gen, nq: int = BATCH,
+                       ef: int = 96, ef_cap: int = 128,
+                       max_hops: int = 512) -> dict:
+    """K6 against its plain version; the defaults are the graph path's
+    beam plan (k' 80, ef_search 96: ef 96, ef_cap 128, max_hops 512)."""
+    import torch
+    from repro_torch.kernels.graph_expand import graph_expand
+    args = graph_inputs(R, M0, d, nq, gen)
+    kw = dict(ef=ef, ef_cap=ef_cap, max_hops=max_hops)
+    got = graph_expand.expand_layer0(*args, **kw)
+    want = graph_expand.plain_expand_layer0(*args, **kw)
+    torch.cuda.synchronize()
+    same = got[0] == want[0]
+    agree = float(same.float().mean())
+    fin = same & torch.isfinite(want[1])
+    err = (got[1] - want[1]).abs()[fin]
+    rel = err / want[1].abs()[fin].clamp_min(1e-30)
+    max_abs = float(err.max()) if err.numel() else 0.0
+    max_rel = float(rel.max()) if rel.numel() else 0.0
+    if agree < MIN_ID_AGREEMENT or max_rel > GRAPH_RTOL:
+        raise AssertionError(f"graph_expand disagrees at R={R} M0={M0} "
+                             f"d={d}: ids {agree}, max rel err {max_rel}")
+    hops, edges = got[3], got[4]
+    b_ms, b_by = graph_expand_bound(hops, edges, R, M0, d, ef_cap)
+    return {
+        "name": f"graph_expand.expand_layer0[nq={nq},R={R},M0={M0},d={d}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/graph_expand.cu",
+        "replaces": "src/repro/kernels/graph_expand/graph_expand.py:234",
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "beam_slot_id_agreement": agree,
+        "visited_equal": bool(torch.equal(got[2], want[2])),
+        "hops_equal": bool(torch.equal(got[3], want[3])),
+        "edges_equal": bool(torch.equal(got[4], want[4])),
+        "max_hops_per_query": int(hops.max()),
+        "mean_hops_per_query": float(hops.float().mean()),
+        "mean_edges_per_query": float(edges.float().mean()),
+        "ms": device_ms(lambda: graph_expand.expand_layer0(*args, **kw)),
+        "plain_ms": device_ms(
+            lambda: graph_expand.plain_expand_layer0(*args, **kw),
+            reps=10, warmup=2),
+        "library_ms": None, "library_call": "none (no PyTorch call runs "
+                                            "a beam search)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 # --------------------------------------------------------------- phase 3
 
-def run_batches(eng, Q, T):
+def run_batches(eng, Q, T, stats=None):
     ids, lat = [], []
     for s in range(0, Q.shape[0], BATCH):
         t0 = time.perf_counter()
-        out, _ = eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
-                                  ratio_k=RATIO_K)
+        out, st = eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
+                                   ratio_k=RATIO_K, ef_search=EF_SEARCH)
         lat.append(time.perf_counter() - t0)      # ids are on the host
         ids.append(out)
+        if stats is not None:
+            stats.append(st)
     return np.concatenate(ids), lat
 
 
@@ -249,7 +387,7 @@ def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
         t0 = time.perf_counter()
         for s in range(0, n_batches * BATCH, BATCH):
             eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
-                             ratio_k=RATIO_K)
+                             ratio_k=RATIO_K, ef_search=EF_SEARCH)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -300,8 +438,6 @@ def main_path(n: int, n_queries: int) -> dict:
     import torch
     from repro_torch.core import dcpe, ppanns
     from repro_torch.data import synth
-    from repro_torch.kernels.dce_comp import dce_comp
-    from repro_torch.kernels.l2_topk import l2_topk
     from repro_torch.serving.search_engine import SecureSearchEngine
 
     t0 = time.perf_counter()
@@ -327,16 +463,15 @@ def main_path(n: int, n_queries: int) -> dict:
     eng.search_batch(Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K)   # upload
     t_warm = time.perf_counter() - t0
 
-    l2_topk.launches = 0
-    dce_comp.launches = 0
+    reset_launches()
     ids, lat = run_batches(eng, Q, T)
-    launches = {"l2_topk": l2_topk.launches, "dce_comp": dce_comp.launches}
+    launches = kernel_launches()
     resident = torch.cuda.memory_allocated()
     peak = torch.cuda.max_memory_allocated()
 
     with plain_kernels():
         ids_plain, lat_plain = run_batches(eng, Q, T)
-    if (l2_topk.launches, dce_comp.launches) != tuple(launches.values()):
+    if kernel_launches() != launches:
         raise AssertionError("a kernel launched during the plain run")
 
     log(json.dumps(profile_batches(eng, Q, T)))
@@ -363,9 +498,227 @@ def main_path(n: int, n_queries: int) -> dict:
     log(json.dumps(out))
     if ids.shape != (Q.shape[0], K) or (ids < 0).any() or (ids >= n).any():
         raise AssertionError("main path returned ids outside the database")
-    if min(launches.values()) <= 0:
+    if min(launches["l2_topk"], launches["dce_comp"]) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
+        raise AssertionError(f"kernel and plain runs disagree: ids "
+                             f"{agree}, recall {rec} vs {rec_plain}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 4
+
+def build_hnsw(C_sap: np.ndarray, M: int, ef_construction: int, seed: int):
+    """Worker process: the owner's HNSW build over C_SAP (host numpy),
+    and its seconds."""
+    from repro_torch.core.hnsw import HNSW
+    t0 = time.perf_counter()
+    index = HNSW(C_sap.shape[1], M=M, ef_construction=ef_construction,
+                 seed=seed).build(C_sap)
+    return index, time.perf_counter() - t0
+
+
+def graph_setup(n: int, n_queries: int, pool) -> dict:
+    """The graph path's corpus and queries, encrypted on the card, and
+    the HNSW build over C_SAP started in `pool`."""
+    from repro_torch.core import dcpe, ppanns
+    from repro_torch.data import synth
+    t0 = time.perf_counter()
+    ds = synth.make_dataset("sift1m", n=n, n_queries=n_queries, k_gt=K)
+    t_data = time.perf_counter() - t0
+    owner = ppanns.DataOwner(d=ds.d, sap_beta=dcpe.suggest_beta(
+        ds.base, 0.03), seed=OWNER_SEED)
+    t0 = time.perf_counter()
+    C_sap, C_dce = owner.encrypt_vectors(ds.base)          # on the card
+    t_enc = time.perf_counter() - t0
+    build = pool.apply_async(build_hnsw, (C_sap, GRAPH_M,
+                                          GRAPH_EF_CONSTRUCTION,
+                                          OWNER_SEED + 3))
+    user = ppanns.User(owner.share_keys())
+    Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
+    log(json.dumps({"phase": "graph_setup", "n": ds.n, "d": ds.d,
+                    "queries": Q.shape[0], "dataset_s": t_data,
+                    "encrypt_vectors_s": t_enc, "hnsw_M": GRAPH_M,
+                    "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION}))
+    return {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q, "T": T,
+            "build": build, "t_data": t_data, "t_enc": t_enc}
+
+
+@contextlib.contextmanager
+def recorded_walks(out: list):
+    """Keep each batch's per-query hop and edge counts (device tensors,
+    no sync) from the graph walk's entry point."""
+    from repro_torch.kernels.graph_expand import ops as graph_ops
+    inner = graph_ops.graph_topk
+
+    def record(*a, **kw):
+        res = inner(*a, **kw)
+        out.append((res[3], res[4]))
+        return res
+    graph_ops.graph_topk = record
+    try:
+        yield
+    finally:
+        graph_ops.graph_topk = inner
+
+
+def graph_breakdown(eng, Q, T, reps: int = 10) -> dict:
+    """Host-clock time of one graph batch and of its two filter stages
+    run alone on the same queries (each ended by a synchronize): the
+    upper-layer descent (torch ops, a host sync per greedy step) and
+    the layer-0 kernel.  Medians of `reps`.  Also the layer-0 kernel's
+    device time on the real graph and its bound from that walk."""
+    import torch
+    from repro_torch.graph import beam_plan, traverse
+    from repro_torch.kernels.graph_expand import graph_expand
+    gf = eng.backend
+    Qb = torch.from_numpy(np.asarray(Q[:BATCH], np.float32)).to(
+        gf._db[0].device)
+    kp = K * RATIO_K
+    ef, ef_cap, max_hops = beam_plan(kp, max(EF_SEARCH, kp))
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    upper = lambda: traverse.upper_entry(gf._neigh_up, gf._ok, gf._db, Qb,
+                                         gf.csr.entry)
+    ep, ep_d, _, _ = upper()
+    layer0 = lambda: graph_expand.expand_layer0(
+        gf._neigh0, gf._ok, gf._db[0], Qb, ep, ep_d, ef, ef_cap=ef_cap,
+        max_hops=max_hops)
+    _, _, _, hops, edges = layer0()
+    R, M0 = gf._neigh0.shape
+    b_ms, b_by = graph_expand_bound(hops, edges, R, M0, Qb.shape[1], ef_cap)
+    return {
+        "phase": "graph_breakdown", "batch": BATCH, "reps": reps,
+        "search_batch_ms": timed(lambda: eng.search_batch(
+            Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K, ef_search=EF_SEARCH)),
+        "filter_candidates_ms": timed(lambda: gf.candidates(
+            Q[:BATCH], kp, EF_SEARCH)),
+        "upper_descent_ms": timed(upper),
+        "expand_layer0_ms": timed(layer0),
+        "expand_layer0_device_ms": device_ms(layer0),
+        "expand_layer0_bound_ms": b_ms, "expand_layer0_bound_by": b_by,
+        "layer0_hops_per_query_mean": float(hops.float().mean()),
+        "layer0_edges_per_query_mean": float(edges.float().mean()),
+    }
+
+
+def graph_path(g: dict) -> dict:
+    import warnings
+
+    import torch
+    from repro_torch.data import synth
+    from repro_torch.graph import GraphFilter
+    from repro_torch.serving.search_engine import (HNSWGraphFilter,
+                                                   SecureSearchEngine)
+    ds, Q, T = g["ds"], g["Q"], g["T"]
+    t0 = time.perf_counter()
+    index, build_s = g["build"].get()
+    t_wait = time.perf_counter() - t0
+    log(json.dumps({"phase": "graph_build", "n": index.size,
+                    "hnsw_M": GRAPH_M,
+                    "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION,
+                    "build_s": build_s, "waited_after_flat_path_s": t_wait,
+                    "layers": len(index.links)}))
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng = SecureSearchEngine(g["C_sap"], g["C_dce"],
+                             backend=GraphFilter(index))      # the card
+    t0 = time.perf_counter()
+    eng.search_batch(Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K,
+                     ef_search=EF_SEARCH)        # CSR mirror + upload
+    t_warm = time.perf_counter() - t0
+
+    reset_launches()
+    walks, stats = [], []
+    t0 = time.perf_counter()
+    with recorded_walks(walks):
+        ids, lat = run_batches(eng, Q, T, stats)
+    t_run = time.perf_counter() - t0
+    launches = kernel_launches()
+    resident = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    with plain_kernels():
+        ids_plain, lat_plain = run_batches(eng, Q, T)
+    t_plain = time.perf_counter() - t0
+    if kernel_launches() != launches:
+        raise AssertionError("a kernel launched during the plain run")
+
+    prof = profile_batches(eng, Q, T)
+    log(json.dumps(dict(prof, path="graph")))
+    log(json.dumps(graph_breakdown(eng, Q, T)))
+
+    t0 = time.perf_counter()
+    oracle = SecureSearchEngine(g["C_sap"], g["C_dce"],
+                                backend=HNSWGraphFilter(index))
+    with warnings.catch_warnings():         # the host walk is deprecated
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ids_host, _ = run_batches(oracle, Q[:ORACLE_QUERIES],
+                                  T[:ORACLE_QUERIES])
+    t_oracle = time.perf_counter() - t0
+
+    hops = torch.cat([h for h, _ in walks]).cpu().numpy()
+    edges = torch.cat([e for _, e in walks]).cpu().numpy()
+    rec = synth.recall_at_k(ids, ds.gt, K)
+    rec_plain = synth.recall_at_k(ids_plain, ds.gt, K)
+    agree = float((ids == ids_plain).mean())
+    nq = Q.shape[0]
+    out = {
+        "phase": "graph_path", "n": ds.n, "d": ds.d, "queries": nq,
+        "batch": BATCH, "k": K, "k_prime": K * RATIO_K,
+        "ef_search": EF_SEARCH, "hnsw_M": GRAPH_M,
+        "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION,
+        "recall@10": rec, "recall@10_plain": rec_plain,
+        "id_agreement": agree,
+        "host_walk_queries": ORACLE_QUERIES,
+        "host_walk_id_agreement": float(
+            (ids[:ORACLE_QUERIES] == ids_host).mean()),
+        "recall@10_host_walk": synth.recall_at_k(
+            ids_host, ds.gt[:ORACLE_QUERIES], K),
+        "qps": nq / sum(lat),
+        "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "qps_plain": nq / sum(lat_plain),
+        "batch_p50_ms_plain": float(np.percentile(lat_plain, 50)) * 1e3,
+        "batch_p99_ms_plain": float(np.percentile(lat_plain, 99)) * 1e3,
+        "hops_per_query_mean": float(hops.mean()),
+        "hops_per_query_max": int(hops.max()),
+        "edges_per_query_mean": float(edges.mean()),
+        "edges_per_query_max": int(edges.max()),
+        "search_stats": {f: int(sum(getattr(st, f) for st in stats))
+                         for f in ("filter_dist_evals", "n_hops",
+                                   "n_edges_scanned", "filter_bytes_scanned",
+                                   "refine_comparisons")},
+        "launches": launches,
+        "device_resident_bytes": resident - before,
+        "device_peak_bytes": peak - before,
+        "device_bytes_held_before_the_engine": before,
+        "build_s": build_s,
+        "wall_s": {"dataset": g["t_data"], "encrypt_vectors": g["t_enc"],
+                   "hnsw_build": build_s,
+                   "waited_for_build_after_flat_path": t_wait,
+                   "first_batch_with_csr_and_upload": t_warm,
+                   "kernel_run": t_run, "plain_run": t_plain,
+                   "host_walk_oracle": t_oracle},
+    }
+    log(json.dumps(out))
+    if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
+        raise AssertionError("graph path returned ids outside the database")
+    if launches["graph_expand"] != len(lat) or launches["dce_comp"] <= 0:
+        raise AssertionError(f"graph path kernels: {launches} for "
+                             f"{len(lat)} batches")
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
@@ -375,7 +728,10 @@ def main_path(n: int, n_queries: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
-                    help="database rows (default: SIFT1M's 1,000,000)")
+                    help="flat path rows (default: SIFT1M's 1,000,000)")
+    ap.add_argument("--graph-n", type=int, default=100_000,
+                    help="graph path rows (default 100,000: the host HNSW "
+                         "build takes minutes)")
     ap.add_argument("--queries", type=int, default=1024)
     args = ap.parse_args()
 
@@ -388,6 +744,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     # phase 1 -------------------------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -399,21 +756,40 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
 
-    # phase 2 -------------------------------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    records = [check_l2(32, 4096, 128, gen), check_l2(32, 4096, 960, gen),
-               check_z(32, 80, 128, gen), check_z(32, 80, 960, gen),
-               check_z(1, 512, 128, gen, single=True)]
-    for r in records:
-        log(json.dumps(dict(r, card=card)))
+    # the pool's exit terminates the build worker, also on a failure
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        graph = graph_setup(args.graph_n, args.queries, pool)
 
-    # phase 3 -------------------------------------------------------
-    small_reference_check()
-    launches = main_path(args.n, args.queries)
+        # phase 2 ---------------------------------------------------
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        records = [check_l2(32, 4096, 128, gen),
+                   check_l2(32, 4096, 960, gen),
+                   check_z(32, 80, 128, gen), check_z(32, 80, 960, gen),
+                   check_z(1, 512, 128, gen, single=True),
+                   check_graph_expand(2 ** 17, 16, 128, gen),
+                   check_graph_expand(2 ** 20, 32, 128, gen),
+                   check_graph_expand(2 ** 17, 32, 960, gen)]
+        for r in records:
+            log(json.dumps(dict(r, card=card)))
 
+        # phase 3 ---------------------------------------------------
+        small_reference_check()
+        flat = main_path(args.n, args.queries)
+        gc.collect()                    # the flat engine is gone: free
+        torch.cuda.empty_cache()        # its 4.9 GB before the graph path
+
+        # phase 4 ---------------------------------------------------
+        on_graph = graph_path(graph)
+
+    paths = {"flat": flat, "graph": on_graph}
     for r in records:
-        r["launches"] = launches["l2_topk" if r["name"].startswith("l2")
-                                 else "dce_comp"]
+        kern = r["name"].split(".")[0]
+        # launches: on the path the kernel was ported for (K2/K3 count
+        # the flat path's refine); launches_by_path: on each path
+        r["launches"] = (on_graph if kern == "graph_expand" else flat)[kern]
+        r["launches_by_path"] = {p: c[kern] for p, c in paths.items()}
+    log(json.dumps({"phase": "done",
+                    "wall_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

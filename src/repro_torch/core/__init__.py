@@ -1,4 +1,5 @@
-"""Paper core, as far as the flat filter-and-refine path needs it: DCE,
-DCPE, the secure k-NN refines, the wire frame and the scheme's roles."""
+"""Paper core, as far as the flat and graph filter-and-refine paths need
+it: DCE, DCPE, the owner's HNSW, the secure k-NN refines, the wire frame
+and the scheme's roles."""
 
-from . import dce, dcpe, ppanns, secure_knn, wireformat  # noqa: F401
+from . import dce, dcpe, hnsw, ppanns, secure_knn, wireformat  # noqa: F401

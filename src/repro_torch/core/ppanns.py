@@ -1,18 +1,18 @@
-"""The PP-ANNS scheme's roles (paper §V, Figs. 1 & 3), as far as the flat
-filter-and-refine path needs them.
+"""The PP-ANNS scheme's roles (paper §V, Figs. 1 & 3).
 
   * DataOwner — holds the secret keys; encrypts the database with DCPE
-    (filter ciphertexts) and DCE (refine ciphertexts).  The numpy
-    `encrypt_database` path is the JAX package's, bit for bit; the batched
+    (filter ciphertexts) and DCE (refine ciphertexts) and builds the HNSW
+    graph over C_SAP.  The numpy `encrypt_database` path is the JAX
+    package's, bit for bit (ciphertexts and graph); the batched
     `encrypt_vectors` path runs on the card.
   * User — receives the keys from the owner; per query computes the DCPE
     ciphertext C_SAP_q and the DCE trapdoor T_q (O(d^2) work, §V-C) and
     sends (C_SAP_q, T_q, k).
+  * Server — runs Algorithm 2 on ciphertexts only: a facade over
+    `serving.search_engine.SecureSearchEngine` with the paper's HNSW
+    filter (the per-query host walk), the refine on the card.
 
-The server side is `serving.search_engine.SecureSearchEngine`.  The
-`Server` facade and `build_system` are built on the HNSW graph filter
-and come with the HNSW slice of the port; `DataOwner.from_keys` comes
-with the api slice, its only caller.
+`DataOwner.from_keys` comes with the api slice, its only caller.
 
 `Keys` crosses process boundaries (and packages) through the same wire
 frame as the JAX package's `Keys` (kind "ppanns-keys", version 1), so
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 
 import numpy as np
 import torch
@@ -30,10 +31,11 @@ import torch
 from ..device import resolve_device
 from ..kernels.common import next_bucket
 from . import dce, dcpe
+from . import hnsw as hnsw_mod
 from .wireformat import WireFormatError, pack, unpack
 
 __all__ = ["Keys", "KEYS_WIRE_VERSION", "EncryptedDatabase", "DataOwner",
-           "User"]
+           "User", "Server", "build_system"]
 
 KEYS_WIRE_VERSION = 1
 
@@ -103,8 +105,7 @@ class Keys:
 @dataclasses.dataclass
 class EncryptedDatabase:
     """Everything the server stores (paper §V-A): C_SAP, the graph index
-    over C_SAP (always None until the HNSW slice of the port), and
-    C_DCE."""
+    over C_SAP, and C_DCE."""
     C_sap: np.ndarray            # (n, d)       DCPE ciphertexts
     index: object | None         # graph index on C_sap (None: no graph)
     C_dce: np.ndarray            # (n, 4, 2d+16) DCE ciphertexts
@@ -129,17 +130,19 @@ class DataOwner:
         self, P: np.ndarray, M: int = 16, ef_construction: int = 200,
         progress_every: int = 0, build_index: bool = True,
     ) -> EncryptedDatabase:
-        """The numpy encryption of the whole database, bit-identical to
-        the JAX package's for the same seed.  The HNSW graph over C_SAP
-        is not ported yet: pass `build_index=False`."""
-        if build_index:
-            raise NotImplementedError(
-                "the HNSW index build comes with the HNSW slice of the "
-                "port (ROADMAP Queue 1 item 5); pass build_index=False")
+        """The numpy encryption of the whole database and the HNSW graph
+        over C_SAP (host numpy), bit-identical to the JAX package's for
+        the same seed."""
         P = np.atleast_2d(np.asarray(P))
         C_sap = dcpe.encrypt(P, self.keys.sap_key, seed=self._seed + 1)
         C_dce = dce.encrypt(P, self.keys.dce_key, seed=self._seed + 2)
-        return EncryptedDatabase(C_sap=C_sap, index=None, C_dce=C_dce)
+        index = None
+        if build_index:
+            index = hnsw_mod.HNSW(dim=P.shape[1], M=M,
+                                  ef_construction=ef_construction,
+                                  seed=self._seed + 3)
+            index.build(C_sap, progress_every=progress_every)
+        return EncryptedDatabase(C_sap=C_sap, index=index, C_dce=C_dce)
 
     def encrypt_vector(self, p: np.ndarray, seed: int):
         """For incremental insert (paper §V-D): owner encrypts, server links."""
@@ -208,3 +211,79 @@ class User:
         C_sap_q = dcpe.encrypt(q[None], self.keys.sap_key, seed=self._ctr)[0]
         T_q = dce.trapgen(q[None], self.keys.dce_key, seed=self._ctr + 1)[0]
         return C_sap_q, T_q
+
+
+class Server:
+    """Runs Algorithm 2 on ciphertexts only.
+
+    A thin facade over `SecureSearchEngine` with the paper's HNSW filter
+    backend (the per-query host walk): `search` wraps the engine's
+    batch-of-one path (so looped `search` and `search_batch` return
+    identical ids), and `refine="heap"` keeps the paper's sequential
+    max-heap refine with its comparison instrumentation.  `device` is
+    where the refine runs (None: the card).
+    """
+
+    def __init__(self, db: EncryptedDatabase, device=None):
+        from ..serving.search_engine import (HNSWGraphFilter,
+                                             SecureSearchEngine)
+        self.db = db
+        self.engine = SecureSearchEngine(
+            db.C_sap, db.C_dce, backend=HNSWGraphFilter(db.index),
+            device=device)
+
+    def search(self, C_sap_q: np.ndarray, T_q: np.ndarray, k: int,
+               ratio_k: float = 8.0, ef_search: int = 96,
+               refine: str = "tournament"):   # | "heap" | "none"
+        warnings.warn(
+            "ppanns.Server.search is a legacy entry point; new code should "
+            "go through SecureSearchEngine with repro_torch.graph."
+            "GraphFilter, which returns the same ids",
+            DeprecationWarning, stacklevel=2)
+        return self.engine.search(
+            np.asarray(C_sap_q), np.asarray(T_q), k, ratio_k=ratio_k,
+            ef_search=ef_search, refine=refine)
+
+    def search_batch(self, Q_sap: np.ndarray, T_q: np.ndarray, k: int,
+                     ratio_k: float = 8.0, ef_search: int = 96):
+        """Batched Algorithm 2: HNSW filter per query (host graph walk),
+        one batched DCE tournament refine on the engine's device."""
+        return self.engine.search_batch(
+            Q_sap, T_q, k, ratio_k=ratio_k, ef_search=ef_search)
+
+    # ------------------------------------------------- maintenance (§V-D)
+
+    def insert(self, C_sap: np.ndarray, C_dce_vec: np.ndarray):
+        node = self.db.index.insert(C_sap)
+        self.db.C_sap = np.concatenate([self.db.C_sap, C_sap[None]], 0)
+        self.db.C_dce = np.concatenate([self.db.C_dce, C_dce_vec[None]], 0)
+        self.engine.update_database(self.db.C_sap, self.db.C_dce)
+        return node
+
+    def delete(self, node: int):
+        """Deletion needs no data-owner participation (paper §V-D)."""
+        self.db.index.delete(node)
+        self.db.C_dce[node] = 0.0     # scrub ciphertext
+        self.engine.update_database(self.db.C_sap, self.db.C_dce)
+
+
+def build_system(P: np.ndarray, beta_fraction: float = 0.05,
+                 beta: float | None = None, s: float = 1024.0,
+                 M: int = 16, ef_construction: int = 200, seed: int = 0,
+                 device=None):
+    """Convenience: owner encrypts P, returns (owner, user, server).
+
+    .. deprecated:: kept for the JAX package's callers; build the
+       `DataOwner`, `User` and a `SecureSearchEngine` directly.
+    """
+    warnings.warn(
+        "ppanns.build_system is deprecated; build DataOwner, User and "
+        "SecureSearchEngine directly",
+        DeprecationWarning, stacklevel=2)
+    P = np.atleast_2d(np.asarray(P))
+    if beta is None:
+        beta = dcpe.suggest_beta(P, fraction=beta_fraction)
+    owner = DataOwner(d=P.shape[1], sap_beta=beta, sap_s=s, seed=seed)
+    db = owner.encrypt_database(P, M=M, ef_construction=ef_construction)
+    user = User(owner.share_keys())
+    return owner, user, Server(db, device=device)

@@ -1,4 +1,5 @@
 """Serving layer: the batched secure-search engine."""
 
-from .search_engine import (FlatScanFilter, SearchStats,  # noqa: F401
-                            SecureSearchEngine, refine_candidates)
+from .search_engine import (FlatScanFilter, HNSWGraphFilter,  # noqa: F401
+                            SearchStats, SecureSearchEngine,
+                            refine_candidates)

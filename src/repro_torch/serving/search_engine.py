@@ -1,18 +1,24 @@
 """Batched secure filter-and-refine engine on the card.
 
-Counterpart of `repro.serving.search_engine`, as far as the flat path:
+Counterpart of `repro.serving.search_engine`, as far as the flat and
+graph paths:
 
-  filter:  `FlatScanFilter` — exhaustive scan of the DCPE ciphertexts
-           through the l2_topk CUDA kernel (chunked distance tiles and a
-           running top-k', no (nq, n) matrix in device memory).
+  filter:  a pluggable backend produces k' candidate ids per query —
+             * FlatScanFilter  — exhaustive scan of the DCPE ciphertexts
+               through the l2_topk CUDA kernel (chunked distance tiles
+               and a running top-k', no (nq, n) matrix in device memory);
+             * `repro_torch.graph.GraphFilter` — the batched HNSW walk,
+               its layer-0 beam search in the graph_expand CUDA kernel;
+             * HNSWGraphFilter — the per-query host walk, kept as the
+               graph filter's parity oracle.
   refine:  one batched DCE tournament over the candidate sets through the
            dce_comp CUDA kernel (`batched_top_k_by_wins`) — no per-query
            Python loop.
 
 `SecureSearchEngine.search` is a batch-of-one wrapper over
 `search_batch`, so the per-query and batched paths return identical ids.
-The IVF, HNSW and graph backends and the quantized ADC filter come with
-later slices of the port; asking for them raises `NotImplementedError`.
+The IVF backend and the quantized ADC filter come with later slices of
+the port; asking for them raises `NotImplementedError`.
 
 Privacy envelope: the engine sees only DCPE filter ciphertexts and DCE
 refine ciphertexts / trapdoors — never plaintexts or true distances,
@@ -24,18 +30,21 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ..core import secure_knn
+from ..core.hnsw import HNSW
 from ..device import resolve_device
 from ..kernels.dce_comp import ops as dce_ops
 from ..kernels.l2_topk import ops as l2_ops
 from ..obs.trace import child_span
 
 __all__ = ["SearchStats", "SecureSearchEngine", "FlatScanFilter",
-           "refine_candidates"]
+           "HNSWGraphFilter", "refine_candidates",
+           "traverse_graph_candidates"]
 
 
 @dataclasses.dataclass
@@ -125,14 +134,52 @@ class FlatScanFilter:
         return cand, valid, Q_sap.shape[0] * n
 
 
-_LATER_SLICES = {
-    "ivf": "the IVF backend comes with a later slice of the port "
-           "(ROADMAP Queue 1 item 4)",
-    "hnsw": "the HNSW graph filter comes with the HNSW slice of the port "
-            "(ROADMAP Queue 1 item 5)",
-    "graph": "the batched graph filter comes with the HNSW slice of the "
-             "port (ROADMAP Queue 1 item 5)",
-}
+def traverse_graph_candidates(index: HNSW, Q_sap: np.ndarray, kp: int,
+                              ef_search: int):
+    """Per-query host-side HNSW traversal, padded to an (nq, kp)
+    rectangle.  Returns (cand, valid, n_dist_evals) as numpy arrays.
+
+    Deprecated as a serving path: `repro_torch.graph.GraphFilter` runs
+    the same walk batched over the whole query set (recall-identical at
+    fixed ef).  This loop is kept as the parity oracle."""
+    warnings.warn(
+        "the per-query host HNSW walk is deprecated as a serving path; "
+        "use repro_torch.graph.GraphFilter (batched, recall-identical at "
+        "fixed ef) — the host walk remains as the parity oracle",
+        DeprecationWarning, stacklevel=2)
+    nq = Q_sap.shape[0]
+    evals0 = index.n_dist_evals
+    cand = np.zeros((nq, kp), np.int32)
+    valid = np.zeros((nq, kp), bool)
+    for qi in range(nq):
+        ids, _ = index.search(np.asarray(Q_sap[qi]), kp,
+                              ef=max(ef_search, kp))
+        cand[qi, : ids.size] = ids
+        valid[qi, : ids.size] = True
+    return cand, valid, index.n_dist_evals - evals0
+
+
+class HNSWGraphFilter:
+    """Host-side HNSW traversal over DCPE ciphertexts, one query at a
+    time (the paper's filter as written; the parity oracle of
+    `GraphFilter`).  Only the filter loops over queries — the refine is
+    batched on the engine's device regardless of backend."""
+
+    name = "hnsw"
+
+    def __init__(self, index: HNSW):
+        self.index = index
+        self.last_filter_bytes = 0
+
+    def attach(self, C_sap: np.ndarray, engine: "SecureSearchEngine"):
+        pass                      # the graph already stores its ciphertexts
+
+    def candidates(self, Q_sap: np.ndarray, kp: int, ef_search: int):
+        cand, valid, evals = traverse_graph_candidates(
+            self.index, Q_sap, kp, ef_search)
+        # pointer chasing re-reads per query: one full row per eval
+        self.last_filter_bytes = int(evals) * Q_sap.shape[1] * 4
+        return cand, valid, evals
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +189,12 @@ _LATER_SLICES = {
 class SecureSearchEngine:
     """Batched filter-and-refine over an encrypted database.
 
-    backend: "flat" | a filter-backend instance.  device: where the
-    ciphertexts live and the search runs; None means the card (and
-    raises without one), "cpu" runs the plain PyTorch versions.
-    quantization must stay None until the ADC slice of the port.
+    backend: "flat" | a filter-backend instance (e.g.
+    `repro_torch.graph.GraphFilter(index)` — pass the HNSW built by the
+    data owner).  device: where the ciphertexts live and the search
+    runs; None means the card (and raises without one), "cpu" runs the
+    plain PyTorch versions.  quantization must stay None until the ADC
+    slice of the port.
     """
 
     def __init__(self, C_sap: np.ndarray, C_dce: np.ndarray, *,
@@ -156,8 +205,18 @@ class SecureSearchEngine:
                 "quantized ADC filters come with the ADC slice of the port "
                 "(ROADMAP Queue 1 item 6)")
         if isinstance(backend, str):
-            if backend in _LATER_SLICES:
-                raise NotImplementedError(_LATER_SLICES[backend])
+            if backend == "hnsw":
+                raise ValueError(
+                    "pass HNSWGraphFilter(index) explicitly: the graph is "
+                    "built by the data owner, not the engine")
+            if backend == "graph":
+                raise ValueError(
+                    "pass repro_torch.graph.GraphFilter(index) explicitly: "
+                    "the graph is built by the data owner, not the engine")
+            if backend == "ivf":
+                raise NotImplementedError(
+                    "the IVF backend comes with a later slice of the port "
+                    "(ROADMAP Queue 1 item 4)")
             if backend != "flat":
                 raise ValueError(f"unknown backend {backend!r}")
             backend = FlatScanFilter(**backend_kw)
@@ -254,6 +313,9 @@ class SecureSearchEngine:
             backend=self.backend.name,
             filter_bytes_scanned=int(
                 getattr(self.backend, "last_filter_bytes", 0)),
+            n_hops=int(getattr(self.backend, "last_n_hops", 0)),
+            n_edges_scanned=int(
+                getattr(self.backend, "last_n_edges_scanned", 0)),
         )
         return ids, stats
 
@@ -292,5 +354,8 @@ class SecureSearchEngine:
             backend=self.backend.name,
             filter_bytes_scanned=int(
                 getattr(self.backend, "last_filter_bytes", 0)),
+            n_hops=int(getattr(self.backend, "last_n_hops", 0)),
+            n_edges_scanned=int(
+                getattr(self.backend, "last_n_edges_scanned", 0)),
         )
         return ids, stats

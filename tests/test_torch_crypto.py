@@ -115,9 +115,18 @@ def test_owner_and_user_bit_identical(d):
 
 
 def test_encrypt_database_with_index_names_the_hnsw_slice():
-    owner = ppanns.DataOwner(d=8, sap_beta=1.0)
-    with pytest.raises(NotImplementedError, match="HNSW"):
-        owner.encrypt_database(np.zeros((4, 8), np.float32))
+    """The HNSW slice is ported: with build_index=True the owner builds
+    the graph over C_SAP (seed + 3), bit-identical to the JAX owner's."""
+    P = np.random.default_rng(8).standard_normal((60, 8)).astype(np.float32)
+    tdb = ppanns.DataOwner(d=8, sap_beta=1.0, seed=4).encrypt_database(
+        P, M=4, ef_construction=20)
+    jdb = jppanns.DataOwner(d=8, sap_beta=1.0, seed=4).encrypt_database(
+        P, M=4, ef_construction=20)
+    assert tdb.C_sap.tobytes() == jdb.C_sap.tobytes()
+    a, b = tdb.index.to_arrays(), jdb.index.to_arrays()
+    assert set(a) == set(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
 
 
 # ------------------------------------------------------------ wire/keys

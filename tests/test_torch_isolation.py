@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import dce, dcpe, ppanns, secure_knn
 from repro_torch.kernels import _build
 from repro_torch.kernels.dce_comp import dce_comp
+from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
 from repro_torch.serving.search_engine import SecureSearchEngine
 
@@ -39,7 +40,8 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import repro_torch, repro_torch.core, repro_torch.serving, "
             "repro_torch.obs, repro_torch.data.synth, repro_torch.kernels."
-            "l2_topk, repro_torch.kernels.dce_comp\n"
+            "l2_topk, repro_torch.kernels.dce_comp, repro_torch.graph, "
+            "repro_torch.kernels.graph_expand.ops\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -81,12 +83,16 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
         raise AssertionError("CPU tensor reached the kernel launch path")
     monkeypatch.setattr(_build, "function", refuse)
     monkeypatch.setattr(_build, "build", refuse)
-    before = (l2_topk.launches, dce_comp.launches)
+    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches)
     out = l2_topk.pairwise_sq_dists(torch.ones(2, 3), torch.ones(4, 3))
     torch.testing.assert_close(out, torch.zeros(2, 4))
     Z = dce_comp.batched_z_matrix(torch.ones(2, 5, 4, 6), torch.ones(2, 6))
     assert Z.shape == (2, 5, 5)
-    assert (l2_topk.launches, dce_comp.launches) == before
+    beam_i, *_ = graph_expand.expand_layer0(*_graph_inputs("cpu", 2, 64, 4, 3),
+                                            ef=4, ef_cap=32, max_hops=16)
+    assert beam_i.shape == (2, 32)
+    assert (l2_topk.launches, dce_comp.launches,
+            graph_expand.launches) == before
 
 
 def test_mixed_devices_refused():
@@ -107,6 +113,26 @@ def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
     assert '"ok"' not in out.stdout
 
 
+def _graph_inputs(device, nq, R, M0, d, seed=0, ep_missing=True):
+    """A random layer-0 graph (some -1 slots, some rows with ok = 0) over
+    integer-valued rows, so every fp32 distance is exact in any summation
+    order; entry points are random rows (query 0 gets -1: an empty
+    graph's entry)."""
+    rng = np.random.default_rng(seed)
+    C = rng.integers(-8, 9, size=(R, d)).astype(np.float32)
+    Q = rng.integers(-8, 9, size=(nq, d)).astype(np.float32)
+    neigh0 = rng.integers(0, R, size=(R, M0)).astype(np.int32)
+    neigh0[rng.random((R, M0)) < 0.1] = -1
+    ok = rng.random(R) > 0.02
+    ep = rng.integers(0, R, size=nq).astype(np.int64)
+    if ep_missing:
+        ep[0] = -1
+    ep_d = ((C[np.maximum(ep, 0)] - Q) ** 2).sum(-1).astype(np.float32)
+    ep_d[ep < 0] = np.inf
+    return [torch.as_tensor(a, device=device)
+            for a in (neigh0, ok, C, Q, ep, ep_d)]
+
+
 # ------------------------------------------------------- on the card only
 
 @pytest.mark.cuda
@@ -117,15 +143,19 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(l2_topk, "plain_pairwise_sq_dists", refuse)
     monkeypatch.setattr(dce_comp, "plain_batched_z_matrix", refuse)
-    before = (l2_topk.launches, dce_comp.launches)
+    monkeypatch.setattr(graph_expand, "plain_expand_layer0", refuse)
+    monkeypatch.setattr(graph_expand._ref, "beam_layer0", refuse)
+    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches)
     Q = torch.randn(5, 33, device="cuda")
     X = torch.randn(70, 33, device="cuda")
     l2_topk.pairwise_sq_dists(Q, X)
     dce_comp.batched_z_matrix(torch.randn(3, 9, 4, 40, device="cuda"),
                               torch.randn(3, 40, device="cuda"))
+    graph_expand.expand_layer0(*_graph_inputs("cuda", 3, 64, 4, 8), ef=8,
+                               ef_cap=32, max_hops=64)
     torch.cuda.synchronize()
-    assert (l2_topk.launches, dce_comp.launches) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert (l2_topk.launches, dce_comp.launches,
+            graph_expand.launches) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda
@@ -158,6 +188,25 @@ def test_z_kernel_matches_plain_on_the_card(B, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,R,M0,d,ef,ef_cap", [
+    (5, 300, 7, 13, 20, 32), (32, 4096, 16, 128, 96, 128),
+    (3, 1000, 32, 960, 64, 64)])
+def test_graph_expand_kernel_matches_plain_on_the_card(nq, R, M0, d, ef,
+                                                       ef_cap):
+    """Integer-valued rows: every distance is exact in both summation
+    orders, so the kernel must equal its plain version exactly (beam,
+    visited trace, hops, edges), ties and all."""
+    _needs_card()
+    args = _graph_inputs("cuda", nq, R, M0, d, seed=R)
+    kw = dict(ef=ef, ef_cap=ef_cap, max_hops=4 * ef_cap)
+    got = graph_expand.expand_layer0(*args, **kw)
+    want = graph_expand.plain_expand_layer0(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[3].max()) > 1
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_card()
     Q = torch.randn(4, 8, device="cuda")
@@ -168,3 +217,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         dce_comp.batched_z_matrix(torch.randn(2, 3, 4, 8, device="cuda"),
                                   torch.randn(3, 8, device="cuda"))
+    n0, ok, C, Qg, ep, ep_d = _graph_inputs("cuda", 2, 64, 4, 8)
+    with pytest.raises(TypeError):
+        graph_expand.expand_layer0(n0.long(), ok, C, Qg, ep, ep_d, ef=4,
+                                   ef_cap=32, max_hops=8)
+    with pytest.raises(ValueError):
+        graph_expand.expand_layer0(n0, ok, C, Qg, ep, ep_d, ef=33,
+                                   ef_cap=32, max_hops=8)
