@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one card.
 
-    python3 chip_smoke.py            # flat path at SIFT1M scale (n = 1M),
-                                     # graph path at n = 100,000, d = 128
+    python3 chip_smoke.py            # flat and ADC paths at SIFT1M scale
+                                     # (n = 1M), graph path at n = 100,000
     python3 chip_smoke.py --graph-n 20000 --n 20000 --queries 64  # quick
 
 Phases, each of which fails the run (non-zero exit, no final line):
@@ -12,12 +12,15 @@ Phases, each of which fails the run (non-zero exit, no final line):
    `src/repro_torch/csrc/` (with nvcc's register and spill report).
    Then the graph path's corpus is made and encrypted on the card, and
    the owner's HNSW build over it (host numpy, minutes at 100k rows)
-   starts in a worker process, so it runs while phases 2 and 3 use the
+   starts in a worker process, so it runs while phases 2 to 4 use the
    card.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them, with times (CUDA events), bounds
    and a library yardstick where one PyTorch call computes the same
    function.  Tolerances:
+     sq_adc_topk / pq_adc_topk (quantized scan + top-kp): ids and
+     distances exactly equal (int32 surrogates; float32 sums taken in
+     the same subspace order), exhausted slots included;
      l2 tiles: |kernel - plain| <= 1e-5 * (||q||^2 + ||x||^2);
      Z tiles:  |kernel - plain| <= 1e-5 * max|Z|, and equal signs
                wherever |Z_plain| > 1e-5 * max|Z|;
@@ -36,8 +39,18 @@ Phases, each of which fails the run (non-zero exit, no final line):
    versions.  Final ids must agree in >= 99.9% of slots and recall@10
    within 0.005 (ulp-level near-ties at the k' boundary may flip).  A
    small database is also searched on the card and on the host (plain
-   versions) from the numpy encryption: the ids must be equal.
-4. The graph path, after the flat engine is freed:
+   versions) from the numpy encryption, through the flat, IVF, ADC
+   (int8 / pq8, flat / IVF) and ADC graph filters: the ids must agree
+   as on the flat path.
+4. The ADC paths, after the flat engine is freed, on the same
+   ciphertexts and queries: `SecureSearchEngine(backend="flat",
+   quantization="int8" | "pq8")` (codebook trained on the host at
+   attach; sq_adc_topk or pq_adc_topk once per batch, dce_comp for the
+   refine), each once through the kernels and once with them swapped for
+   their plain versions on the same engine (same limits as the flat
+   path); then `backend="ivf", quantization="int8"` (64 partitions,
+   nprobe 8).
+5. The graph path, after the ADC engines are freed:
    `SecureSearchEngine(backend=GraphFilter(index))` over the HNSW of
    phase 1 (M = 8, ef_construction = 48), the same batches, k = 10,
    ratio_k = 8, ef_search = 96: once through the kernels (graph_expand
@@ -67,8 +80,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# int8 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 K = 10
@@ -85,6 +100,9 @@ GRAPH_M = 8
 GRAPH_EF_CONSTRUCTION = 48
 EF_SEARCH = 96
 ORACLE_QUERIES = 64
+# IVF paths: the reference backend's defaults
+IVF_PARTITIONS = 64
+IVF_NPROBE = 8
 
 
 def log(*parts):
@@ -99,8 +117,9 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -129,25 +148,43 @@ def device_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time of a call ended by a synchronize, in ms."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Test-only switch: route the main paths' kernel entry points to
     their plain PyTorch versions, for the comparison runs.  The port
     itself has no such switch."""
+    from repro_torch.kernels.adc_topk import adc_topk, ops as adc_ops
     from repro_torch.kernels.dce_comp import dce_comp, ops as dce_ops
     from repro_torch.kernels.graph_expand import graph_expand
     from repro_torch.kernels.graph_expand import ops as graph_ops
     from repro_torch.kernels.l2_topk import l2_topk, ops as l2_ops
     saved = (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
-             graph_ops.expand_layer0)
+             graph_ops.expand_layer0, adc_ops.sq_adc_topk,
+             adc_ops.pq_adc_topk)
     l2_ops.pairwise_sq_dists = l2_topk.plain_pairwise_sq_dists
     dce_ops.batched_z_matrix = dce_comp.plain_batched_z_matrix
     graph_ops.expand_layer0 = graph_expand.plain_expand_layer0
+    adc_ops.sq_adc_topk = adc_topk.plain_sq_adc_topk
+    adc_ops.pq_adc_topk = adc_topk.plain_pq_adc_topk
     try:
         yield
     finally:
         (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
-         graph_ops.expand_layer0) = saved
+         graph_ops.expand_layer0, adc_ops.sq_adc_topk,
+         adc_ops.pq_adc_topk) = saved
 
 
 def kernel_wrappers() -> dict:
@@ -159,13 +196,23 @@ def kernel_wrappers() -> dict:
             "graph_expand": graph_expand}
 
 
+# the adc_topk wrapper module counts each of its two kernels apart
+ADC_KERNELS = ("sq_adc_topk", "pq_adc_topk")
+
+
 def kernel_launches() -> dict:
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    from repro_torch.kernels.adc_topk import adc_topk
+    out = {k: w.launches for k, w in kernel_wrappers().items()}
+    out.update({k: adc_topk.launches[k] for k in ADC_KERNELS})
+    return out
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels.adc_topk import adc_topk
     for w in kernel_wrappers().values():
         w.launches = 0
+    for k in ADC_KERNELS:
+        adc_topk.launches[k] = 0
 
 
 # --------------------------------------------------------------- phase 2
@@ -359,6 +406,120 @@ def check_graph_expand(R: int, M0: int, d: int, gen, nq: int = BATCH,
     }
 
 
+def adc_valid_rows(n: int, gen, n_valid: int | None = None):
+    """Row validity: about 1% of rows masked, or exactly n_valid valid."""
+    import torch
+    if n_valid is None:
+        return torch.rand(n, generator=gen, device="cuda") > 0.01
+    ok = torch.zeros(n, dtype=torch.bool, device="cuda")
+    ok[torch.randperm(n, generator=gen, device="cuda")[:n_valid]] = True
+    return ok
+
+
+def adc_outputs_equal(got, want, what: str) -> float:
+    """Exact equality of ids and distances (bit-equal floats); returns
+    the largest |distance difference| (0)."""
+    import torch
+    torch.cuda.synchronize()
+    same_i = torch.equal(got[1], want[1])
+    same_d = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if not (same_i and same_d and got[0].dtype == want[0].dtype):
+        agree = float((got[1] == want[1]).float().mean())
+        raise AssertionError(f"{what} disagrees with its plain version: ids "
+                             f"equal in {agree} of slots, dists bit-equal "
+                             f"{same_d}")
+    return float((got[0].double() - want[0].double()).abs().max())
+
+
+def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
+                 n_valid: int | None = None) -> dict:
+    """K4 against its plain version: random int8 codes (the last 1% of
+    rows repeat the first, so exact ties between distinct ids occur),
+    their norms, ~1% of rows masked (or exactly n_valid valid)."""
+    import torch
+    from repro_torch.kernels.adc_topk import adc_topk
+    dev = torch.device("cuda")
+    q8 = torch.randint(-127, 128, (nq, d), generator=gen, device=dev,
+                       dtype=torch.int8)
+    c8 = torch.randint(-127, 128, (n, d), generator=gen, device=dev,
+                       dtype=torch.int8)
+    dup = n // 100
+    if dup:
+        c8[n - dup:] = c8[:dup]
+    cn = (c8.to(torch.int32) ** 2).sum(1, dtype=torch.int32)
+    ok = adc_valid_rows(n, gen, n_valid)
+    args = (q8, c8, cn, ok, kp)
+    got = adc_topk.sq_adc_topk(*args)
+    want = adc_topk.plain_sq_adc_topk(*args)
+    err = adc_outputs_equal(got, want, f"sq_adc_topk at nq={nq} n={n} d={d}")
+    kpp = min(kp, n)
+    nbytes = nq * d + n * d + 4.0 * n + n + 12.0 * nq * kpp
+    b_ms, b_by = bound(2.0 * nq * n * d, nbytes, PEAK_INT8_OPS)
+    rec = {
+        "name": f"adc_topk.sq_adc_topk[nq={nq},n={n},d={d},kp={kp}"
+                + (f",valid={n_valid}]" if n_valid is not None else "]"),
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/adc_topk.cu",
+        "replaces": "src/repro/kernels/adc_topk/adc_topk.py:192",
+        "max_abs_err": err, "id_agreement": 1.0,
+        "empty_slots": int((got[1] < 0).sum()),
+        "ms": device_ms(lambda: adc_topk.sq_adc_topk(*args)),
+        "plain_ms": device_ms(lambda: adc_topk.plain_sq_adc_topk(*args),
+                              reps=10, warmup=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    c8t = c8.T
+    big = adc_topk.INT_BIG
+
+    def library():
+        d_ = cn[None, :] - 2 * torch._int_mm(q8, c8t)
+        return torch.topk(torch.where(ok[None, :], d_, big), kpp, dim=1,
+                          largest=False)
+    try:
+        library()
+        rec["library_ms"] = device_ms(library)
+        rec["library_call"] = ("torch._int_mm(q8, c8.T), cn - 2 cross, "
+                               "torch.topk(largest=False)")
+    except RuntimeError as exc:          # _int_mm refuses some shapes
+        rec["library_ms"] = None
+        rec["library_call"] = f"none: torch._int_mm refused ({exc})"[:200]
+    return rec
+
+
+def check_pq_adc(nq: int, m: int, n: int, kp: int, gen) -> dict:
+    """K5 against its plain version: random tables (half of the entries
+    integer-valued, so equal sums occur) and codes, ~1% of rows masked."""
+    import torch
+    from repro_torch.kernels.adc_topk import adc_topk
+    dev = torch.device("cuda")
+    lut = 100.0 * torch.rand((nq, m, 256), generator=gen, device=dev)
+    lut[:, :, ::2] = lut[:, :, ::2].round()
+    codes_t = torch.randint(0, 256, (m, n), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    ok = adc_valid_rows(n, gen)
+    args = (lut, codes_t, ok, kp)
+    got = adc_topk.pq_adc_topk(*args)
+    want = adc_topk.plain_pq_adc_topk(*args)
+    err = adc_outputs_equal(got, want, f"pq_adc_topk at nq={nq} m={m} n={n}")
+    kpp = min(kp, n)
+    nbytes = m * n + n + 4.0 * nq * m * 256 + 12.0 * nq * kpp
+    b_ms, b_by = bound(float(nq) * n * m, nbytes)
+    return {
+        "name": f"adc_topk.pq_adc_topk[nq={nq},m={m},n={n},kp={kp}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/adc_topk.cu",
+        "replaces": "src/repro/kernels/adc_topk/adc_topk.py:249",
+        "max_abs_err": err, "id_agreement": 1.0,
+        "ms": device_ms(lambda: adc_topk.pq_adc_topk(*args)),
+        "plain_ms": device_ms(lambda: adc_topk.plain_pq_adc_topk(*args),
+                              reps=10, warmup=2),
+        "library_ms": None,
+        "library_call": "none (no PyTorch call sums table look-ups and "
+                        "selects the top-k in one)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 # --------------------------------------------------------------- phase 3
 
 def run_batches(eng, Q, T, stats=None):
@@ -376,25 +537,36 @@ def run_batches(eng, Q, T, stats=None):
 
 def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
     """Device time by kernel over a short window of main-path batches
-    (torch.profiler), and the device's busy share of that window.  The
-    profiler's own host cost lengthens the window, so the idle share is
-    an upper bound."""
+    (torch.profiler), and the device's busy share of that window.  One
+    batch runs first as the profiler's warm-up step: the tracer loses
+    activity at its start, which on a path of few kernels a batch can be
+    a whole batch.  The profiler's own host cost lengthens the window,
+    so the idle share is an upper bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    events = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for s in range(0, n_batches * BATCH, BATCH):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_batches),
+                 on_trace_ready=lambda p: events.extend(p.key_averages())
+                 ) as prof:
+        for i in range(n_batches + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            s = i * BATCH % Q.shape[0]
             eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
                              ratio_k=RATIO_K, ef_search=EF_SEARCH)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            if i == n_batches:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
     kernels = []
-    for ev in prof.key_averages():
+    for ev in events:
         dev_us = getattr(ev, "self_device_time_total", 0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            kernels.append((dev_us / 1e3 / n_batches, ev.count // n_batches,
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0
+                and not ev.key.startswith("ProfilerStep")):   # step ranges
+            kernels.append((dev_us / 1e3 / n_batches, ev.count / n_batches,
                             ev.key[:60]))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
@@ -411,10 +583,14 @@ def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
 
 
 def small_reference_check():
-    """The card's engine against the host's plain versions on a small
-    database encrypted by the numpy path: ids must be equal."""
+    """The card's engines against the host's plain versions on a small
+    database encrypted by the numpy path, through the filters of every
+    ported path (f32 flat and IVF, ADC flat and IVF in int8 and pq8, the
+    graph filter in f32, int8 and pq8): the ids must agree."""
     from repro_torch.core import dcpe, ppanns
+    from repro_torch.core.hnsw import HNSW
     from repro_torch.data import synth
+    from repro_torch.graph import GraphFilter
     from repro_torch.serving.search_engine import SecureSearchEngine
     ds = synth.make_dataset("sift1m", n=3000, n_queries=32, k_gt=K, seed=5)
     owner = ppanns.DataOwner(d=ds.d, sap_beta=dcpe.suggest_beta(
@@ -422,16 +598,40 @@ def small_reference_check():
     db = owner.encrypt_database(ds.base, build_index=False)
     user = ppanns.User(owner.share_keys())
     Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
-    got, _ = SecureSearchEngine(db.C_sap, db.C_dce).search_batch(
-        Q, T, K, ratio_k=RATIO_K)
-    want, _ = SecureSearchEngine(db.C_sap, db.C_dce, device="cpu")\
-        .search_batch(Q, T, K, ratio_k=RATIO_K)
-    agree = float((got == want).mean())
+    index = HNSW(ds.d, M=GRAPH_M, ef_construction=GRAPH_EF_CONSTRUCTION,
+                 seed=8).build(db.C_sap)
+    ivf = dict(n_partitions=IVF_PARTITIONS, nprobe=IVF_NPROBE)
+    filters = {      # engine arguments, made anew for each engine
+        "flat": lambda: {},
+        "ivf": lambda: dict(backend="ivf", **ivf),
+        "adc-flat-int8": lambda: dict(quantization="int8"),
+        "adc-flat-pq8": lambda: dict(quantization="pq8"),
+        "adc-ivf-int8": lambda: dict(backend="ivf", quantization="int8",
+                                     **ivf),
+        "adc-ivf-pq8": lambda: dict(backend="ivf", quantization="pq8",
+                                    **ivf),
+        "graph": lambda: dict(backend=GraphFilter(index)),
+        "adc-graph-int8": lambda: dict(
+            backend=GraphFilter(index, quantization="int8")),
+        "adc-graph-pq8": lambda: dict(
+            backend=GraphFilter(index, quantization="pq8")),
+    }
+    out = {}
+    for name, kw in filters.items():
+        got, _ = SecureSearchEngine(db.C_sap, db.C_dce, **kw()).search_batch(
+            Q, T, K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        want, _ = SecureSearchEngine(db.C_sap, db.C_dce, device="cpu",
+                                     **kw()).search_batch(
+            Q, T, K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        out[name] = {"id_agreement_card_vs_host":
+                     float((got == want).mean()),
+                     "recall@10": synth.recall_at_k(got, ds.gt, K)}
     log(json.dumps({"phase": "small_reference", "n": ds.n,
-                    "queries": Q.shape[0], "id_agreement_card_vs_host":
-                    agree, "recall@10": synth.recall_at_k(got, ds.gt, K)}))
-    if agree < MIN_ID_AGREEMENT:
-        raise AssertionError(f"card and host ids agree in only {agree}")
+                    "queries": Q.shape[0], "filters": out}))
+    bad = {k: v for k, v in out.items()
+           if v["id_agreement_card_vs_host"] < MIN_ID_AGREEMENT}
+    if bad:
+        raise AssertionError(f"card and host ids disagree: {bad}")
 
 
 def main_path(n: int, n_queries: int) -> dict:
@@ -458,7 +658,6 @@ def main_path(n: int, n_queries: int) -> dict:
                     ds.n / t_enc, "user_encrypt_queries_s": t_query_enc}))
 
     eng = SecureSearchEngine(C_sap, C_dce, backend="flat")   # device: card
-    del C_sap, C_dce
     t0 = time.perf_counter()
     eng.search_batch(Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K)   # upload
     t_warm = time.perf_counter() - t0
@@ -504,10 +703,171 @@ def main_path(n: int, n_queries: int) -> dict:
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
-    return launches
+    # the ADC paths search the same ciphertexts and queries
+    return launches, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q,
+                      "T": T}
 
 
 # --------------------------------------------------------------- phase 4
+
+@contextlib.contextmanager
+def timed_codebook(out: dict):
+    """Host seconds of an ADC filter's codebook training and of encoding
+    the corpus with it (wrapped around the filter's attach)."""
+    from repro_torch.core import adc
+    train = adc.train_codebook
+    encodes = {cls: cls.encode for cls in (adc.SQCodebook, adc.PQCodebook)}
+
+    def timed_train(*a, **kw):
+        t0 = time.perf_counter()
+        book = train(*a, **kw)
+        out["codebook_train_s"] = time.perf_counter() - t0
+        return book
+
+    def timed(encode):
+        def timed_encode(self, C):
+            t0 = time.perf_counter()
+            codes = encode(self, C)
+            out["codebook_encode_s"] = time.perf_counter() - t0
+            return codes
+        return timed_encode
+    adc.train_codebook = timed_train
+    for cls, encode in encodes.items():
+        cls.encode = timed(encode)
+    try:
+        yield
+    finally:
+        adc.train_codebook = train
+        for cls, encode in encodes.items():
+            cls.encode = encode
+
+
+def adc_breakdown(eng, Q, T, reps: int = 10) -> dict:
+    """Host-clock time of one flat ADC batch and of its stages run alone
+    on the same queries (each ended by a synchronize; medians of reps):
+    the filter, the query operand that the codebook makes on the host
+    (int8 codes or the PQ tables) with its upload, the fused kernel, and
+    the refine of the filter's candidates; and the device time of the
+    kernel and of the refine."""
+    import torch
+    from repro_torch.kernels.adc_topk import ops as adc_ops
+    from repro_torch.serving.search_engine import refine_candidates
+    f = eng.backend
+    Qb = np.asarray(Q[:BATCH], np.float32)
+    kp = K * RATIO_K
+    kp2 = min(f.oversampled(kp), f._n)
+    dev = f._ok.device
+    qop = f._query_operand(Qb, dev)
+    if f.quantization == "int8":
+        kernel = lambda: adc_ops.sq_knn(qop, f._c8, f._cn, kp2, ok=f._ok)
+    else:
+        kernel = lambda: adc_ops.pq_knn(qop, f._codes_t, kp2, ok=f._ok)
+    cand, valid, _ = f.candidates(Qb, kp, EF_SEARCH)
+    Tq = torch.as_tensor(np.asarray(T[:BATCH], np.float32)).to(dev)
+    refine = lambda: refine_candidates(eng._C_dce_dev, cand, Tq, valid, K)
+    return {
+        "phase": "adc_breakdown", "backend": f.name, "batch": BATCH,
+        "reps": reps,
+        "search_batch_ms": host_ms(lambda: eng.search_batch(
+            Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K), reps),
+        "filter_candidates_ms": host_ms(
+            lambda: f.candidates(Qb, kp, EF_SEARCH), reps),
+        "query_operand_ms": host_ms(lambda: f._query_operand(Qb, dev), reps),
+        "kernel_ms": host_ms(kernel, reps),
+        "kernel_device_ms": device_ms(kernel),
+        "refine_ms": host_ms(refine, reps),
+        "refine_device_ms": device_ms(refine),
+    }
+
+
+def adc_path(ctx: dict, quantization: str, backend: str = "flat",
+             compare_plain: bool = True) -> dict:
+    """The quantized filter on the flat path's ciphertexts and queries:
+    `SecureSearchEngine(backend=..., quantization=...)` on the card, once
+    through the kernels and (compare_plain) once with them swapped for
+    their plain versions on the same engine, so the codebook is trained
+    once."""
+    import torch
+    from repro_torch.data import synth
+    from repro_torch.serving.search_engine import SecureSearchEngine
+    ds, Q, T = ctx["ds"], ctx["Q"], ctx["T"]
+    ivf = backend == "ivf"
+    path = f"ivf_{quantization}" if ivf else f"adc_{quantization}"
+    kw = dict(n_partitions=IVF_PARTITIONS, nprobe=IVF_NPROBE) if ivf else {}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng = SecureSearchEngine(ctx["C_sap"], ctx["C_dce"], backend=backend,
+                             quantization=quantization, **kw)   # the card
+    wall = {}
+    t0 = time.perf_counter()
+    with timed_codebook(wall):
+        eng._ensure_attached()           # codebook, codes, C_DCE upload
+    wall["attach_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.search_batch(Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K)
+    wall["first_batch_s"] = time.perf_counter() - t0
+
+    reset_launches()
+    stats = []
+    ids, lat = run_batches(eng, Q, T, stats)
+    launches = kernel_launches()
+    resident = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    nq, nb = Q.shape[0], len(lat)
+    rec = synth.recall_at_k(ids, ds.gt, K)
+    totals = {f: int(sum(getattr(st, f) for st in stats))
+              for f in ("filter_dist_evals", "filter_bytes_scanned",
+                        "refine_comparisons")}
+    out = {
+        "phase": "adc_path", "path": path, "backend": eng.backend.name,
+        "n": ds.n, "d": ds.d, "queries": nq, "batch": BATCH, "k": K,
+        "k_prime": K * RATIO_K,
+        "candidates_refined_per_query": eng.backend.oversampled(K * RATIO_K),
+        "recall@10": rec,
+        "qps": nq / sum(lat),
+        "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "search_stats": totals,
+        "filter_bytes_per_row_per_batch":
+            totals["filter_bytes_scanned"] / (nb * ds.n),
+        "launches": launches,
+        "launches_per_batch": {k: v / nb for k, v in launches.items()},
+        "device_resident_bytes": resident - before,
+        "device_peak_bytes": peak - before,
+        "wall_s": wall,
+    }
+    if ivf:
+        out.update(n_partitions=IVF_PARTITIONS, nprobe=IVF_NPROBE)
+    if compare_plain:
+        with plain_kernels():
+            ids_plain, lat_plain = run_batches(eng, Q, T)
+        if kernel_launches() != launches:
+            raise AssertionError("a kernel launched during the plain run")
+        rec_plain = synth.recall_at_k(ids_plain, ds.gt, K)
+        agree = float((ids == ids_plain).mean())
+        out.update({
+            "recall@10_plain": rec_plain, "id_agreement": agree,
+            "qps_plain": nq / sum(lat_plain),
+            "batch_p50_ms_plain": float(np.percentile(lat_plain, 50)) * 1e3,
+            "batch_p99_ms_plain": float(np.percentile(lat_plain, 99)) * 1e3,
+        })
+        log(json.dumps(dict(profile_batches(eng, Q, T, n_batches=4),
+                            path=path)))
+        log(json.dumps(adc_breakdown(eng, Q, T)))
+    log(json.dumps(out))
+    if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
+        raise AssertionError(f"{path} returned ids outside the database")
+    kern = "sq_adc_topk" if quantization == "int8" else "pq_adc_topk"
+    if launches["dce_comp"] <= 0 or (not ivf and launches[kern] != nb):
+        raise AssertionError(f"{path} kernels: {launches} for {nb} batches")
+    if compare_plain and (agree < MIN_ID_AGREEMENT
+                          or abs(rec - rec_plain) > MAX_RECALL_GAP):
+        raise AssertionError(f"{path}: kernel and plain runs disagree: ids "
+                             f"{agree}, recall {rec} vs {rec_plain}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 5
 
 def build_hnsw(C_sap: np.ndarray, M: int, ef_construction: int, seed: int):
     """Worker process: the owner's HNSW build over C_SAP (host numpy),
@@ -579,14 +939,7 @@ def graph_breakdown(eng, Q, T, reps: int = 10) -> dict:
     ef, ef_cap, max_hops = beam_plan(kp, max(EF_SEARCH, kp))
 
     def timed(fn):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
+        return host_ms(fn, reps)
 
     upper = lambda: traverse.upper_entry(gf._neigh_up, gf._ok, gf._db, Qb,
                                          gf.csr.entry)
@@ -765,28 +1118,50 @@ def main() -> int:
         records = [check_l2(32, 4096, 128, gen),
                    check_l2(32, 4096, 960, gen),
                    check_z(32, 80, 128, gen), check_z(32, 80, 960, gen),
+                   check_z(32, 160, 128, gen), check_z(32, 320, 128, gen),
                    check_z(1, 512, 128, gen, single=True),
                    check_graph_expand(2 ** 17, 16, 128, gen),
                    check_graph_expand(2 ** 20, 32, 128, gen),
-                   check_graph_expand(2 ** 17, 32, 960, gen)]
+                   check_graph_expand(2 ** 17, 32, 960, gen),
+                   check_sq_adc(32, 1_000_000, 128, 160, gen),
+                   check_sq_adc(32, 2 ** 18, 960, 160, gen),
+                   check_sq_adc(32, 100, 128, 30, gen, n_valid=12),
+                   check_pq_adc(32, 16, 1_000_000, 320, gen),
+                   check_pq_adc(32, 8, 2 ** 18, 320, gen)]
         for r in records:
             log(json.dumps(dict(r, card=card)))
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # phase 3 ---------------------------------------------------
         small_reference_check()
-        flat = main_path(args.n, args.queries)
+        flat, corpus = main_path(args.n, args.queries)
         gc.collect()                    # the flat engine is gone: free
-        torch.cuda.empty_cache()        # its 4.9 GB before the graph path
+        torch.cuda.empty_cache()        # its 4.9 GB before the ADC paths
 
         # phase 4 ---------------------------------------------------
+        on_adc = {}
+        for path, quant, backend, plain in (
+                ("adc_int8", "int8", "flat", True),
+                ("adc_pq8", "pq8", "flat", True),
+                ("ivf_int8", "int8", "ivf", False)):
+            on_adc[path] = adc_path(corpus, quant, backend, plain)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del corpus
+
+        # phase 5 ---------------------------------------------------
         on_graph = graph_path(graph)
 
-    paths = {"flat": flat, "graph": on_graph}
+    paths = {"flat": flat, "graph": on_graph, **on_adc}
+    # launches: on the path the kernel was ported for (K2/K3 count the
+    # flat path's refine); launches_by_path: on each path
+    home = {"l2_topk": "flat", "dce_comp": "flat", "graph_expand": "graph",
+            "sq_adc_topk": "adc_int8", "pq_adc_topk": "adc_pq8"}
     for r in records:
-        kern = r["name"].split(".")[0]
-        # launches: on the path the kernel was ported for (K2/K3 count
-        # the flat path's refine); launches_by_path: on each path
-        r["launches"] = (on_graph if kern == "graph_expand" else flat)[kern]
+        mod, fn = r["name"].split("[")[0].split(".")[:2]
+        kern = fn if mod == "adc_topk" else mod
+        r["launches"] = paths[home[kern]][kern]
         r["launches_by_path"] = {p: c[kern] for p, c in paths.items()}
     log(json.dumps({"phase": "done",
                     "wall_s": time.perf_counter() - t_start}))

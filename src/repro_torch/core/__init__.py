@@ -1,5 +1,7 @@
-"""Paper core, as far as the flat and graph filter-and-refine paths need
-it: DCE, DCPE, the owner's HNSW, the secure k-NN refines, the wire frame
-and the scheme's roles."""
+"""Paper core, as far as the flat, IVF, ADC and graph filter-and-refine
+paths need it: DCE, DCPE, the owner's HNSW, the IVF coarse quantizer, the
+ADC codebooks, the secure k-NN refines, the wire frame and the scheme's
+roles."""
 
-from . import dce, dcpe, hnsw, ppanns, secure_knn, wireformat  # noqa: F401
+from . import (adc, dce, dcpe, hnsw, ivf, ppanns, secure_knn,  # noqa: F401
+               wireformat)

@@ -7,8 +7,11 @@ the upper-layer descent in torch ops, then one launch of the
 graph_expand CUDA kernel for the layer-0 beam search (`kernels/
 graph_expand/ops.graph_topk`).  `oblivious=True` runs the bounded-hop,
 fixed-fanout torch walk (constant hop/edge counts) of the `hardened`
-tier.  Only exact f32 edge scoring is ported; the ADC-quantized
-variants come with the ADC slice.
+tier.  `quantization="int8"|"pq8"` scores edges with the ADC surrogates
+of `core.adc` (codebook trained keylessly at attach, as `ADCFilter`
+does) and oversamples candidates for the exact refine; as in the
+reference, those walks and the oblivious one run the torch walk, and
+the graph_expand kernel takes the f32 perf walk.
 
 The host walk stays as the parity oracle: ids are recall-identical at
 fixed ef, per the equivalence argument in `graph.traverse`.
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import adc
 from ..core.hnsw import HNSW
 from ..device import resolve_device
 from .csr import CSRGraph
@@ -31,24 +35,33 @@ class GraphFilter:
     """Batched CSR traversal filter backend for `SecureSearchEngine`.
 
     index: the owner-built `core.hnsw.HNSW` (over DCPE ciphertexts).
-    quantization: None only (exact f32 ciphertext distances; the ADC
-    options `pq_m` and `seed` come with the ADC slice).
+    quantization: None (exact f32 ciphertext distances) | "int8" |
+    "pq8" (ADC surrogate edge scoring + candidate oversampling).
     oblivious: bounded-hop fixed-fanout traversal (the `hardened`
     profile's tier); returned ids are bit-identical to the perf variant.
-    The arrays live on the engine's device (`attach`).
+    The arrays live on the engine's device (`attach`).  The reference's
+    `use_kernel=` option is not ported.
     """
 
     def __init__(self, index: HNSW, *, quantization: str | None = None,
-                 refine_ratio: float | None = None, oblivious: bool = False):
-        if quantization is not None:
-            raise NotImplementedError(
-                "ADC-quantized graph filters come with the ADC slice of the "
-                "port (ROADMAP Queue 1 item 6)")
+                 refine_ratio: float | None = None, pq_m: int = 16,
+                 oblivious: bool = False, seed: int = 0):
+        if quantization not in (None, "int8", "pq8"):
+            raise ValueError(f"GraphFilter quantization must be "
+                             f"None|int8|pq8, got {quantization!r}")
         self.index = index
-        self.name = "graph"
-        self.refine_ratio = (1.0 if refine_ratio is None
-                             else float(refine_ratio))
+        self.quantization = quantization
+        self.quant = quantization or "f32"
+        self.name = ("graph" if quantization is None
+                     else f"adc-graph-{quantization}")
+        self.refine_ratio = (
+            float(refine_ratio) if refine_ratio is not None
+            else adc.default_refine_ratio(quantization)
+            if quantization is not None else 1.0)
+        self.pq_m = pq_m
         self.oblivious = oblivious
+        self.seed = seed
+        self.codebook = None
         self.csr: CSRGraph | None = None
         self._neigh0 = self._neigh_up = self._ok = None
         self._db = None
@@ -65,8 +78,9 @@ class GraphFilter:
 
     def attach(self, C_sap: np.ndarray, engine=None):
         """Mirror the host graph into CSR rows and upload them, with the
-        row validity and the ciphertext rows, to the engine's device
-        (the card without an engine)."""
+        row validity and the scan arrays (ciphertext rows, or their ADC
+        codes padded to the row capacity R), to the engine's device (the
+        card without an engine)."""
         device = engine.device if engine is not None else resolve_device()
         self.csr = CSRGraph.from_hnsw(self.index)
         g = self.csr
@@ -75,11 +89,40 @@ class GraphFilter:
         self._neigh0 = torch.from_numpy(g.neigh0).to(device)
         self._neigh_up = torch.from_numpy(g.neigh_up).to(device)
         self._ok = torch.from_numpy(g.levels >= 0).to(device)
-        # g.X carries +inf for deleted rows; `ok` masks them, and scores
-        # are computed in diff form so the zeros put there are inert
-        X = np.where(np.isfinite(g.X), g.X, 0.0).astype(np.float32)
-        self._db = (torch.from_numpy(X).to(device),)
-        self._row_bytes = g.d * 4
+        d = g.d
+        if self.quantization is None:
+            # g.X carries +inf for deleted rows; `ok` masks them, and
+            # scores are computed in diff form so the zeros put there
+            # are inert
+            X = np.where(np.isfinite(g.X), g.X, 0.0).astype(np.float32)
+            self._db = (torch.from_numpy(X).to(device),)
+            self._row_bytes = d * 4
+            return
+        rows = np.where(np.isfinite(g.X[: g.n]), g.X[: g.n], 0.0)
+        rows = rows.astype(np.float32)
+        self.codebook = adc.train_codebook(
+            rows, self.quantization, m=self.pq_m, seed=self.seed)
+        if self.quantization == "int8":
+            codes, cn = self.codebook.encode(rows)
+            c8 = np.zeros((g.R, d), np.int8)
+            c8[: g.n] = codes
+            cnp = np.zeros(g.R, np.int32)
+            cnp[: g.n] = cn
+            self._db = (torch.from_numpy(c8).to(device),
+                        torch.from_numpy(cnp).to(device))
+        else:
+            codes = self.codebook.encode(rows)          # (n, m) uint8
+            ct = np.zeros((codes.shape[1], g.R), np.uint8)
+            ct[:, : g.n] = codes.T
+            self._db = (torch.from_numpy(ct).to(device),)
+        self._row_bytes = self.codebook.code_bytes_per_vector()
+
+    def _query_operand(self, Q: np.ndarray) -> np.ndarray:
+        if self.quantization is None:
+            return Q
+        if self.quantization == "int8":
+            return self.codebook.encode_query(Q)
+        return np.ascontiguousarray(self.codebook.lut(Q), np.float32)
 
     # ---------------------------------------------------------- candidates
 
@@ -92,16 +135,16 @@ class GraphFilter:
         ef_eff, ef_cap, max_hops = beam_plan(kp2, max(ef_search, kp2))
         cand, _, visited, hops, edges = graph_ops.graph_topk(
             self._neigh0, self._neigh_up, self._ok, self._db,
-            torch.from_numpy(Q).to(self._db[0].device), g.entry, ef_eff,
-            kp=kp2, ef_cap=ef_cap, max_hops=max_hops, quant="f32",
-            oblivious=self.oblivious)
+            torch.from_numpy(self._query_operand(Q)).to(self._ok.device),
+            g.entry, ef_eff, kp=kp2, ef_cap=ef_cap, max_hops=max_hops,
+            quant=self.quant, oblivious=self.oblivious)
         valid = cand >= 0
         cand = torch.where(valid, cand, 0)
         n_edges = int(edges.sum())
         self.last_n_hops = int(hops.sum())
         self.last_n_edges_scanned = n_edges
-        # every scored edge reads one row, plus the entry-point read per
-        # query
+        # every scored edge reads one row (f32) or one code row (ADC),
+        # plus the entry-point read per query
         self.last_filter_bytes = (n_edges + nq) * self._row_bytes
         self.last_scan_trace = visited.cpu().numpy()
         return cand, valid, n_edges + nq

@@ -13,8 +13,8 @@ only (row capacity R, beam capacity ef_cap, padded layer count LU):
     after every merge, so results are a pure function of `ef` and
     identical across beam-capacity buckets.
 
-Only the exact f32 edge scoring is computed here; the ADC surrogates
-("int8", "pq8") come with the ADC slice of the port.
+Edge scoring is a `quant` mode: "f32" exact ciphertext distances,
+"int8"/"pq8" the ADC surrogate distances of the `core.adc` codebooks.
 
 `beam_layer0` is the plain version of the graph_expand CUDA kernel,
 which runs the layer-0 search on the card; it lives beside the kernel
@@ -129,8 +129,9 @@ def traverse(neigh0, neigh_up, ok, db, qd, entry: int, ef: int, *,
     """The full batched walk.
 
     neigh0 (R, M0) / neigh_up (LU, R, M) int32, `-1` padded; ok (R,)
-    bool row validity; db the scan arrays ("f32": (C,)); qd (nq, d) the
-    queries; entry/ef ints.  All tensors on one device.
+    bool row validity; db the scan arrays ("f32": (C,), "int8": (c8, cn),
+    "pq8": (codes_t,)); qd the query operand ((nq, d) rows, int8 codes,
+    or (nq, m, 256) tables); entry/ef ints.  All tensors on one device.
 
     Returns (cand (nq, kp) int32 with -1 fill, cand_d (nq, kp) f32
     (+inf fill), visited (nq, R) bool scan trace, hops (nq,) int32,

@@ -1,0 +1,168 @@
+"""Fused quantized-ADC scan + top-kp: CUDA kernels and dispatch.
+
+The kernels (`csrc/adc_topk.cu`) replace the Pallas TPU kernels
+`repro/kernels/adc_topk/adc_topk.py :: sq_adc_topk` (int8) and
+`:: pq_adc_topk` (PQ).  For CUDA tensors the wrappers launch them (or
+raise); for CPU tensors they run the plain versions beside them,
+`plain_sq_adc_topk` and `plain_pq_adc_topk`.  Each call is two launches
+from the same source (a scan with a per-chunk top-kp, then a per-query
+merge of the chunks) and counts as one in `launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..common import on_cpu
+from .ref import INT_BIG
+from .ref import pq_adc_topk as plain_pq_adc_topk
+from .ref import sq_adc_topk as plain_sq_adc_topk
+
+__all__ = ["sq_adc_topk", "pq_adc_topk", "plain_sq_adc_topk",
+           "plain_pq_adc_topk", "INT_BIG", "MAX_KP", "launches"]
+
+# Kernel launches since import, per kernel (a call's two stages count as
+# one launch); a caller auditing a run resets the counts to 0.
+launches = {"sq_adc_topk": 0, "pq_adc_topk": 0}
+
+MAX_KP = 1024                   # the kernels' largest top-kp
+MAX_D = 2048                    # the int8 kernel's widest row
+PQ_K = 256
+# Mirrors csrc/adc_topk.cu: rows a block offers per step, and queries a
+# block scans together, which set how the rows are cut into chunks.
+_TILE = 256
+_QUERIES_PER_BLOCK = {"sq": 8, "pq": 4}
+_SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
+
+_SQ_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
+_PQ_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 7 + [_build.PTR]
+
+
+def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
+    """ok as the kernels read it: (n,) uint8, 0 = row masked."""
+    if ok.shape != (n,):
+        raise ValueError(f"ok must be ({n},), got {tuple(ok.shape)}")
+    valid = ok if ok.dtype == torch.bool else ok != 0
+    return valid.contiguous().view(torch.uint8)
+
+
+def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev):
+    """Check kp and the shared memory a block needs; cut the rows into G
+    chunks of a multiple of _TILE rows, about two blocks per SM."""
+    if kp > MAX_KP:
+        raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
+                         f"{MAX_KP}")
+    smem_fn = _build.function("repro_adc_smem_bytes",
+                              [_build.INT] * 3)
+    smem_fn.restype = ctypes.c_longlong
+    need = smem_fn(int(kind == "pq"), kp, width)
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
+    if need > limit:
+        what = "m" if kind == "pq" else "d"
+        raise ValueError(f"the {kind}_adc_topk kernel needs {need} bytes of "
+                         f"shared memory a block at {what}={width}, "
+                         f"kp={kp}; the card has {limit}")
+    groups = -(-nq // _QUERIES_PER_BLOCK[kind])
+    tiles = -(-n // _TILE)
+    G = min(tiles, max(1, -(-2 * props.multi_processor_count // groups)))
+    chunk_rows = -(-tiles // G) * _TILE
+    return chunk_rows, -(-n // chunk_rows)
+
+
+def _outputs(nq: int, kp: int, dtype, dev):
+    """(dists (nq, kp) of dtype, ids (nq, kp) int64), uninitialized."""
+    return (torch.empty((nq, kp), dtype=dtype, device=dev),
+            torch.empty((nq, kp), dtype=torch.int64, device=dev))
+
+
+def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
+                ok: torch.Tensor, kp: int):
+    """Fused int8 ADC scan + top-kp.
+
+    q8 (nq, d) int8, c8 (n, d) int8, cn (n,) int32, ok (n,) row validity
+    (nonzero = valid) -> (dists (nq, kp) int32 ascending, ids (nq, kp)
+    int64), ties to the lowest id; slots beyond the valid rows are
+    (INT_BIG, -1).  kp = min(kp, n).  CUDA tensors must have those dtypes
+    and be contiguous; the kernels run on the current stream without
+    synchronizing."""
+    if on_cpu(q8, c8, cn, ok):
+        return plain_sq_adc_topk(q8, c8, cn, ok, kp)
+    if (q8.dim() != 2 or c8.dim() != 2 or q8.shape[1] != c8.shape[1]
+            or cn.shape != (c8.shape[0],)):
+        raise ValueError(f"sq_adc_topk needs q8 (nq, d), c8 (n, d), cn (n,); "
+                         f"got {tuple(q8.shape)}, {tuple(c8.shape)}, "
+                         f"{tuple(cn.shape)}")
+    if (q8.dtype != torch.int8 or c8.dtype != torch.int8
+            or cn.dtype != torch.int32):
+        raise TypeError(f"the int8 ADC kernel takes int8 q8 and c8 and int32 "
+                        f"cn; got {q8.dtype}, {c8.dtype}, {cn.dtype}")
+    if not all(t.is_contiguous() for t in (q8, c8, cn)):
+        raise ValueError("the int8 ADC kernel takes contiguous q8, c8, cn")
+    nq, d = q8.shape
+    n = c8.shape[0]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"d={d} outside the int8 ADC kernel's 1..{MAX_D}")
+    okb = _row_validity(ok, n)
+    kp = min(int(kp), n)
+    dev = q8.device
+    if kp <= 0 or nq == 0:
+        return _outputs(nq, max(kp, 0), torch.int32, dev)
+    chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
+    out_d, out_i = _outputs(nq, kp, torch.int32, dev)
+    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
+    err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
+             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, d,
+             kp, chunk_rows, G, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adc_topk.sq_adc_topk")
+    launches["sq_adc_topk"] += 1
+    return out_d, out_i
+
+
+def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
+                kp: int):
+    """Fused PQ ADC scan + top-kp.
+
+    lut (nq, m, 256) float32 per-query tables, codes_t (m, n) uint8, ok
+    (n,) row validity -> (dists (nq, kp) float32 ascending, each summed
+    over j = 0..m-1 in that order; ids (nq, kp) int64), ties to the lowest
+    id; slots beyond the valid rows are (+inf, -1).  kp = min(kp, n).  An
+    m whose tables do not fit in shared memory is refused.  CUDA tensors
+    must have those dtypes and be contiguous."""
+    if on_cpu(lut, codes_t, ok):
+        return plain_pq_adc_topk(lut, codes_t, ok, kp)
+    if (lut.dim() != 3 or lut.shape[2] != PQ_K or codes_t.dim() != 2
+            or codes_t.shape[0] != lut.shape[1]):
+        raise ValueError(f"pq_adc_topk needs lut (nq, m, {PQ_K}) and "
+                         f"codes_t (m, n); got {tuple(lut.shape)}, "
+                         f"{tuple(codes_t.shape)}")
+    if lut.dtype != torch.float32 or codes_t.dtype != torch.uint8:
+        raise TypeError(f"the PQ ADC kernel takes float32 lut and uint8 "
+                        f"codes_t; got {lut.dtype}, {codes_t.dtype}")
+    if not (lut.is_contiguous() and codes_t.is_contiguous()):
+        raise ValueError("the PQ ADC kernel takes contiguous lut, codes_t")
+    nq, m, _ = lut.shape
+    n = codes_t.shape[1]
+    if m < 1:
+        raise ValueError("pq_adc_topk needs m >= 1 subspaces")
+    okb = _row_validity(ok, n)
+    kp = min(int(kp), n)
+    dev = lut.device
+    if kp <= 0 or nq == 0:
+        return _outputs(nq, max(kp, 0), torch.float32, dev)
+    chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
+    out_d, out_i = _outputs(nq, kp, torch.float32, dev)
+    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
+    err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
+             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, m,
+             kp, chunk_rows, G, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adc_topk.pq_adc_topk")
+    launches["pq_adc_topk"] += 1
+    return out_d, out_i

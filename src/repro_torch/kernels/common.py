@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["next_bucket", "running_topk_scan", "pad_to", "padded_size",
-           "on_cpu"]
+__all__ = ["next_bucket", "running_topk_scan", "top_positions", "pad_to",
+           "padded_size", "on_cpu"]
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -47,21 +47,23 @@ def next_bucket(n: int, minimum: int = 1, maximum: int | None = None) -> int:
 
 
 def running_topk_scan(dist_fn, n: int, nq: int, k: int, chunk: int,
-                      device: torch.device):
+                      device: torch.device, *, dtype=torch.float32,
+                      fill=float("inf")):
     """Streaming top-k merge: fold `chunk`-row distance blocks into a
-    running (nq, k) ascending state.
+    running (nq, k) ascending state of `dtype`, first filled with `fill`.
 
     `dist_fn(start)` returns the (nq, chunk) distance block for rows
-    [start, start+chunk), with rows past the database already +inf.
+    [start, start+chunk), with rows past the database already `fill`.
     Ties go to the lowest id, as `jax.lax.top_k` keeps them: the merge
     is a stable ascending sort of [best, block], in which running
     entries precede the block and block columns keep their order.
     Merge positions < k select from the running ids, the rest are
     `start + (pos - k)`, so no (nq, chunk) id block is materialized.
     Returns (dists (nq, k) ascending, ids (nq, k) int64; unfilled -1).
+    An integer state (int32 with a sentinel fill) keeps integer
+    distances exact where float32 would round those above 2^24.
     """
-    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32,
-                        device=device)
+    best_d = torch.full((nq, k), fill, dtype=dtype, device=device)
     best_i = torch.full((nq, k), -1, dtype=torch.int64, device=device)
     for start in range(0, n, chunk):
         d_blk = dist_fn(start)
@@ -71,6 +73,12 @@ def running_topk_scan(dist_fn, n: int, nq: int, k: int, chunk: int,
         from_best = torch.gather(best_i, 1, pos.clamp(max=k - 1))
         best_i = torch.where(pos < k, from_best, start + (pos - k))
     return best_d, best_i
+
+
+def top_positions(d: torch.Tensor, kp: int) -> torch.Tensor:
+    """Positions of the kp smallest entries of each row of d, ascending,
+    ties to the lowest position: what `lax.top_k(-d, kp)` gives."""
+    return torch.sort(d, dim=1, stable=True).indices[:, :min(kp, d.shape[1])]
 
 
 def pad_to(x: torch.Tensor, axis: int, multiple: int,

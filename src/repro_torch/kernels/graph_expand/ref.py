@@ -1,11 +1,14 @@
 """Plain PyTorch version of the graph_expand kernel: the layer-0 beam
-search of the batched graph walk, with its exact f32 edge scoring.
-`graph.traverse` builds the full walk on it (see its docstring for the
-tie rules that keep the ids equal to the JAX walk's)."""
+search of the batched graph walk, with its edge scoring (exact f32, or
+the int8 / PQ ADC surrogates).  `graph.traverse` builds the full walk on
+it (see its docstring for the tie rules that keep the ids equal to the
+JAX walk's)."""
 
 from __future__ import annotations
 
 import torch
+
+from ...device import full_fp32
 
 __all__ = ["beam_layer0"]
 
@@ -14,16 +17,28 @@ _INF = float("inf")
 
 def _score(quant: str, db, qd: torch.Tensor, ids: torch.Tensor):
     """Edge scores of `ids` (any (nq, W) int64, pre-clamped safe) for
-    each query, in the host walk's exact formulation sum((x-q)^2)."""
+    each query.  f32 is the host walk's exact formulation sum((x-q)^2)
+    (db (C,), qd the queries); int8 the float32 cn - 2 (q8 . c8), exact
+    below 2^24 (db (c8, cn), qd the int8 queries); pq8 the table sum in
+    ascending subspace order (db (codes_t,), qd the (nq, m, 256) tables).
+    The ADC modes are rank surrogates, as in `repro.graph.traverse`."""
     if quant == "f32":
         (C,) = db
         rows = C[ids]                                    # (nq, W, d)
         diff = rows - qd[:, None, :]
         return (diff * diff).sum(-1)
-    if quant in ("int8", "pq8"):
-        raise NotImplementedError(
-            f"{quant} edge scoring comes with the ADC slice of the port "
-            f"(ROADMAP Queue 1 item 6)")
+    if quant == "int8":
+        c8, cn = db
+        full_fp32()
+        rows = c8[ids].to(torch.float32)                 # (nq, W, d)
+        cross = torch.einsum("qwd,qd->qw", rows, qd.to(torch.float32))
+        return cn[ids].to(torch.float32) - 2.0 * cross
+    if quant == "pq8":
+        (codes_t,) = db                                  # (m, R) uint8
+        out = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+        for j in range(codes_t.shape[0]):
+            out = out + torch.gather(qd[:, j], 1, codes_t[j][ids].long())
+        return out
     raise ValueError(f"unknown edge-scoring mode {quant!r}")
 
 

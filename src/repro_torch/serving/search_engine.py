@@ -1,12 +1,17 @@
 """Batched secure filter-and-refine engine on the card.
 
-Counterpart of `repro.serving.search_engine`, as far as the flat and
-graph paths:
+Counterpart of `repro.serving.search_engine`:
 
   filter:  a pluggable backend produces k' candidate ids per query —
              * FlatScanFilter  — exhaustive scan of the DCPE ciphertexts
                through the l2_topk CUDA kernel (chunked distance tiles
                and a running top-k', no (nq, n) matrix in device memory);
+             * IVFScanFilter   — partition-pruned scan: host-side coarse
+               probe over DCPE ciphertext centroids, then one masked
+               gather+scan over the probed rows in torch ops;
+             * ADCFilter       — the flat or IVF scan over int8 / PQ codes
+               of the ciphertexts; the flat kind runs the adc_topk CUDA
+               kernels (scan and top-k' fused, one call per batch);
              * `repro_torch.graph.GraphFilter` — the batched HNSW walk,
                its layer-0 beam search in the graph_expand CUDA kernel;
              * HNSWGraphFilter — the per-query host walk, kept as the
@@ -17,13 +22,12 @@ graph paths:
 
 `SecureSearchEngine.search` is a batch-of-one wrapper over
 `search_batch`, so the per-query and batched paths return identical ids.
-The IVF backend and the quantized ADC filter come with later slices of
-the port; asking for them raises `NotImplementedError`.
 
 Privacy envelope: the engine sees only DCPE filter ciphertexts and DCE
 refine ciphertexts / trapdoors — never plaintexts or true distances,
 only ciphertext distances and comparison signs (the leakage proven in
-the paper, §VI).
+the paper, §VI).  IVF centroids and ADC codebooks are keyless functions
+of the DCPE ciphertexts the server already holds.
 """
 
 from __future__ import annotations
@@ -35,15 +39,20 @@ import warnings
 import numpy as np
 import torch
 
-from ..core import secure_knn
+from ..core import adc, secure_knn
 from ..core.hnsw import HNSW
-from ..device import resolve_device
+from ..core.ivf import IVFIndex
+from ..device import full_fp32, resolve_device
+from ..kernels.adc_topk import ops as adc_ops
+from ..kernels.common import next_bucket, top_positions
 from ..kernels.dce_comp import ops as dce_ops
 from ..kernels.l2_topk import ops as l2_ops
 from ..obs.trace import child_span
 
 __all__ = ["SearchStats", "SecureSearchEngine", "FlatScanFilter",
-           "HNSWGraphFilter", "refine_candidates",
+           "IVFScanFilter", "HNSWGraphFilter", "ADCFilter",
+           "refine_candidates", "layout_pools", "scan_ivf_pools",
+           "pool_membership", "scan_ivf_oblivious",
            "traverse_graph_candidates"]
 
 
@@ -64,8 +73,9 @@ class SearchStats:
     bytes_down: int
     n_queries: int = 1
     backend: str = ""
-    # true bytes the filter touched this call (full-precision rows for
-    # the f32 flat scan); 0 for an empty collection
+    # true bytes the filter touched this call: full-precision rows for
+    # the f32 backends, codes (+ norms / centroids) for the quantized ADC
+    # backends; 0 for an empty collection
     filter_bytes_scanned: int = 0
     # dummy padding rows injected by a scheduler under padding security
     # profiles
@@ -103,11 +113,107 @@ def refine_candidates(C_dce: torch.Tensor, cand: torch.Tensor,
     return torch.where(vsel, ids, -1)
 
 
+# Gathered row elements per step of the pruned scan: bounds its (b, L, d)
+# float block (the probed pools of a batch reach 10^5 rows at 1M rows).
+_GATHER_ELEMENTS = 2 ** 27
+
+
+def _masked_pruned_scan(C_sap, Q, cand, valid, kp: int):
+    """IVF filter inner loop: ciphertext distances over probed rows only.
+
+    Same ||q||^2 - 2 q.x + ||x||^2 restructuring as the l2_topk kernel,
+    with a per-query gather (each query probes different partitions) and
+    an invalid-slot mask; the gather runs a few queries at a time.
+    Returns (ids, valid) of the per-query top-kp.
+    """
+    full_fp32()
+    nq, L = cand.shape
+    idx = cand.long()
+    qn = (Q * Q).sum(-1)[:, None]
+    cross = torch.empty((nq, L), dtype=torch.float32, device=Q.device)
+    xn = torch.empty((nq, L), dtype=torch.float32, device=Q.device)
+    step = max(1, _GATHER_ELEMENTS // max(1, L * C_sap.shape[1]))
+    for s in range(0, nq, step):
+        rows = C_sap[idx[s:s + step]]                    # (b, L, d)
+        xn[s:s + step] = (rows * rows).sum(-1)
+        cross[s:s + step] = torch.einsum("qld,qd->ql", rows, Q[s:s + step])
+    d = torch.where(valid, qn - 2.0 * cross + xn, float("inf"))
+    pos = top_positions(d, kp)
+    return torch.gather(cand, 1, pos), torch.gather(valid, 1, pos)
+
+
 # ---------------------------------------------------------------------------
 # Filter backends.  Each returns (cand (nq, kp') int64, valid (nq, kp')
 # bool, n_dist_evals) given a batch of DCPE-encrypted queries; cand and
-# valid are tensors on the engine's device.
+# valid are tensors on the engine's device (the host walk's are numpy).
 # ---------------------------------------------------------------------------
+
+
+def layout_pools(nq: int, pools, kp: int, pool_mask=None):
+    """Pad ragged probe pools to a 128-bucketed (nq, L) rectangle (host
+    numpy).  The power-of-two bucket on L is the reference's: one layout,
+    so candidate order (and with it exact id parity) cannot drift.
+    pool_mask(p) -> bool mask lets a caller pre-invalidate pool entries
+    (e.g. deleted rows)."""
+    L = next_bucket(max(kp, max((p.size for p in pools), default=1), 1),
+                    minimum=128)
+    cand = np.zeros((nq, L), np.int32)
+    valid = np.zeros((nq, L), bool)
+    for qi, p in enumerate(pools):                      # id layout only
+        cand[qi, : p.size] = p
+        valid[qi, : p.size] = True if pool_mask is None else pool_mask(p)
+    return cand, valid
+
+
+def scan_ivf_pools(C_dev: torch.Tensor, Q_sap: np.ndarray, pools, kp: int,
+                   pool_mask=None):
+    """Lay out the probe pools and run the masked scan over C_dev (n, d)
+    float32.  Returns (ids (nq, kp) int32, valid (nq, kp)) on C_dev's
+    device."""
+    nq = Q_sap.shape[0]
+    cand, valid = layout_pools(nq, pools, kp, pool_mask)
+    dev = C_dev.device
+    return _masked_pruned_scan(
+        C_dev, torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev),
+        torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev), kp)
+
+
+def _masked_full_scan(C_all, Q, member, kp: int):
+    """Scan-oblivious IVF filter inner loop (DESIGN.md §14): ciphertext
+    distances over EVERY resident row, masked afterwards by per-query
+    pool membership, so which rows the probes selected is not visible in
+    the access pattern.  Member rows get the values the pruned scan
+    computes.  Returns (ids (nq, kp) int64, valid (nq, kp))."""
+    full_fp32()
+    qn = (Q * Q).sum(-1)[:, None]
+    xn = (C_all * C_all).sum(-1)[None, :]
+    d = torch.where(member, qn - 2.0 * Q @ C_all.T + xn, float("inf"))
+    pos = top_positions(d, kp)
+    return pos, torch.gather(member, 1, pos)
+
+
+def pool_membership(nq: int, pools, bucket: int, pool_mask=None):
+    """(nq, bucket) bool membership mask for the oblivious scans:
+    member[qi, r] iff row r is in query qi's probe pool (and passes
+    pool_mask).  Host-side layout only."""
+    member = np.zeros((nq, bucket), bool)
+    for qi, p in enumerate(pools):
+        member[qi, p] = True if pool_mask is None else pool_mask(p)
+    return member
+
+
+def scan_ivf_oblivious(C_dev: torch.Tensor, Q_sap: np.ndarray, pools,
+                       kp: int, pool_mask=None):
+    """Oblivious twin of `scan_ivf_pools`: full-bucket masked scan over
+    the resident scan array.  Returns (ids (nq, kp), valid (nq, kp)) on
+    C_dev's device."""
+    nq = Q_sap.shape[0]
+    member = pool_membership(nq, pools, int(C_dev.shape[0]), pool_mask)
+    dev = C_dev.device
+    return _masked_full_scan(
+        C_dev, torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev),
+        torch.from_numpy(member).to(dev), kp)
+
 
 class FlatScanFilter:
     """Exhaustive l2_topk scan over all DCPE ciphertexts."""
@@ -132,6 +238,48 @@ class FlatScanFilter:
         valid = torch.ones(cand.shape, dtype=torch.bool, device=cand.device)
         self.last_filter_bytes = self._C.numel() * 4
         return cand, valid, Q_sap.shape[0] * n
+
+
+class IVFScanFilter:
+    """Partition-pruned scan: coarse k-means probe + masked scan.
+
+    The coarse quantizer is built over DCPE ciphertexts — the same privacy
+    envelope as the HNSW graph (centroids are functions of ciphertexts
+    only).  Probing is host-side (`IVFIndex.probe`, tiny: nq x
+    n_clusters); the per-row distances run on the engine's device in
+    `_masked_pruned_scan`.
+    """
+
+    name = "ivf"
+
+    def __init__(self, n_partitions: int = 64, nprobe: int = 8,
+                 seed: int = 0):
+        self.n_partitions = n_partitions
+        self.nprobe = nprobe
+        self.seed = seed
+        self.ivf: IVFIndex | None = None
+        self._C = None
+        self.last_filter_bytes = 0
+
+    def attach(self, C_sap: np.ndarray, engine: "SecureSearchEngine"):
+        self._C = None
+        self._C = torch.as_tensor(
+            np.asarray(C_sap, np.float32)).to(engine.device).contiguous()
+        self.ivf = IVFIndex(n_clusters=min(self.n_partitions,
+                                           C_sap.shape[0]),
+                            seed=self.seed).build(C_sap)
+
+    def candidates(self, Q_sap: np.ndarray, kp: int, ef_search: int):
+        Q = np.asarray(Q_sap, np.float32)
+        nq = Q.shape[0]
+        pools = [self.ivf.probe(q, self.nprobe) for q in Q]
+        ids, vout = scan_ivf_pools(self._C, Q, pools, kp)
+        evals = sum(p.size for p in pools) \
+            + nq * self.ivf.centroids.shape[0]
+        d = Q.shape[1]
+        self.last_filter_bytes = (sum(p.size for p in pools) * d * 4
+                                  + self.ivf.centroids.nbytes)
+        return ids, vout, evals
 
 
 def traverse_graph_candidates(index: HNSW, Q_sap: np.ndarray, kp: int,
@@ -182,6 +330,129 @@ class HNSWGraphFilter:
         return cand, valid, evals
 
 
+class ADCFilter:
+    """Quantized approximate-distance filter over ciphertext codes
+    (DESIGN.md §11): the flat/IVF scan at 1 byte/dim (int8) or m
+    bytes/vector (pq8) instead of 4 bytes/dim.
+
+    The backend trains its codebook *keylessly* over the DCPE filter
+    ciphertexts at attach (host numpy, `core.adc`), uploads the codes
+    once to the engine's device, and **oversamples**: asked for k'
+    candidates it returns k' * refine_ratio of them, so the unchanged
+    exact DCE refine recovers the order that quantization blurred.
+
+    kind="flat" streams all codes through the adc_topk CUDA kernels (one
+    call per batch: `sq_adc_topk` / `pq_adc_topk`, scan and top-k'
+    fused); kind="ivf" probes the same coarse quantizer as
+    `IVFScanFilter` (identical pools) and runs the ADC pool scan over
+    the probed rows.  The reference's `use_kernel=` option is not ported.
+    """
+
+    def __init__(self, quantization: str = "int8", kind: str = "flat", *,
+                 refine_ratio: float | None = None, n_partitions: int = 64,
+                 nprobe: int = 8, pq_m: int = 16, seed: int = 0):
+        if quantization not in ("int8", "pq8"):
+            raise ValueError(f"ADCFilter needs quantization int8|pq8, "
+                             f"got {quantization!r}")
+        if kind not in ("flat", "ivf"):
+            raise ValueError(f"ADCFilter kind must be flat|ivf, "
+                             f"got {kind!r}")
+        self.quantization = quantization
+        self.kind = kind
+        self.name = f"adc-{kind}-{quantization}"
+        self.refine_ratio = (adc.default_refine_ratio(quantization)
+                             if refine_ratio is None else
+                             float(refine_ratio))
+        self.n_partitions = n_partitions
+        self.nprobe = nprobe
+        self.pq_m = pq_m
+        self.seed = seed
+        self.codebook = None
+        self.ivf: IVFIndex | None = None
+        self._c8 = self._cn = self._codes_t = self._ok = None
+        self._n = 0
+        self.last_filter_bytes = 0
+
+    # --------------------------------------------------------- encoding
+
+    def attach(self, C_sap: np.ndarray, engine: "SecureSearchEngine"):
+        dev = engine.device
+        self._c8 = self._cn = self._codes_t = self._ok = None
+        self._n = C_sap.shape[0]
+        self.codebook = adc.train_codebook(
+            C_sap, self.quantization, m=self.pq_m, seed=self.seed)
+        if self.quantization == "int8":
+            codes, cn = self.codebook.encode(C_sap)
+            self._c8 = torch.from_numpy(codes).to(dev)
+            self._cn = torch.from_numpy(cn).to(dev)
+        else:
+            codes = self.codebook.encode(C_sap)
+            self._codes_t = torch.from_numpy(
+                np.ascontiguousarray(codes.T)).to(dev)
+        self._ok = torch.ones(self._n, dtype=torch.bool, device=dev)
+        if self.kind == "ivf":
+            # the SAME coarse quantizer as IVFScanFilter — probe pools
+            # are identical, only the per-row distance math changes
+            self.ivf = IVFIndex(n_clusters=min(self.n_partitions,
+                                               C_sap.shape[0]),
+                                seed=self.seed).build(C_sap)
+
+    def _code_bytes(self) -> int:
+        return self.codebook.code_bytes_per_vector()
+
+    def oversampled(self, kp: int) -> int:
+        return max(kp, int(np.ceil(kp * self.refine_ratio)))
+
+    def _query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
+        """q8 (nq, d) int8 for int8, the (nq, m, 256) float32 tables for
+        pq8; computed on the host by the codebook, as the reference does."""
+        if self.quantization == "int8":
+            return torch.from_numpy(self.codebook.encode_query(Q)).to(dev)
+        return torch.from_numpy(
+            np.ascontiguousarray(self.codebook.lut(Q), np.float32)).to(dev)
+
+    # ------------------------------------------------------- candidates
+
+    def candidates(self, Q_sap: np.ndarray, kp: int, ef_search: int):
+        Q = np.asarray(Q_sap, np.float32)
+        nq = Q.shape[0]
+        kp2 = min(self.oversampled(kp), self._n)
+        dev = self._ok.device
+        qop = self._query_operand(Q, dev)
+        if self.kind == "flat":
+            if self.quantization == "int8":
+                _, idx = adc_ops.sq_knn(qop, self._c8, self._cn, kp2,
+                                        ok=self._ok)
+            else:
+                _, idx = adc_ops.pq_knn(qop, self._codes_t, kp2, ok=self._ok)
+            # -1 marks slots beyond the valid-row count (kp' > n); the
+            # refine sees them masked, never a wrapped gather index
+            valid = idx >= 0
+            cand = torch.where(valid, idx, 0)
+            self.last_filter_bytes = self._n * self._code_bytes()
+            return cand, valid, nq * self._n
+
+        pools = [self.ivf.probe(q, self.nprobe) for q in Q]
+        cand, valid = layout_pools(nq, pools, kp2)
+        cand = torch.from_numpy(cand).to(dev)
+        valid = torch.from_numpy(valid).to(dev)
+        if self.quantization == "int8":
+            ids, vout = adc_ops.sq_pool_scan(self._c8, self._cn, qop, cand,
+                                             valid, kp2)
+        else:
+            ids, vout = adc_ops.pq_pool_scan(self._codes_t, qop, cand, valid,
+                                             kp2)
+        evals = sum(p.size for p in pools) \
+            + nq * self.ivf.centroids.shape[0]
+        self.last_filter_bytes = (sum(p.size for p in pools)
+                                  * self._code_bytes()
+                                  + self.ivf.centroids.nbytes)
+        return ids, vout, evals
+
+
+_BACKENDS = {"flat": FlatScanFilter, "ivf": IVFScanFilter}
+
+
 # ---------------------------------------------------------------------------
 # The engine.
 # ---------------------------------------------------------------------------
@@ -189,21 +460,18 @@ class HNSWGraphFilter:
 class SecureSearchEngine:
     """Batched filter-and-refine over an encrypted database.
 
-    backend: "flat" | a filter-backend instance (e.g.
+    backend: "flat" | "ivf" | a filter-backend instance (e.g.
     `repro_torch.graph.GraphFilter(index)` — pass the HNSW built by the
-    data owner).  device: where the ciphertexts live and the search
-    runs; None means the card (and raises without one), "cpu" runs the
-    plain PyTorch versions.  quantization must stay None until the ADC
-    slice of the port.
+    data owner).  quantization: None | "int8" | "pq8" — a non-None value
+    swaps the string-selected flat/ivf backend for the quantized
+    `ADCFilter` of the same kind; the refine is unchanged.  device: where
+    the ciphertexts live and the search runs; None means the card (and
+    raises without one), "cpu" runs the plain PyTorch versions.
     """
 
     def __init__(self, C_sap: np.ndarray, C_dce: np.ndarray, *,
                  backend="flat", quantization: str | None = None,
                  device=None, **backend_kw):
-        if quantization is not None:
-            raise NotImplementedError(
-                "quantized ADC filters come with the ADC slice of the port "
-                "(ROADMAP Queue 1 item 6)")
         if isinstance(backend, str):
             if backend == "hnsw":
                 raise ValueError(
@@ -213,13 +481,19 @@ class SecureSearchEngine:
                 raise ValueError(
                     "pass repro_torch.graph.GraphFilter(index) explicitly: "
                     "the graph is built by the data owner, not the engine")
-            if backend == "ivf":
-                raise NotImplementedError(
-                    "the IVF backend comes with a later slice of the port "
-                    "(ROADMAP Queue 1 item 4)")
-            if backend != "flat":
+            if quantization is not None:
+                if backend not in ("flat", "ivf"):
+                    raise ValueError(
+                        f"quantization applies to flat|ivf backends, "
+                        f"not {backend!r}")
+                backend = ADCFilter(quantization, kind=backend, **backend_kw)
+            elif backend in _BACKENDS:
+                backend = _BACKENDS[backend](**backend_kw)
+            else:
                 raise ValueError(f"unknown backend {backend!r}")
-            backend = FlatScanFilter(**backend_kw)
+        elif quantization is not None:
+            raise ValueError("pass quantization to the backend instance, "
+                             "not the engine, when supplying one")
         self.backend = backend
         self.device = resolve_device(device)
         self.update_database(C_sap, C_dce)
@@ -258,7 +532,8 @@ class SecureSearchEngine:
 
         Q_sap: (nq, d) DCPE query ciphertexts; T_q: (nq, 2d+16) trapdoors.
         Returns (ids (nq, k) int64, SearchStats); id -1 fills slots where
-        a query had fewer than k real candidates (tiny database).
+        a query had fewer than k real candidates (tiny database, sparse
+        IVF probe).
         refine: "tournament" (batched tournament, default) | "none"
         (filter-only baseline, Fig. 6).  The paper's sequential heap
         refine is per-query only — use `search(..., refine="heap")`.

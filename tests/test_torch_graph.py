@@ -206,12 +206,18 @@ def test_walk_on_an_empty_graph_matches_jax():
 
 
 def test_adc_scoring_names_its_slice(setup):
+    """The ADC edge scoring is ported: the quantized filters carry the
+    reference's names, and what the reference refuses is refused with
+    its ValueError."""
     _, _, index, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ADC"):
-        GraphFilter(index, quantization="int8")
+    for q in ("int8", "pq8"):
+        assert GraphFilter(index, quantization=q).name == \
+            JGraphFilter(index, quantization=q).name == f"adc-graph-{q}"
+    with pytest.raises(ValueError, match="None|int8|pq8"):
+        GraphFilter(index, quantization="int4")
     q = torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError, match="ADC"):
-        traverse._score("pq8", (torch.zeros(2, 4),), q,
+    with pytest.raises(ValueError, match="edge-scoring"):
+        traverse._score("int4", (torch.zeros(2, 4),), q,
                         torch.zeros(1, 1, dtype=torch.long))
 
 
@@ -358,6 +364,65 @@ def test_engine_ids_stats_and_trace_equal_jax(setup, ratio_k, ef_search,
     assert gst.backend == "graph" and gst.n_hops > 0
     np.testing.assert_array_equal(tgf.last_scan_trace, jgf.last_scan_trace)
     assert synth.recall_at_k(got, ds.gt, K) >= 0.9
+
+
+def _adc_db(quant, index, Q):
+    """The ADC scan arrays of GraphFilter.attach (codebook over the live
+    CSR rows, codes padded to R) and the query operand, as numpy."""
+    gf = JGraphFilter(index, quantization=quant, use_kernel=False)
+    gf.attach(None)
+    db = tuple(np.asarray(a) for a in gf._db)
+    return db, np.asarray(gf._query_operand(np.asarray(Q, np.float32)))
+
+
+@pytest.mark.parametrize("quant", ["int8", "pq8"])
+@pytest.mark.parametrize("oblivious", [False, True])
+def test_adc_walk_matches_jax(setup, quant, oblivious):
+    """int8 / pq8 edge scoring: the torch walk (and the serving entry
+    point, which routes ADC walks to it) equals the XLA walk: ids,
+    visited, hops and edges exactly (the surrogates are exact, or summed
+    in the same order)."""
+    _, jserver, index, Q, _ = setup
+    g = CSRGraph.from_hnsw(index)
+    db, qop = _adc_db(quant, jserver.db.index, Q)
+    ef_eff, ef_cap, max_hops = beam_plan(48, 64)
+    kw = dict(kp=48, ef_cap=ef_cap, max_hops=max_hops, quant=quant,
+              oblivious=oblivious)
+    J = jnp.asarray
+    want = [np.asarray(o) for o in jtraverse.graph_topk(
+        J(g.neigh0), J(g.neigh_up), J(g.levels >= 0), tuple(map(J, db)),
+        J(qop), jnp.int32(g.entry), jnp.int32(ef_eff), **kw)]
+    T = torch.from_numpy
+    for fn in (traverse.traverse, graph_ops.graph_topk):
+        got = [o.numpy() for o in fn(
+            T(g.neigh0), T(g.neigh_up), T(g.levels >= 0),
+            tuple(T(np.array(a)) for a in db), T(np.array(qop)), g.entry,
+            ef_eff, **kw)]
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        for a, b in zip(got[2:], want[2:]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("quant", ["int8", "pq8"])
+@pytest.mark.parametrize("oblivious", [False, True])
+def test_adc_engine_ids_stats_and_trace_equal_jax(setup, quant, oblivious):
+    ds, jserver, index, Q, T = setup
+    jgf = JGraphFilter(jserver.db.index, quantization=quant,
+                       use_kernel=False, oblivious=oblivious)
+    tgf = GraphFilter(index, quantization=quant, oblivious=oblivious)
+    jeng = JEngine(jserver.db.C_sap, jserver.db.C_dce, backend=jgf)
+    teng = SecureSearchEngine(jserver.db.C_sap, jserver.db.C_dce,
+                              backend=tgf, device=CPU)
+    want, wst = jeng.search_batch(Q, T, K, ef_search=96)
+    got, gst = teng.search_batch(Q, T, K, ef_search=96)
+    np.testing.assert_array_equal(got, want)
+    for f in COUNTS:
+        assert getattr(gst, f) == getattr(wst, f), f
+    assert gst.backend == f"adc-graph-{quant}"
+    np.testing.assert_array_equal(tgf.last_scan_trace, jgf.last_scan_trace)
+    for key, val in jgf.codebook.to_arrays().items():
+        np.testing.assert_array_equal(tgf.codebook.to_arrays()[key], val)
 
 
 def test_batched_matches_per_query_and_filter_attach(setup):

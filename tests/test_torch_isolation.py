@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.core import dce, dcpe, ppanns, secure_knn
 from repro_torch.kernels import _build
+from repro_torch.kernels.adc_topk import adc_topk
+from repro_torch.kernels.adc_topk import ref as adc_ref
 from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
@@ -41,7 +43,8 @@ def test_port_imports_without_jax():
             "import repro_torch, repro_torch.core, repro_torch.serving, "
             "repro_torch.obs, repro_torch.data.synth, repro_torch.kernels."
             "l2_topk, repro_torch.kernels.dce_comp, repro_torch.graph, "
-            "repro_torch.kernels.graph_expand.ops\n"
+            "repro_torch.kernels.graph_expand.ops, repro_torch.kernels."
+            "adc_topk, repro_torch.core.adc, repro_torch.core.ivf\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -91,14 +94,26 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
     beam_i, *_ = graph_expand.expand_layer0(*_graph_inputs("cpu", 2, 64, 4, 3),
                                             ef=4, ef_cap=32, max_hops=16)
     assert beam_i.shape == (2, 32)
+    adc_before = dict(adc_topk.launches)
+    d, i = adc_topk.sq_adc_topk(*_sq_inputs("cpu", 2, 50, 9), 7)
+    assert d.dtype == torch.int32 and i.shape == (2, 7)
+    d, i = adc_topk.pq_adc_topk(*_pq_inputs("cpu", 2, 50, 3), 7)
+    assert d.dtype == torch.float32 and i.dtype == torch.int64
     assert (l2_topk.launches, dce_comp.launches,
             graph_expand.launches) == before
+    assert adc_topk.launches == adc_before
 
 
 def test_mixed_devices_refused():
     meta = torch.empty(2, 3, device="meta")
     with pytest.raises(ValueError, match="mixed devices"):
         l2_topk.pairwise_sq_dists(torch.ones(2, 3), meta)
+    q8, c8, cn, ok = _sq_inputs("cpu", 2, 10, 3)
+    with pytest.raises(ValueError, match="mixed devices"):
+        adc_topk.sq_adc_topk(q8, c8, cn, ok.to("meta"), 3)
+    lut, codes_t, ok = _pq_inputs("cpu", 2, 10, 3)
+    with pytest.raises(ValueError, match="mixed devices"):
+        adc_topk.pq_adc_topk(lut.to("meta"), codes_t, ok, 3)
 
 
 def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
@@ -133,6 +148,36 @@ def _graph_inputs(device, nq, R, M0, d, seed=0, ep_missing=True):
             for a in (neigh0, ok, C, Q, ep, ep_d)]
 
 
+def _sq_inputs(device, nq, n, d, seed=0, valid=1.0, dup=0, far=False):
+    """Random int8 codes with their norms; `dup` rows repeated further
+    down (exact ties between distinct ids); a `valid` share of ok rows;
+    `far`: codes of the opposite sign to the queries, so every surrogate
+    is large (above 2^24 at d = 960)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (100, 128) if far else (-127, 128)
+    q8 = rng.integers(lo, hi, size=(nq, d)).astype(np.int8)
+    lo, hi = (-127, -99) if far else (-127, 128)
+    c8 = rng.integers(lo, hi, size=(n, d)).astype(np.int8)
+    if dup:
+        c8[n - dup:] = c8[:dup]
+    cn = (c8.astype(np.int32) ** 2).sum(1).astype(np.int32)
+    ok = rng.random(n) < valid
+    return [torch.as_tensor(a, device=device) for a in (q8, c8, cn, ok)]
+
+
+def _pq_inputs(device, nq, n, m, seed=0, valid=1.0, dup=0):
+    """Random tables (integer-valued in part, so equal sums occur) and
+    codes; `dup` code columns repeated further down."""
+    rng = np.random.default_rng(seed)
+    lut = rng.random((nq, m, 256)).astype(np.float32) * 100
+    lut[:, :, ::2] = np.round(lut[:, :, ::2])
+    codes_t = rng.integers(0, 256, size=(m, n)).astype(np.uint8)
+    if dup:
+        codes_t[:, n - dup:] = codes_t[:, :dup]
+    ok = (rng.random(n) < valid).astype(np.int32)
+    return [torch.as_tensor(a, device=device) for a in (lut, codes_t, ok)]
+
+
 # ------------------------------------------------------- on the card only
 
 @pytest.mark.cuda
@@ -145,7 +190,12 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     monkeypatch.setattr(dce_comp, "plain_batched_z_matrix", refuse)
     monkeypatch.setattr(graph_expand, "plain_expand_layer0", refuse)
     monkeypatch.setattr(graph_expand._ref, "beam_layer0", refuse)
-    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches)
+    for name in ("plain_sq_adc_topk", "plain_pq_adc_topk"):
+        monkeypatch.setattr(adc_topk, name, refuse)
+    for name in ("sq_adc_topk", "pq_adc_topk", "sq_dists", "pq_dists"):
+        monkeypatch.setattr(adc_ref, name, refuse)
+    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches,
+              *adc_topk.launches.values())
     Q = torch.randn(5, 33, device="cuda")
     X = torch.randn(70, 33, device="cuda")
     l2_topk.pairwise_sq_dists(Q, X)
@@ -153,9 +203,11 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
                               torch.randn(3, 40, device="cuda"))
     graph_expand.expand_layer0(*_graph_inputs("cuda", 3, 64, 4, 8), ef=8,
                                ef_cap=32, max_hops=64)
+    adc_topk.sq_adc_topk(*_sq_inputs("cuda", 3, 300, 17), 20)
+    adc_topk.pq_adc_topk(*_pq_inputs("cuda", 3, 300, 4), 20)
     torch.cuda.synchronize()
-    assert (l2_topk.launches, dce_comp.launches,
-            graph_expand.launches) == tuple(b + 1 for b in before)
+    assert (l2_topk.launches, dce_comp.launches, graph_expand.launches,
+            *adc_topk.launches.values()) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda
@@ -207,6 +259,50 @@ def test_graph_expand_kernel_matches_plain_on_the_card(nq, R, M0, d, ef,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d,kp,valid,dup", [
+    (1, 1, 4, 1, 1.0, 0),            # one row
+    (5, 1000, 17, 30, 0.9, 0),       # ragged d, an ok mask
+    (3, 100, 16, 30, 0.12, 0),       # ~12 valid rows: empty slots
+    (33, 5000, 128, 1024, 1.0, 0),   # kp 1024, ragged query group
+    (32, 70001, 128, 160, 0.99, 3000),   # ties, ragged n, many chunks
+    (4, 3000, 960, 50, 1.0, 500)])   # GIST width: int32 surrogates > 2^24
+def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
+    """Integer surrogates: ids and int32 distances exactly equal."""
+    _needs_card()
+    args = _sq_inputs("cuda", nq, n, d, seed=n + d, valid=valid, dup=dup,
+                      far=d == 960)
+    got = adc_topk.sq_adc_topk(*args, kp)
+    want = adc_topk.plain_sq_adc_topk(*args, kp)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ids = got[1]
+    assert ((ids >= 0).sum(1) == min(kp, int(args[3].sum()))).all()
+    real = ids[0][ids[0] >= 0]
+    assert real.unique().numel() == real.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,m,kp,valid,dup", [
+    (1, 1, 1, 1, 1.0, 0),
+    (5, 1000, 8, 30, 0.9, 0),
+    (3, 100, 16, 30, 0.12, 0),
+    (33, 5000, 16, 1024, 1.0, 0),
+    (32, 70001, 16, 320, 0.99, 3000),
+    (4, 3000, 3, 50, 1.0, 0)])       # few subspaces: many equal sums
+def test_pq_adc_kernel_matches_plain_on_the_card(nq, n, m, kp, valid, dup):
+    """Sums in ascending subspace order on both sides: ids and float32
+    distances bit-equal."""
+    _needs_card()
+    args = _pq_inputs("cuda", nq, n, m, seed=n + m, valid=valid, dup=dup)
+    got = adc_topk.pq_adc_topk(*args, kp)
+    want = adc_topk.plain_pq_adc_topk(*args, kp)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ids = got[1]
+    assert ((ids >= 0).sum(1) == min(kp, int(args[2].sum()))).all()
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_card()
     Q = torch.randn(4, 8, device="cuda")
@@ -224,3 +320,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         graph_expand.expand_layer0(n0, ok, C, Qg, ep, ep_d, ef=33,
                                    ef_cap=32, max_hops=8)
+    q8, c8, cn, ok = _sq_inputs("cuda", 2, 2000, 16)
+    with pytest.raises(ValueError, match="limit"):
+        adc_topk.sq_adc_topk(q8, c8, cn, ok, adc_topk.MAX_KP + 1)
+    with pytest.raises(TypeError):
+        adc_topk.sq_adc_topk(q8.int(), c8, cn, ok, 5)
+    lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_topk.pq_adc_topk(lut, codes_t, ok, 1024)

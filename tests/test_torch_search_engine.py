@@ -148,12 +148,13 @@ def test_filter_and_refine_spans_under_an_ambient_span(setup):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"backend": "ivf"}, NotImplementedError, "IVF"),
-    # the graph backends are ported: as strings they are refused with the
-    # JAX package's ValueError (the owner builds the graph)
+    # every backend is ported now: what remains refused is refused with
+    # the JAX package's ValueErrors (an unknown quantization, a
+    # quantized graph string, the graphs the owner builds)
+    ({"backend": "ivf", "quantization": "int4"}, ValueError, "int8|pq8"),
     ({"backend": "hnsw"}, ValueError, "HNSWGraphFilter"),
     ({"backend": "graph"}, ValueError, "GraphFilter"),
-    ({"quantization": "int8"}, NotImplementedError, "ADC")])
+    ({"backend": "bogus", "quantization": "int8"}, ValueError, "flat|ivf")])
 def test_later_slices_raise_not_implemented(kw, exc, match):
     C_sap = np.zeros((4, 8), np.float32)
     C_dce = np.zeros((4, 4, 32), np.float32)
