@@ -18,6 +18,15 @@ Phases, each of which fails the run (non-zero exit, no final line):
    shapes the main paths give them, with times (CUDA events), bounds
    and a library yardstick where one PyTorch call computes the same
    function.  Tolerances:
+     l2_topk.knn (the flat filter's fused scan + top-k'; 1% of rows
+     duplicated, so exact ties occur): ids equal to the plain chunked
+     merge in >= 99.9% of slots, distances within 1e-5 * (||q||^2 +
+     ||x||^2) where the ids agree (fp32 sums in another order);
+     dce_comp.refine_topk (the fused refine, on real DCE ciphertexts
+     read through a shuffled cand, ~10% of slots invalid): win counts
+     equal to those of the Z entry exactly (one main loop), and wins and
+     ids equal to the plain version wherever every pair has |Z_plain| >
+     1e-5 * max|Z| (the rest is reported);
      sq_adc_topk / pq_adc_topk (quantized scan + top-kp): ids and
      distances exactly equal (int32 surrogates; float32 sums taken in
      the same subspace order), exhausted slots included;
@@ -34,8 +43,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
 3. The flat path: a synthetic SIFT-width corpus (clustered Gaussians)
    encrypted on the card by `DataOwner.encrypt_vectors`, queries
    encrypted by `User`, and `SecureSearchEngine(backend="flat")` on the
-   card answering them in batches of 32 (k = 10, k' = 80), once through
-   the kernels and once with the kernels swapped for their plain
+   card answering them in batches of 32 (k = 10, k' = 80; one fused
+   l2_topk.knn and one fused dce_comp.refine_topk call a batch), once
+   through the kernels and once with the kernels swapped for their plain
    versions.  Final ids must agree in >= 99.9% of slots and recall@10
    within 0.005 (ulp-level near-ties at the k' boundary may flip).  A
    small database is also searched on the card and on the host (plain
@@ -45,16 +55,16 @@ Phases, each of which fails the run (non-zero exit, no final line):
 4. The ADC paths, after the flat engine is freed, on the same
    ciphertexts and queries: `SecureSearchEngine(backend="flat",
    quantization="int8" | "pq8")` (codebook trained on the host at
-   attach; sq_adc_topk or pq_adc_topk once per batch, dce_comp for the
-   refine), each once through the kernels and once with them swapped for
+   attach; sq_adc_topk or pq_adc_topk once per batch, refine_topk for
+   the refine), each once through the kernels and once with them swapped for
    their plain versions on the same engine (same limits as the flat
    path); then `backend="ivf", quantization="int8"` (64 partitions,
-   nprobe 8).
+   nprobe 8), also against its plain versions.
 5. The graph path, after the ADC engines are freed:
    `SecureSearchEngine(backend=GraphFilter(index))` over the HNSW of
    phase 1 (M = 8, ef_construction = 48), the same batches, k = 10,
    ratio_k = 8, ef_search = 96: once through the kernels (graph_expand
-   once per batch, dce_comp for the refine), once with both swapped for
+   and refine_topk once per batch), once with both swapped for
    their plain versions (same limits as the flat path), and the
    per-query host walk (`HNSWGraphFilter`) on the first 64 queries.
 
@@ -171,48 +181,45 @@ def plain_kernels():
     from repro_torch.kernels.graph_expand import graph_expand
     from repro_torch.kernels.graph_expand import ops as graph_ops
     from repro_torch.kernels.l2_topk import l2_topk, ops as l2_ops
-    saved = (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
-             graph_ops.expand_layer0, adc_ops.sq_adc_topk,
-             adc_ops.pq_adc_topk)
-    l2_ops.pairwise_sq_dists = l2_topk.plain_pairwise_sq_dists
-    dce_ops.batched_z_matrix = dce_comp.plain_batched_z_matrix
-    graph_ops.expand_layer0 = graph_expand.plain_expand_layer0
-    adc_ops.sq_adc_topk = adc_topk.plain_sq_adc_topk
-    adc_ops.pq_adc_topk = adc_topk.plain_pq_adc_topk
+    routes = [(l2_ops, "knn", l2_topk.plain_knn),
+              (dce_ops, "refine_topk", dce_comp.plain_refine_topk),
+              (graph_ops, "expand_layer0", graph_expand.plain_expand_layer0),
+              (adc_ops, "sq_adc_topk", adc_topk.plain_sq_adc_topk),
+              (adc_ops, "pq_adc_topk", adc_topk.plain_pq_adc_topk)]
+    saved = [getattr(mod, name) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (l2_ops.pairwise_sq_dists, dce_ops.batched_z_matrix,
-         graph_ops.expand_layer0, adc_ops.sq_adc_topk,
-         adc_ops.pq_adc_topk) = saved
-
-
-def kernel_wrappers() -> dict:
-    """The kernel wrappers by kernel name; each counts its launches."""
-    from repro_torch.kernels.dce_comp import dce_comp
-    from repro_torch.kernels.graph_expand import graph_expand
-    from repro_torch.kernels.l2_topk import l2_topk
-    return {"l2_topk": l2_topk, "dce_comp": dce_comp,
-            "graph_expand": graph_expand}
-
-
-# the adc_topk wrapper module counts each of its two kernels apart
-ADC_KERNELS = ("sq_adc_topk", "pq_adc_topk")
+        for (mod, name, _), kern in zip(routes, saved):
+            setattr(mod, name, kern)
 
 
 def kernel_launches() -> dict:
+    """Launch counts by kernel, "module.entry": each wrapper counts the
+    launches of its kernel (z_matrix under batched_z_matrix)."""
     from repro_torch.kernels.adc_topk import adc_topk
-    out = {k: w.launches for k, w in kernel_wrappers().items()}
-    out.update({k: adc_topk.launches[k] for k in ADC_KERNELS})
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.graph_expand import graph_expand
+    from repro_torch.kernels.l2_topk import l2_topk
+    out = {"graph_expand.expand_layer0": graph_expand.launches}
+    for mod, counts in (("l2_topk", l2_topk.launches),
+                        ("dce_comp", dce_comp.launches),
+                        ("adc_topk", adc_topk.launches)):
+        out.update({f"{mod}.{k}": v for k, v in counts.items()})
     return out
 
 
 def reset_launches() -> None:
     from repro_torch.kernels.adc_topk import adc_topk
-    for w in kernel_wrappers().values():
-        w.launches = 0
-    for k in ADC_KERNELS:
-        adc_topk.launches[k] = 0
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.graph_expand import graph_expand
+    from repro_torch.kernels.l2_topk import l2_topk
+    graph_expand.launches = 0
+    for counts in (l2_topk.launches, dce_comp.launches, adc_topk.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------- phase 2
@@ -249,6 +256,58 @@ def check_l2(nq: int, n: int, d: int, gen) -> dict:
         "library_ms": device_ms(
             lambda: torch.addmm(base, Q, Xt, beta=1.0, alpha=-2.0)),
         "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_knn(nq: int, n: int, d: int, k: int, gen) -> dict:
+    """The fused scan against its plain version (the chunked merge over
+    plain tiles): DCPE-like magnitudes, the last 1% of rows repeating the
+    first, so exact ties between distinct ids occur."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_topk
+    dev = torch.device("cuda")
+    Q = 1024.0 * torch.randn((nq, d), generator=gen, device=dev)
+    X = 1024.0 * torch.randn((n, d), generator=gen, device=dev)
+    dup = n // 100
+    if dup:
+        X[n - dup:] = X[:dup]
+    got = l2_topk.knn(Q, X, k)
+    want = l2_topk.plain_knn(Q, X, k)
+    torch.cuda.synchronize()
+    kk = min(k, n)
+    same = got[1] == want[1]
+    agree = float(same.float().mean())
+    qn = (Q * Q).sum(1)
+    xn = (X * X).sum(1)
+    scale = qn[:, None] + xn[want[1].clamp(min=0)]
+    err = (got[0] - want[0]).abs()[same]
+    rel = float((err / scale[same]).max()) if err.numel() else 0.0
+    if (got[1].shape != (nq, kk) or not torch.isfinite(got[0]).all()
+            or agree < MIN_ID_AGREEMENT or rel > L2_RTOL):
+        raise AssertionError(f"fused l2 scan disagrees at nq={nq} n={n} "
+                             f"d={d} k={k}: ids {agree}, max rel err {rel}")
+    flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
+    nbytes = 4.0 * (nq * d + n * d) + 12.0 * nq * kk
+    b_ms, b_by = bound(flops, nbytes)
+    base = qn[:, None] + xn[None, :]
+    Xt = X.T
+    return {
+        "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={k}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/l2_topk.cu",
+        "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77",
+        "max_abs_err": float(err.max()) if err.numel() else 0.0,
+        "max_rel_err": rel, "id_agreement": agree,
+        "duplicated_rows": dup,
+        "ms": device_ms(lambda: l2_topk.knn(Q, X, k)),
+        "plain_ms": device_ms(lambda: l2_topk.plain_knn(Q, X, k),
+                              reps=10, warmup=2),
+        "library_ms": device_ms(lambda: torch.topk(
+            torch.addmm(base, Q, Xt, beta=1.0, alpha=-2.0), kk, dim=1,
+            largest=False)),
+        "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2), "
+                        "torch.topk(largest=False)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -318,6 +377,81 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
                                   beta=1.0, alpha=-1.0)),
         "library_call": "torch.baddbmm(torch.bmm(L1, R3), L2, R4, alpha=-1)"
                         " on pre-scaled L1, L2",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_refine(B: int, n: int, d: int, k: int, gen, home: str) -> dict:
+    """The fused refine against its plain version (gather, Z, wins,
+    stable sort) on real DCE ciphertexts read through a shuffled cand:
+    ~10% of slots invalid (half of them with id -1, as the graph filter
+    leaves them), query 0 with fewer valid slots than k.  The fused
+    kernel's win counts must equal those of the Z entry (one main loop)
+    exactly, and the plain version's wins and ids wherever every pair of
+    valid slots has |Z_plain| > Z_RTOL * max|Z|; the rest is reported."""
+    import torch
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.dce_comp.ref import batched_wins
+    C, T = dce_inputs(B, n, d, gen)
+    D = C.shape[-1]
+    C_dce = C.reshape(B * n, 4, D)
+    dev = C.device
+    cand = (torch.arange(B, device=dev)[:, None] * n
+            + torch.argsort(torch.rand((B, n), generator=gen, device=dev),
+                            dim=1))
+    valid = torch.rand((B, n), generator=gen, device=dev) > 0.1
+    valid[0] = False
+    valid[0, :k - 3] = True
+    cand = torch.where(valid | (cand % 2 == 0), cand, -1).contiguous()
+    args = (C_dce, cand, T, valid, k)
+    ids, wins = dce_comp.refine_topk(*args, return_wins=True)
+    ids_p, wins_p = dce_comp.plain_refine_topk(*args, return_wins=True)
+    Cc = C_dce[cand]
+    z_k = dce_comp.batched_z_matrix(Cc, T)
+    z_p = dce_comp.plain_batched_z_matrix(Cc, T)
+    torch.cuda.synchronize()
+    pairs = valid[:, :, None] & valid[:, None, :] & ~torch.eye(
+        n, dtype=torch.bool, device=dev)[None]
+    zmax = float(z_p[pairs].abs().max())
+    unsure = pairs & (z_p.abs() <= Z_RTOL * zmax)
+    sure_row = ~unsure.any(-1) & valid
+    sure_query = ~unsure.any(-1).any(-1)
+    from_z = torch.equal(wins, batched_wins(z_k, valid))
+    wins_ok = bool((wins == wins_p)[sure_row].all())
+    ids_ok = bool((ids == ids_p)[sure_query].all())
+    if not (from_z and wins_ok and ids_ok):
+        raise AssertionError(f"fused refine disagrees at B={B} n={n} D={D}: "
+                             f"wins = Z entry's {from_z}, = plain on sure "
+                             f"rows {wins_ok}, ids on sure queries {ids_ok}")
+    L1 = (Cc[:, :, 0] * T[:, None]).contiguous()
+    L2 = (Cc[:, :, 1] * T[:, None]).contiguous()
+    R3 = Cc[:, :, 2].transpose(1, 2)
+    R4 = Cc[:, :, 3].transpose(1, 2)
+    flops = 4.0 * B * n * n * D + 2.0 * B * n * D + B * n * n
+    nbytes = 4.0 * (B * n * 4 * D + B * D) + 9.0 * B * n + 8.0 * B * k
+    b_ms, b_by = bound(flops, nbytes)
+    err = (z_k - z_p).abs()[pairs]
+    return {
+        "name": f"dce_comp.refine_topk[B={B},n={n},D={D},k={k}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/dce_comp.cu",
+        "replaces": "src/repro/kernels/dce_comp/dce_comp.py:131",
+        "home": home,
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float(err.max()) / zmax,
+        "wins_equal_z_entry": from_z,
+        "wins_agreement": float((wins == wins_p).float().mean()),
+        "id_agreement": float((ids == ids_p).float().mean()),
+        "unsure_rows": int((~sure_row & valid).sum()),
+        "unsure_queries": int((~sure_query).sum()),
+        "invalid_slots": int((~valid).sum()),
+        "ms": device_ms(lambda: dce_comp.refine_topk(*args)),
+        "plain_ms": device_ms(lambda: dce_comp.plain_refine_topk(*args)),
+        "library_ms": device_ms(
+            lambda: torch.baddbmm(torch.bmm(L1, R3), L2, R4,
+                                  beta=1.0, alpha=-1.0)),
+        "library_call": "torch.baddbmm(torch.bmm(L1, R3), L2, R4, alpha=-1)"
+                        " on gathered, pre-scaled L1, L2 (Z alone)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -697,9 +831,12 @@ def main_path(n: int, n_queries: int) -> dict:
     log(json.dumps(out))
     if ids.shape != (Q.shape[0], K) or (ids < 0).any() or (ids >= n).any():
         raise AssertionError("main path returned ids outside the database")
-    if min(launches["l2_topk"], launches["dce_comp"]) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    nb = len(lat)
+    if (launches["l2_topk.knn"] != nb
+            or launches["dce_comp.refine_topk"] != nb):
+        raise AssertionError(f"flat path kernels: {launches} for {nb} "
+                             f"batches (one fused scan and one fused "
+                             f"refine a batch)")
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
@@ -780,13 +917,11 @@ def adc_breakdown(eng, Q, T, reps: int = 10) -> dict:
     }
 
 
-def adc_path(ctx: dict, quantization: str, backend: str = "flat",
-             compare_plain: bool = True) -> dict:
+def adc_path(ctx: dict, quantization: str, backend: str = "flat") -> dict:
     """The quantized filter on the flat path's ciphertexts and queries:
     `SecureSearchEngine(backend=..., quantization=...)` on the card, once
-    through the kernels and (compare_plain) once with them swapped for
-    their plain versions on the same engine, so the codebook is trained
-    once."""
+    through the kernels and once with them swapped for their plain
+    versions on the same engine, so the codebook is trained once."""
     import torch
     from repro_torch.data import synth
     from repro_torch.serving.search_engine import SecureSearchEngine
@@ -838,30 +973,30 @@ def adc_path(ctx: dict, quantization: str, backend: str = "flat",
     }
     if ivf:
         out.update(n_partitions=IVF_PARTITIONS, nprobe=IVF_NPROBE)
-    if compare_plain:
-        with plain_kernels():
-            ids_plain, lat_plain = run_batches(eng, Q, T)
-        if kernel_launches() != launches:
-            raise AssertionError("a kernel launched during the plain run")
-        rec_plain = synth.recall_at_k(ids_plain, ds.gt, K)
-        agree = float((ids == ids_plain).mean())
-        out.update({
-            "recall@10_plain": rec_plain, "id_agreement": agree,
-            "qps_plain": nq / sum(lat_plain),
-            "batch_p50_ms_plain": float(np.percentile(lat_plain, 50)) * 1e3,
-            "batch_p99_ms_plain": float(np.percentile(lat_plain, 99)) * 1e3,
-        })
-        log(json.dumps(dict(profile_batches(eng, Q, T, n_batches=4),
-                            path=path)))
+    with plain_kernels():
+        ids_plain, lat_plain = run_batches(eng, Q, T)
+    if kernel_launches() != launches:
+        raise AssertionError("a kernel launched during the plain run")
+    rec_plain = synth.recall_at_k(ids_plain, ds.gt, K)
+    agree = float((ids == ids_plain).mean())
+    out.update({
+        "recall@10_plain": rec_plain, "id_agreement": agree,
+        "qps_plain": nq / sum(lat_plain),
+        "batch_p50_ms_plain": float(np.percentile(lat_plain, 50)) * 1e3,
+        "batch_p99_ms_plain": float(np.percentile(lat_plain, 99)) * 1e3,
+    })
+    log(json.dumps(dict(profile_batches(eng, Q, T, n_batches=4), path=path)))
+    if not ivf:                          # the breakdown times the flat scan
         log(json.dumps(adc_breakdown(eng, Q, T)))
     log(json.dumps(out))
     if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
         raise AssertionError(f"{path} returned ids outside the database")
-    kern = "sq_adc_topk" if quantization == "int8" else "pq_adc_topk"
-    if launches["dce_comp"] <= 0 or (not ivf and launches[kern] != nb):
+    kern = ("adc_topk.sq_adc_topk" if quantization == "int8"
+            else "adc_topk.pq_adc_topk")
+    if (launches["dce_comp.refine_topk"] != nb
+            or (not ivf and launches[kern] != nb)):
         raise AssertionError(f"{path} kernels: {launches} for {nb} batches")
-    if compare_plain and (agree < MIN_ID_AGREEMENT
-                          or abs(rec - rec_plain) > MAX_RECALL_GAP):
+    if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"{path}: kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
     return launches
@@ -1069,7 +1204,8 @@ def graph_path(g: dict) -> dict:
     log(json.dumps(out))
     if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
         raise AssertionError("graph path returned ids outside the database")
-    if launches["graph_expand"] != len(lat) or launches["dce_comp"] <= 0:
+    if (launches["graph_expand.expand_layer0"] != len(lat)
+            or launches["dce_comp.refine_topk"] != len(lat)):
         raise AssertionError(f"graph path kernels: {launches} for "
                              f"{len(lat)} batches")
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
@@ -1115,7 +1251,13 @@ def main() -> int:
 
         # phase 2 ---------------------------------------------------
         gen = torch.Generator(device="cuda").manual_seed(0)
-        records = [check_l2(32, 4096, 128, gen),
+        records = [check_knn(32, 1_000_000, 128, K * RATIO_K, gen),
+                   check_knn(32, 2 ** 18, 960, K * RATIO_K, gen),
+                   check_knn(32, 50, 128, K * RATIO_K, gen),
+                   check_refine(32, 80, 128, K, gen, "flat"),
+                   check_refine(32, 160, 128, K, gen, "adc_int8"),
+                   check_refine(32, 320, 128, K, gen, "adc_pq8"),
+                   check_l2(32, 4096, 128, gen),
                    check_l2(32, 4096, 960, gen),
                    check_z(32, 80, 128, gen), check_z(32, 80, 960, gen),
                    check_z(32, 160, 128, gen), check_z(32, 320, 128, gen),
@@ -1141,11 +1283,10 @@ def main() -> int:
 
         # phase 4 ---------------------------------------------------
         on_adc = {}
-        for path, quant, backend, plain in (
-                ("adc_int8", "int8", "flat", True),
-                ("adc_pq8", "pq8", "flat", True),
-                ("ivf_int8", "int8", "ivf", False)):
-            on_adc[path] = adc_path(corpus, quant, backend, plain)
+        for path, quant, backend in (("adc_int8", "int8", "flat"),
+                                     ("adc_pq8", "pq8", "flat"),
+                                     ("ivf_int8", "int8", "ivf")):
+            on_adc[path] = adc_path(corpus, quant, backend)
             gc.collect()
             torch.cuda.empty_cache()
         del corpus
@@ -1154,14 +1295,21 @@ def main() -> int:
         on_graph = graph_path(graph)
 
     paths = {"flat": flat, "graph": on_graph, **on_adc}
-    # launches: on the path the kernel was ported for (K2/K3 count the
-    # flat path's refine); launches_by_path: on each path
-    home = {"l2_topk": "flat", "dce_comp": "flat", "graph_expand": "graph",
-            "sq_adc_topk": "adc_int8", "pq_adc_topk": "adc_pq8"}
+    # launches: on the path the kernel was ported for (or the record's
+    # own, where its shape is another path's); launches_by_path: on each
+    home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",
+            "dce_comp.refine_topk": "flat",
+            "dce_comp.batched_z_matrix": "flat",
+            "graph_expand.expand_layer0": "graph",
+            "adc_topk.sq_adc_topk": "adc_int8",
+            "adc_topk.pq_adc_topk": "adc_pq8"}
     for r in records:
-        mod, fn = r["name"].split("[")[0].split(".")[:2]
-        kern = fn if mod == "adc_topk" else mod
-        r["launches"] = paths[home[kern]][kern]
+        kern = r["name"].split("[")[0]
+        kern = {"dce_comp.z_matrix": "dce_comp.batched_z_matrix"}.get(
+            kern, kern)                  # z_matrix is the B = 1 kernel
+        path = r.pop("home", home[kern])
+        r["launches"] = paths[path][kern]
+        r["launches_on"] = path
         r["launches_by_path"] = {p: c[kern] for p, c in paths.items()}
     log(json.dumps({"phase": "done",
                     "wall_s": time.perf_counter() - t_start}))

@@ -13,12 +13,9 @@
 // valid the remaining slots are (INT_BIG = 2^30, -1) or (+inf, -1), never
 // a duplicated id.
 //
-// Selection by 64-bit keys: (orderable distance bits << 32) | row id, with
-// the int32 sign bit flipped, or float32's sign-magnitude flip (-0 taken
-// as +0).  Keys are distinct, and their unsigned order is the order of a
-// stable ascending sort of the distances over the whole row, i.e. the
-// order of the reference's lax.top_k(-d): the tie rule needs no extra
-// code anywhere.
+// Selection by 64-bit keys, (orderable distance bits << 32) | row id,
+// through the shared `topk_select.cuh`: their order is the stable sort's,
+// so the tie rule needs no extra code anywhere.
 //
 // Two launches per call.  Stage 1: a block takes QB queries and a chunk of
 // rows, walks the chunk in tiles of 256 rows (one row a thread) and keeps,
@@ -59,9 +56,18 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "topk_select.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using topk::EMPTY;
+using topk::FLOAT_INF_BITS;
+using topk::order_float;
+using topk::order_int;
+using topk::pack_key;
+using topk::state_len;
+using topk::u64;
+using topk::unorder;
 
 constexpr int THREADS = 256;
 constexpr int TILE = 256;          // rows (or partial keys) offered per step
@@ -73,21 +79,13 @@ constexpr int PQ_K = 256;          // centroids per subspace
 constexpr int MAX_KP = 1024;
 constexpr int MAX_D = 2048;
 constexpr int INT_BIG = 1 << 30;
-constexpr unsigned FLOAT_INF_BITS = 0x7f800000u;
-constexpr u64 EMPTY = ~0ull;
 
-__host__ __device__ inline int state_len(int kp) {
-  int sc = 32;
-  while (sc < kp) sc <<= 1;
-  return sc;
-}
+typedef topk::Select<THREADS> Select;
 
 // Sorted segment per query: the state (state_len) and a buffer that
 // holds at least two tiles of offers.
 __host__ __device__ inline int sort_len(int kp) {
-  int s = 1;
-  while (s < state_len(kp) + 2 * TILE) s <<= 1;
-  return s;
+  return topk::pow2_at_least(state_len(kp) + 2 * TILE);
 }
 
 __host__ __device__ inline int words_padded(int d) {
@@ -95,113 +93,19 @@ __host__ __device__ inline int words_padded(int d) {
 }
 
 size_t sq_smem(int kp, int d) {
-  return (size_t)SQ_QB * sort_len(kp) * 8 + (size_t)TILE * KCS * 4 +
-         (size_t)SQ_QB * words_padded(d) * 4 + SQ_QB * 12;
+  return Select::bytes(SQ_QB, sort_len(kp)) + (size_t)TILE * KCS * 4 +
+         (size_t)SQ_QB * words_padded(d) * 4;
 }
 
 size_t pq_smem(int kp, int m) {
-  return (size_t)PQ_QB * sort_len(kp) * 8 + (size_t)PQ_QB * m * PQ_K * 4 +
-         PQ_QB * 12;
+  return Select::bytes(PQ_QB, sort_len(kp)) + (size_t)PQ_QB * m * PQ_K * 4;
 }
 
-size_t merge_smem(int kp) { return (size_t)sort_len(kp) * 8 + 12; }
-
-__device__ __forceinline__ u64 pack_key(unsigned ordered, int id) {
-  return ((u64)ordered << 32) | (unsigned)id;
-}
-
-__device__ __forceinline__ unsigned order_int(int d) {
-  return (unsigned)d ^ 0x80000000u;
-}
-
-__device__ __forceinline__ unsigned order_float(float d) {
-  const unsigned u = __float_as_uint(d + 0.0f);    // -0 -> +0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ unsigned unorder(unsigned k, bool is_float) {
-  if (!is_float) return k ^ 0x80000000u;
-  return (k & 0x80000000u) ? (k ^ 0x80000000u) : ~k;
-}
-
-// The running top-kp of `nseg` queries in shared memory.  Segment q is
-// keys[q*S, (q+1)*S): [0, SC) the state, ascending after a flush, and
-// [SC, S) the buffer, EMPTY where unused.
-struct Select {
-  u64* keys;
-  u64* thr;        // per query: keys below it are offered to the buffer
-  int* cnt;        // per query: keys in the buffer
-  int nseg, S, SC, kp;
-
-  __device__ void init(int tid) {
-    for (int i = tid; i < nseg * S; i += THREADS) keys[i] = EMPTY;
-    if (tid < nseg) {
-      thr[tid] = EMPTY;
-      cnt[tid] = 0;
-    }
-  }
-
-  __device__ __forceinline__ void offer(int q, u64 key) {
-    if (key < thr[q]) {
-      const int pos = atomicAdd(&cnt[q], 1);
-      keys[q * S + SC + pos] = key;
-    }
-  }
-
-  // All threads, after a step of at most TILE offers per query: flush if
-  // the next step could overflow a buffer.  Every thread reads the
-  // counters between two barriers, so all take the same branch.
-  __device__ void end_step(int tid) {
-    __syncthreads();
-    bool due = false;
-    for (int q = 0; q < nseg; ++q) due |= cnt[q] > S - SC - TILE;
-    __syncthreads();
-    if (due) flush(tid);
-  }
-
-  // All threads: sort every segment (one bitonic network over all of
-  // them), drop the buffer, and take each query's kp-th key as its new
-  // threshold.
-  __device__ void flush(int tid) {
-    // S is a power of two: segment and offset by shift and mask
-    const int log_half = __ffs(S) - 2;
-    const int half = S >> 1;
-    for (int k = 2; k <= S; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < nseg * half; i += THREADS) {
-          const int t = i & (half - 1);
-          const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-          u64* base = keys + ((size_t)(i >> log_half) << (log_half + 1));
-          const u64 a = base[lo], b = base[lo + j];
-          if ((a > b) == ((lo & k) == 0)) {
-            base[lo] = b;
-            base[lo + j] = a;
-          }
-        }
-        __syncthreads();
-      }
-    }
-    for (int i = tid; i < nseg * S; i += THREADS)
-      if ((i & (S - 1)) >= SC) keys[i] = EMPTY;
-    if (tid < nseg) {
-      cnt[tid] = 0;
-      thr[tid] = keys[(size_t)tid * S + kp - 1];
-    }
-    __syncthreads();
-  }
-};
+size_t merge_smem(int kp) { return Select::bytes(1, sort_len(kp)); }
 
 __device__ __forceinline__ Select make_select(unsigned char* smem, int nseg,
                                               int kp, size_t tail_bytes) {
-  Select s;
-  s.nseg = nseg;
-  s.kp = kp;
-  s.S = sort_len(kp);
-  s.SC = state_len(kp);
-  s.keys = reinterpret_cast<u64*>(smem);
-  s.thr = reinterpret_cast<u64*>(smem + (size_t)nseg * s.S * 8 + tail_bytes);
-  s.cnt = reinterpret_cast<int*>(s.thr + nseg);
-  return s;
+  return Select::at(smem, nseg, kp, sort_len(kp), tail_bytes);
 }
 
 // Word w (codes 4w .. 4w+3, little-endian) of a row of d int8 codes,
@@ -283,7 +187,7 @@ sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
           sel.offer(q, pack_key(order_int(dist), r));
       }
     }
-    sel.end_step(tid);
+    sel.end_step(tid, TILE);
   }
   sel.flush(tid);
   for (int i = tid; i < SQ_QB * kp; i += THREADS) {
@@ -333,7 +237,7 @@ pq_scan_kernel(const float* __restrict__ lut,
         if (q0 + q < nq && acc[q] < __int_as_float(FLOAT_INF_BITS))
           sel.offer(q, pack_key(order_float(acc[q]), r));
     }
-    sel.end_step(tid);
+    sel.end_step(tid, TILE);
   }
   sel.flush(tid);
   for (int i = tid; i < PQ_QB * kp; i += THREADS) {
@@ -359,7 +263,7 @@ merge_kernel(const u64* __restrict__ part, unsigned* __restrict__ out_d,
   for (int t0 = 0; t0 < total; t0 += TILE) {
     const int i = t0 + tid;
     if (i < total) sel.offer(0, src[i]);      // EMPTY is never below thr
-    sel.end_step(tid);
+    sel.end_step(tid, TILE);
   }
   sel.flush(tid);
   for (int j = tid; j < kp; j += THREADS) {

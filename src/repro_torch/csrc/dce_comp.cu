@@ -1,143 +1,394 @@
-// Batched DCE DistanceComp (pairwise Z) tiles of the refine.
+// The DCE tournament refine: batched DistanceComp (pairwise Z) tiles, and
+// the fused refine (candidate gather + Z + win count + top-k by wins).
 //
 // Replaces: src/repro/kernels/dce_comp/dce_comp.py :: batched_z_matrix
-// (Pallas tile kernel _z_tile_kernel_batched) and :: z_matrix
-// (_z_tile_kernel), the same math for one candidate set (B = 1 here).
-// For each query b and candidates i, j of its set:
+// (Pallas tile kernel _z_tile_kernel_batched, line 131) and :: z_matrix
+// (_z_tile_kernel, line 67), the same math for one candidate set, with
+// their consumers src/repro/kernels/dce_comp/ops.py ::
+// batched_top_k_by_wins and src/repro/serving/search_engine.py ::
+// refine_candidates.  For each query b and candidates i, j of its set:
 //     Z[b,i,j] = (C[b,i,0] o T_b) . C[b,j,2]  -  (C[b,i,1] o T_b) . C[b,j,3]
-// over D = 2*d_pad + 16, in float32.  Z[b,i,j] < 0 iff candidate i is
-// closer to the query than j; the caller turns Z into win counts.
+// over D = 2*d_pad + 16, in float32; Z[b,i,j] < 0 iff candidate i is
+// closer to the query than j.  Two entries share one main loop:
+//   repro_dce_batched_z — the "store Z" epilogue: Z (B, n, n) for
+//       C (B, n, 4, D); z_matrix is its B = 1 case;
+//   repro_dce_refine_topk — the fused refine: the rows of C_dce (N, 4, D)
+//       are read through cand (B, n), and a win of i over j (Z < 0, j != i,
+//       j valid) is counted in registers, so neither the gathered
+//       candidates nor Z reach device memory; a second launch ranks each
+//       query's slots by wins (descending, ties to the lowest slot, invalid
+//       slots last with -1 wins) and writes cand[b, i], or -1 for an invalid
+//       slot, at ranks below k.
 //
-// What bounds it on the H100: at the main-path shape (B = 32 queries,
-// n = k' = 80 candidates, D = 272) the kernel reads 32*80*4*272*4 B =
-// 11.1 MB of ciphertexts and writes 0.8 MB of Z for 2*2*B*n^2*D = 0.22
-// GFLOP, about 19 FLOP per byte: memory-bound, ~3.6 us at 3.35 TB/s
-// (~24 us at D = 1936).
+// What bounds it on the H100: at the pq8 path's shape (B = 32 queries,
+// n = 320 candidates, D = 272) the 2 * 2 * B * n^2 * D = 3.6 GFLOP of true
+// fp32 FMA take 0.053 ms at 67 TFLOP/s, against 44.6 MB of rows, 0.013 ms:
+// operations.  At n = 160 it is 0.013 ms (operations), at n = 80 the
+// 11.1 MB of rows, 0.0036 ms (bytes).
 //
-// What the design does about it: it is the simple, right version.  One
-// block per (query b, 32-row i-tile, 32-column j-tile) stages, per 32-deep
-// slice of D, the trapdoor-scaled left operands C[b,i,0] o T_b and
-// C[b,i,1] o T_b (the scaling is fused into the load, as in the TPU
-// kernel) and the right operands C[b,j,2] and C[b,j,3] in shared memory;
-// the next slice is loaded into registers while the current one is used,
-// so a stage costs one round trip to memory, not one per load.
-// Each of 256 threads keeps 2 x 2 tiles of both products in fp32
-// registers with true fp32 FMA: DCE's exactness in f32 rests on true
-// fp32 sums, so no TF32 and no tensor cores.  The two products are kept
-// apart and subtracted once at the end, as the reference does.  Ragged n
-// and D are masked; nothing is padded.  Fusing the win count (so Z never
-// reaches device memory) and the candidate gather is later work.
+// What the design does about it:
+//   * a block owns one query b and TI = 16 RI rows i (RI = 1..5, chosen per
+//     call so that B * ceil(n / TI) blocks fill the SMs once: RI = 5 at
+//     n = 320, 3 at 160, 2 at 80) and walks every 80-column j-tile (the
+//     paths' n = 80, 160, 320 are whole tiles), 16 deep a stage; the
+//     stages stream through a 4-deep cp.async ring (16-byte copies, three
+//     stages in flight: the rows come through cand from anywhere in
+//     C_dce), and components 0 and 1 are scaled by T_b in shared memory
+//     once landed (80-byte padded rows: conflict-free 16-byte reads);
+//   * each of 256 threads keeps an RI x 5 tile of both products in fp32
+//     registers, true fp32 FMA in ascending depth order, the two products
+//     kept apart and subtracted once at the end: the arithmetic of the
+//     reference's two products, so the Z entry and the win counts see the
+//     same Z, bit for bit (DCE's exactness in f32 rests on true fp32 sums:
+//     no TF32, no tensor cores, no concatenated 2D-deep product).  The two
+//     products of a stage run one after the other, so only one product's
+//     operands are in registers at a time.  What holds the loop back is
+//     the shared-memory reads that feed it: 2 (RI + 5) floats a thread per
+//     depth for 10 RI FMAs;
+//   * a row's wins are summed over its 16 column threads by warp shuffles:
+//     no atomics, deterministic; the ranking is one small block a query.
+// Ragged n and D, and candidate ids outside [0, N) (the slots a filter
+// marks invalid), are read as zeros; nothing is padded or copied.
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int TI = 32;                          // rows i per block
-constexpr int TJ = 32;                          // columns j per block
-constexpr int DK = 32;                          // depth per stage
-constexpr int RI = 2;                           // rows per thread
-constexpr int RJ = 2;                           // columns per thread
-constexpr int THREADS = (TI / RI) * (TJ / RJ);  // 256
+constexpr int THREADS = 256;
+constexpr int GROUPS = 16;                      // row and column thread groups
+constexpr int RJ = 5;                           // columns per thread, 16 apart
+constexpr int TJ = GROUPS * RJ;                 // 80 columns per j-tile
+constexpr int DK = 16;                          // depth per stage
+constexpr int DKP = DK + 4;                     // padded row stride: 80 B
+constexpr int STAGES = 4;                       // ring of stages in flight
+constexpr int MAX_RI = 5;
+constexpr int RANK_TILE = 1024;                 // wins staged per rank step
 
+// The rows a (query, slot) pair reads: slot i of query b is row cand[b, i]
+// of C_dce (refine) or row b * n + i of C (Z entry); rows outside
+// [0, N) and slots past n read as zeros.
+struct Rows {
+  const float* C;
+  const long long* cand;     // nullptr: the Z entry's rows
+  long long N;
+  int n, D;
+  bool vec;                  // 16-byte loads: D % 4 == 0, C and T aligned
+
+  __device__ const float* row(int b, int i) const {
+    if (i >= n) return nullptr;
+    const long long r = cand ? cand[(size_t)b * n + i] : (long long)b * n + i;
+    if (r < 0 || r >= N) return nullptr;
+    return C + (size_t)r * 4 * D;
+  }
+
+  // Component `comp` of a row from `row` (nullptr stays nullptr).
+  __device__ const float* comp(const float* row, int c) const {
+    return row ? row + (size_t)c * D : nullptr;
+  }
+};
+
+__device__ __forceinline__ float4 scale4(float4 v, float4 t) {
+  return make_float4(__fmul_rn(v.x, t.x), __fmul_rn(v.y, t.y),
+                     __fmul_rn(v.z, t.z), __fmul_rn(v.w, t.w));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 4 : 0));
+}
+
+// Elements k .. k+3 of the D-vector at p into shared memory at dst, zero
+// past D or if p is null.
+__device__ __forceinline__ void copy4(float* dst, const float* p, int k,
+                                      int D, bool vec, const float* any) {
+  if (vec) {
+    cp_async16(dst, p && k < D ? p + k : any, p && k < D);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + e, p && k + e < D ? p + k + e : any, p && k + e < D);
+  }
+}
+
+__host__ __device__ constexpr int stage_floats(int ri) {
+  return (2 * GROUPS * ri + 2 * TJ) * DKP;
+}
+
+// The main loop of both entries.  Grid (ceil(n / TI), B).  Thread t: row
+// group ig = t / 16 (rows ig * RI + r), column group jg = t % 16 (columns
+// jg + 16 c of each j-tile).  Stages of DK depth (rows i of components 0
+// and 1, rows j of components 2 and 3) stream through a ring of STAGES
+// in shared memory by cp.async; a thread scales the component-0/1 chunks
+// it copied itself by T_b once they have landed.  REFINE counts wins into
+// `wins` (B, n); otherwise Z (B, n, n) is stored.
+template <int RI, bool REFINE>
 __global__ void __launch_bounds__(THREADS)
-z_tile_kernel(const float* __restrict__ C, const float* __restrict__ T,
-              float* __restrict__ Z, int n, int D) {
-  __shared__ float L1[DK][TI + 1];
-  __shared__ float L2[DK][TI + 1];
-  __shared__ float R3[DK][TJ + 1];
-  __shared__ float R4[DK][TJ + 1];
+z_kernel(Rows rows, const float* __restrict__ T,
+         const unsigned char* __restrict__ valid, float* __restrict__ Z,
+         int* __restrict__ wins) {
+  constexpr int TI = GROUPS * RI;
+  constexpr int P = DK / 4;                         // float4s of a row
+  constexpr int LCHUNKS = TI * P * 2;               // float4s of L1, L2
+  constexpr int RCHUNKS = TJ * P * 2;               // float4s of R3, R4
+  constexpr int LPT = (LCHUNKS + THREADS - 1) / THREADS;
+  constexpr int RPT = (RCHUNKS + THREADS - 1) / THREADS;
+  extern __shared__ __align__(16) float ring[];     // [STAGES][stage], T_b
 
   const int tid = threadIdx.x;
-  const int tx = tid % (TJ / RJ);
-  const int ty = tid / (TJ / RJ);
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * TI;
-  const int j0 = blockIdx.x * TJ;
-  const float* Cb = C + (size_t)b * n * 4 * D;
+  const int ig = tid / GROUPS, jg = tid % GROUPS;
+  const int b = blockIdx.y;
+  const int i0 = blockIdx.x * TI;
+  const int n = rows.n, D = rows.D;
   const float* Tb = T + (size_t)b * D;
+  const int nk = (D + DK - 1) / DK;
+  const int njt = (n + TJ - 1) / TJ;
+  const int total = njt * nk;
+  float* Ts = ring + STAGES * stage_floats(RI);     // T_b, zero past D
+  for (int k = tid; k < nk * DK; k += THREADS) Ts[k] = k < D ? Tb[k] : 0.f;
+  __syncthreads();
 
-  float acc1[RI][RJ], acc2[RI][RJ];
+  // L1 [TI][DKP], L2 [TI][DKP], R3 [TJ][DKP], R4 [TJ][DKP] of a stage;
+  // a chunk is 4 floats of one row: c -> (component, row, k-part).
+  auto L = [&](int st, int comp) {
+    return ring + st * stage_floats(RI) + comp * TI * DKP;
+  };
+  auto R = [&](int st, int comp) {
+    return ring + st * stage_floats(RI) + 2 * TI * DKP + comp * TJ * DKP;
+  };
+  const float* lrow[LPT];                  // this thread's L rows (fixed)
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int u = 0; u < LPT; ++u) {
+    const int c = tid + u * THREADS;
+    lrow[u] = c < LCHUNKS ? rows.row(b, i0 + (c % (TI * P)) / P) : nullptr;
+  }
+  auto issue = [&](int item) {
+    const int st = item % STAGES;
+    const int j0 = (item / nk) * TJ, k0 = (item % nk) * DK;
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) acc1[i][j] = acc2[i][j] = 0.f;
-
-  // Register prefetch: the next stage's loads are in flight while the
-  // current stage is multiplied out of shared memory.
-  constexpr int LOADS = TI * DK / THREADS;      // 4 rows per thread
-  const int c = tid % DK;                       // this thread's depth column
-  const int r0 = tid / DK;                      // and its first row
-  float v1[LOADS], v2[LOADS], v3[LOADS], v4[LOADS];
-  auto load = [&](int k0) {
-    const int gk = k0 + c;
-    const bool kin = gk < D;
-    const float t = kin ? Tb[gk] : 0.f;
+    for (int u = 0; u < LPT; ++u) {
+      const int c = tid + u * THREADS;
+      if (c < LCHUNKS) {
+        const int comp = c / (TI * P), r = (c % (TI * P)) / P, part = c % P;
+        copy4(L(st, comp) + r * DKP + part * 4, rows.comp(lrow[u], comp),
+              k0 + part * 4, D, rows.vec, rows.C);
+      }
+    }
 #pragma unroll
-    for (int it = 0; it < LOADS; ++it) {
-      const int r = r0 + it * (THREADS / DK);
-      const bool iok = kin && i0 + r < n;
-      const bool jok = kin && j0 + r < n;
-      const float* rowi = Cb + (size_t)(i0 + r) * 4 * D + gk;
-      const float* rowj = Cb + (size_t)(j0 + r) * 4 * D + gk;
-      v1[it] = iok ? rowi[0] * t : 0.f;           // fused trapdoor scaling
-      v2[it] = iok ? rowi[D] * t : 0.f;
-      v3[it] = jok ? rowj[2 * (size_t)D] : 0.f;
-      v4[it] = jok ? rowj[3 * (size_t)D] : 0.f;
+    for (int u = 0; u < RPT; ++u) {
+      const int c = tid + u * THREADS;
+      if (c >= RCHUNKS) break;
+      const int comp = c / (TJ * P), r = (c % (TJ * P)) / P, part = c % P;
+      copy4(R(st, comp) + r * DKP + part * 4,
+            rows.comp(rows.row(b, j0 + r), 2 + comp), k0 + part * 4, D,
+            rows.vec, rows.C);
+    }
+  };
+  auto scale_own = [&](int item) {         // fused o T_b, after landing
+    const int st = item % STAGES, k0 = (item % nk) * DK;
+#pragma unroll
+    for (int u = 0; u < LPT; ++u) {
+      const int c = tid + u * THREADS;
+      if (c < LCHUNKS && lrow[u]) {
+        const int comp = c / (TI * P), r = (c % (TI * P)) / P, part = c % P;
+        float4* p = reinterpret_cast<float4*>(L(st, comp) + r * DKP +
+                                              part * 4);
+        *p = scale4(*p, *reinterpret_cast<const float4*>(Ts + k0 + part * 4));
+      }
     }
   };
 
-  load(0);
-  for (int k0 = 0; k0 < D; k0 += DK) {
+  float acc1[RI][RJ], acc2[RI][RJ];
+  int won[RI];
 #pragma unroll
-    for (int it = 0; it < LOADS; ++it) {
-      const int r = r0 + it * (THREADS / DK);
-      L1[c][r] = v1[it];
-      L2[c][r] = v2[it];
-      R3[c][r] = v3[it];
-      R4[c][r] = v4[it];
-    }
-    __syncthreads();
-    if (k0 + DK < D) load(k0 + DK);
-#pragma unroll 8
-    for (int kk = 0; kk < DK; ++kk) {
-      float a1[RI], a2[RI], b3[RJ], b4[RJ];
+  for (int r = 0; r < RI; ++r) {
+    won[r] = 0;
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        a1[i] = L1[kk][ty * RI + i];
-        a2[i] = L2[kk][ty * RI + i];
-      }
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        b3[j] = R3[kk][tx * RJ + j];
-        b4[j] = R4[kk][tx * RJ + j];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) {
-          acc1[i][j] = fmaf(a1[i], b3[j], acc1[i][j]);
-          acc2[i][j] = fmaf(a2[i], b4[j], acc2[i][j]);
-        }
-    }
-    __syncthreads();
+    for (int c = 0; c < RJ; ++c) acc1[r][c] = acc2[r][c] = 0.f;
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int gi = i0 + ty * RI + i;
-    if (gi >= n) continue;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<STAGES - 2>();
+    scale_own(it);
+    // stage `it` has landed and is scaled, and every thread is done with
+    // stage it - 1, which the next copies overwrite
+    __syncthreads();
+    if (it + STAGES - 1 < total) issue(it + STAGES - 1);
+    cp_async_commit();
+    const float* L1 = L(it % STAGES, 0);
+    const float* L2 = L(it % STAGES, 1);
+    const float* R3 = R(it % STAGES, 0);
+    const float* R4 = R(it % STAGES, 1);
+    // the two products one after the other: half the operand registers
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int gj = j0 + tx * RJ + j;
-      if (gj < n) Z[((size_t)b * n + gi) * n + gj] = acc1[i][j] - acc2[i][j];
+    for (int p = 0; p < 2; ++p) {
+      const float* Lp = p ? L2 : L1;
+      const float* Rp = p ? R4 : R3;
+#pragma unroll
+      for (int kk = 0; kk < DK; kk += 4) {
+        float a[4][RI], bb[4][RJ];                 // [depth][row]
+#pragma unroll
+        for (int c = 0; c < RJ; ++c) {
+          const float4 u = *reinterpret_cast<const float4*>(
+              Rp + (jg + GROUPS * c) * DKP + kk);
+          bb[0][c] = u.x, bb[1][c] = u.y, bb[2][c] = u.z, bb[3][c] = u.w;
+        }
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          const float4 u = *reinterpret_cast<const float4*>(
+              Lp + (ig * RI + r) * DKP + kk);
+          a[0][r] = u.x, a[1][r] = u.y, a[2][r] = u.z, a[3][r] = u.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int r = 0; r < RI; ++r)
+#pragma unroll
+            for (int c = 0; c < RJ; ++c) {
+              if (p) acc2[r][c] = fmaf(a[e][r], bb[e][c], acc2[r][c]);
+              else acc1[r][c] = fmaf(a[e][r], bb[e][c], acc1[r][c]);
+            }
+      }
+    }
+    if (it % nk == nk - 1) {                 // the j-tile's last stage
+      const int j0 = (it / nk) * TJ;
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const int i = i0 + ig * RI + r;
+#pragma unroll
+        for (int c = 0; c < RJ; ++c) {
+          const int j = j0 + jg + GROUPS * c;
+          const float z = acc1[r][c] - acc2[r][c];
+          if constexpr (REFINE) {
+            won[r] += z < 0.f && j < n && j != i &&
+                      (!valid || valid[(size_t)b * n + j]);
+          } else if (i < n && j < n) {
+            Z[((size_t)b * n + i) * n + j] = z;
+          }
+          acc1[r][c] = acc2[r][c] = 0.f;
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  if constexpr (REFINE) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r) {
+      int w = won[r];
+#pragma unroll
+      for (int off = GROUPS / 2; off > 0; off >>= 1)   // the 16 column threads
+        w += __shfl_xor_sync(0xffffffffu, w, off);
+      const int i = i0 + ig * RI + r;
+      if (jg == 0 && i < n)
+        wins[(size_t)b * n + i] =
+            (!valid || valid[(size_t)b * n + i]) ? w : -1;
+    }
+  }
+}
+
+// Stage 2 of the refine: one block per query.  Slot i's rank is
+// #{j : w_j > w_i} + #{j < i : w_j == w_i}, the position a stable sort by
+// descending wins gives it; ranks below k are written.
+__global__ void __launch_bounds__(THREADS)
+rank_kernel(const int* __restrict__ wins, const long long* __restrict__ cand,
+            long long* __restrict__ out, int n, int k) {
+  __shared__ int ws[RANK_TILE];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int* w = wins + (size_t)b * n;
+  for (int i0 = 0; i0 < n; i0 += THREADS) {
+    const int i = i0 + tid;
+    const int wi = i < n ? w[i] : 0;
+    int rank = 0;
+    for (int j0 = 0; j0 < n; j0 += RANK_TILE) {
+      const int m = min(RANK_TILE, n - j0);
+      __syncthreads();
+      for (int jj = tid; jj < m; jj += THREADS) ws[jj] = w[j0 + jj];
+      __syncthreads();
+      if (i < n)
+        for (int jj = 0; jj < m; ++jj) {
+          const int wj = ws[jj];
+          rank += wj > wi || (wj == wi && j0 + jj < i);
+        }
+    }
+    if (i < n && rank < k)
+      out[(size_t)b * k + rank] = wi < 0 ? -1 : cand[(size_t)b * n + i];
+  }
+}
+
+// RI for this batch: the smallest tile whose blocks fit the SMs once, the
+// largest beyond that.
+int rows_per_thread(int B, int n, int device) {
+  int sms = 132;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  for (int ri = 1; ri < MAX_RI; ++ri)
+    if ((long long)B * ((n + GROUPS * ri - 1) / (GROUPS * ri)) <= sms)
+      return ri;
+  return MAX_RI;
+}
+
+template <int RI, bool REFINE>
+cudaError_t launch_ri(dim3 grid, const Rows& rows, const float* T,
+                      const unsigned char* valid, float* Z, int* wins,
+                      cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)STAGES * stage_floats(RI) + (rows.D + DK - 1) / DK * DK) * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      z_kernel<RI, REFINE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  z_kernel<RI, REFINE><<<grid, THREADS, smem, stream>>>(rows, T, valid, Z,
+                                                         wins);
+  return cudaGetLastError();
+}
+
+template <bool REFINE>
+cudaError_t launch_z(const Rows& rows, const float* T,
+                     const unsigned char* valid, float* Z, int* wins, int B,
+                     int device, cudaStream_t stream) {
+  const int ri = rows_per_thread(B, rows.n, device);
+  const dim3 grid((rows.n + GROUPS * ri - 1) / (GROUPS * ri), B);
+  switch (ri) {
+    case 1: return launch_ri<1, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 2: return launch_ri<2, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 3: return launch_ri<3, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 4: return launch_ri<4, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    default: return launch_ri<5, REFINE>(grid, rows, T, valid, Z, wins, stream);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // C (B, n, 4, D), T (B, D), Z (B, n, n): float32, contiguous, all on
-// `device`.  B <= 65535 (one grid z-slice per query).  Launches on
+// `device`.  B <= 65535 (one grid y-slice per query).  Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int repro_dce_batched_z(const float* C, const float* T, float* Z,
                                    int B, int n, int D, int device,
@@ -145,7 +396,30 @@ extern "C" int repro_dce_batched_z(const float* C, const float* T, float* Z,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || n == 0) return cudaSuccess;
-  const dim3 grid((n + TJ - 1) / TJ, (n + TI - 1) / TI, B);
-  z_tile_kernel<<<grid, THREADS, 0, stream>>>(C, T, Z, n, D);
+  if (B > 65535 || D < 1) return cudaErrorInvalidValue;
+  const Rows rows{C, nullptr, (long long)B * n, n, D,
+                  D % 4 == 0 && aligned16(C) && aligned16(T)};
+  return launch_z<false>(rows, T, nullptr, Z, nullptr, B, device, stream);
+}
+
+// C_dce (N, 4, D) float32, cand (B, n) int64 row ids, T (B, D) float32,
+// valid (B, n) uint8 or nullptr (all valid), wins (B, n) int32 scratch
+// (the win counts, -1 for invalid slots, are left there), out (B, k)
+// int64; all contiguous on `device`.  1 <= k <= n, B <= 65535.  Launches
+// both stages on `stream` and returns cudaGetLastError().
+extern "C" int repro_dce_refine_topk(const float* C_dce, long long N,
+                                     const long long* cand, const float* T,
+                                     const unsigned char* valid, int* wins,
+                                     long long* out, int B, int n, int D,
+                                     int k, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B == 0) return cudaSuccess;
+  if (B > 65535 || D < 1 || k < 1 || k > n) return cudaErrorInvalidValue;
+  const Rows rows{C_dce, cand, N, n, D,
+                  D % 4 == 0 && aligned16(C_dce) && aligned16(T)};
+  err = launch_z<true>(rows, T, valid, nullptr, wins, B, device, stream);
+  if (err != cudaSuccess) return err;
+  rank_kernel<<<B, THREADS, 0, stream>>>(wins, cand, out, n, k);
   return cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 Every `csrc/*.cu` file is compiled by its own `nvcc` process (all
 started together) for `sm_90a`, and the objects are linked into one
 shared library with a plain C interface.  The library goes to
-`repro_torch/_build/`, named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The
+`repro_torch/_build/`, named by a hash of the flags, the sources and the
+headers they share (`csrc/*.cuh`), so an edited source or header is
+rebuilt and an unchanged tree is loaded as it is.  The
 build happens at the first launch of any kernel, never at import, and a
 failed build raises.
 
@@ -25,11 +26,12 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "function",
-           "check", "PTR", "INT"]
+__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
+           "function", "check", "PTR", "INT", "LONG"]
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -53,25 +55,33 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc at first use")
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(files: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into one shared library unless an identical
-    build exists; returns its path.  The nvcc output (with `-Xptxas -v`:
-    registers, shared memory and spills of each kernel) is kept beside
-    it as `<library>.log`."""
+def library_path() -> Path:
+    """Where the build of the current csrc/ tree goes: named by a hash of
+    the flags, the sources and the headers."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
-    lib_path = BUILD_DIR / f"libreprotorch_{_digest(sources)}.so"
+    tree = sorted([*sources, *SRC_DIR.glob("*.cuh")])
+    return BUILD_DIR / f"libreprotorch_{_digest(tree)}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library unless a build of the
+    same sources and headers exists; returns its path.  The nvcc output
+    (with `-Xptxas -v`: registers, shared memory and spills of each
+    kernel) is kept beside it as `<library>.log`."""
+    lib_path = library_path()
     if lib_path.exists():
         return lib_path
+    sources = sorted(SRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

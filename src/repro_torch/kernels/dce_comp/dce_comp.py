@@ -1,9 +1,17 @@
-"""Batched DCE DistanceComp (pairwise Z) tiles: CUDA kernel and dispatch.
+"""The DCE tournament refine: CUDA kernels and dispatch.
 
-The kernel (`csrc/dce_comp.cu`) replaces both Pallas TPU kernels of
-`repro/kernels/dce_comp/dce_comp.py`: `batched_z_matrix` directly, and
-`z_matrix` as its B = 1 case.  For CUDA tensors the wrapper launches it
-(or raises); for CPU tensors it runs the plain version beside it.
+The kernels (`csrc/dce_comp.cu`) replace both Pallas TPU kernels of
+`repro/kernels/dce_comp/dce_comp.py` and their consumers:
+
+  batched_z_matrix — the Z tiles, stored (`batched_z_matrix` directly,
+      `z_matrix` as its B = 1 case);
+  refine_topk — the same main loop fused with the candidate gather, the
+      win count and the top-k by wins (`search_engine.refine_candidates`
+      with `ops.batched_top_k_by_wins`): two launches, a Z + win count
+      and a per-query ranking, counted as one in `launches`.
+
+For CUDA tensors the wrappers launch them (or raise); for CPU tensors
+they run the plain versions beside them.
 """
 
 from __future__ import annotations
@@ -13,17 +21,26 @@ import torch
 from .. import _build
 from ..common import on_cpu
 from .ref import batched_z_matrix as plain_batched_z_matrix
+from .ref import refine_topk as plain_refine_topk
 
-__all__ = ["batched_z_matrix", "z_matrix", "plain_batched_z_matrix",
-           "plain_z_matrix", "launches"]
+__all__ = ["batched_z_matrix", "z_matrix", "refine_topk",
+           "plain_batched_z_matrix", "plain_z_matrix", "plain_refine_topk",
+           "launches"]
 
-# Kernel launches since import (z_matrix counts here too: it is the
-# batched kernel with B = 1); a caller auditing a run resets it to 0.
-launches = 0
+# Kernel launches since import, per kernel (z_matrix counts under
+# batched_z_matrix: it is the batched kernel with B = 1; a refine_topk
+# call's two stages count as one); a caller auditing a run resets the
+# counts to 0.
+launches = {"batched_z_matrix": 0, "refine_topk": 0}
 
-_MAX_BATCH = 65535          # one grid z-slice per query
-_ARGTYPES = [_build.PTR, _build.PTR, _build.PTR,
-             _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR]
+_MAX_BATCH = 65535          # one grid y-slice per query
+_Z_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
+_REFINE_ARGTYPES = ([_build.PTR, _build.LONG] + [_build.PTR] * 5
+                    + [_build.INT] * 5 + [_build.PTR])
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -33,7 +50,6 @@ def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     (B, n, n) float32.  CUDA tensors must be float32 and contiguous; the
     output is allocated here and the kernel runs on the current stream
     without synchronizing."""
-    global launches
     if on_cpu(C, T):
         return plain_batched_z_matrix(C, T)
     if (C.dim() != 4 or C.shape[2] != 4 or T.dim() != 2
@@ -42,19 +58,19 @@ def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
                          f"T (B, D), got {tuple(C.shape)} and "
                          f"{tuple(T.shape)}")
     if C.dtype != torch.float32 or T.dtype != torch.float32:
-        raise TypeError(f"the dce_comp kernel takes float32, got {C.dtype} "
+        raise TypeError(f"the dce_comp kernels take float32, got {C.dtype} "
                         f"and {T.dtype}")
     if not (C.is_contiguous() and T.is_contiguous()):
-        raise ValueError("the dce_comp kernel takes contiguous C and T")
+        raise ValueError("the dce_comp kernels take contiguous C and T")
     B, n, _, D = C.shape
     if B > _MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {_MAX_BATCH}")
     Z = torch.empty((B, n, n), dtype=torch.float32, device=C.device)
-    fn = _build.function("repro_dce_batched_z", _ARGTYPES)
+    fn = _build.function("repro_dce_batched_z", _Z_ARGTYPES)
     err = fn(C.data_ptr(), T.data_ptr(), Z.data_ptr(), B, n, D,
-             C.device.index, torch.cuda.current_stream(C.device).cuda_stream)
+             C.device.index, _stream(C.device))
     _build.check(err, "dce_comp.batched_z_matrix")
-    launches += 1
+    launches["batched_z_matrix"] += 1
     return Z
 
 
@@ -66,3 +82,57 @@ def z_matrix(C: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def plain_z_matrix(C: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return plain_batched_z_matrix(C[None], t[None])[0]
+
+
+def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
+                valid: torch.Tensor | None, k: int, *,
+                return_wins: bool = False):
+    """Exact DCE tournament refine of per-query candidate sets, fused.
+
+    C_dce: (N, 4, D) refine ciphertexts; cand: (B, n) int64 candidate ids
+    (an invalid slot's id is never read); T: (B, D) trapdoors; valid:
+    (B, n) bool, or None for all valid -> ids (B, k) int64 by descending
+    win count (ascending true distance), ties to the lowest slot, -1
+    where the selected slot is invalid; k = min(k, n).  A win of i over j
+    is Z[b, i, j] < 0 with j != i and j valid; an invalid slot has -1
+    wins.  With return_wins also the (B, n) int32 win counts.  CUDA
+    tensors must be contiguous, float32 (C_dce, T) and int64 (cand); the
+    kernels run on the current stream without synchronizing."""
+    tensors = (C_dce, cand, T) if valid is None else (C_dce, cand, T, valid)
+    if on_cpu(*tensors):
+        return plain_refine_topk(C_dce, cand, T, valid, k,
+                                 return_wins=return_wins)
+    if (C_dce.dim() != 3 or C_dce.shape[1] != 4 or cand.dim() != 2
+            or T.shape != (cand.shape[0], C_dce.shape[2])
+            or (valid is not None and valid.shape != cand.shape)):
+        raise ValueError(f"refine_topk needs C_dce (N, 4, D), cand (B, n), "
+                         f"T (B, D) and valid (B, n) or None; got "
+                         f"{tuple(C_dce.shape)}, {tuple(cand.shape)}, "
+                         f"{tuple(T.shape)}, "
+                         f"{None if valid is None else tuple(valid.shape)}")
+    if (C_dce.dtype != torch.float32 or T.dtype != torch.float32
+            or cand.dtype != torch.int64
+            or (valid is not None and valid.dtype != torch.bool)):
+        raise TypeError(f"the fused refine takes float32 C_dce and T, int64 "
+                        f"cand and bool valid; got {C_dce.dtype}, "
+                        f"{T.dtype}, {cand.dtype}, "
+                        f"{None if valid is None else valid.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the fused refine takes contiguous tensors")
+    B, n = cand.shape
+    if B > _MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernel's {_MAX_BATCH}")
+    k = min(int(k), n)
+    dev = C_dce.device
+    out = torch.empty((B, max(k, 0)), dtype=torch.int64, device=dev)
+    wins = torch.empty((B, n), dtype=torch.int32, device=dev)
+    if k > 0 and B > 0:
+        fn = _build.function("repro_dce_refine_topk", _REFINE_ARGTYPES)
+        vptr = 0 if valid is None else valid.view(torch.uint8).data_ptr()
+        err = fn(C_dce.data_ptr(), C_dce.shape[0], cand.data_ptr(),
+                 T.data_ptr(), vptr or None, wins.data_ptr(),
+                 out.data_ptr(), B, n, C_dce.shape[2], k, dev.index,
+                 _stream(dev))
+        _build.check(err, "dce_comp.refine_topk")
+        launches["refine_topk"] += 1
+    return (out, wins) if return_wins else out

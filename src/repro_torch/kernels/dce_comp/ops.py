@@ -1,18 +1,21 @@
-"""Public wrappers for the dce_comp kernel: the tournament refine.
+"""Public wrappers for the dce_comp kernels: the tournament refine.
 
 Counterpart of `repro.kernels.dce_comp.ops`.  `jax.lax.top_k` keeps the
 lowest index among equal values and `torch.topk` promises no tie order,
 so the top-k by wins here is a stable ascending sort of `-wins`.
+`refine_topk` is the whole refine of a batch (gather, Z, wins, top-k) in
+one fused kernel call on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dce_comp import batched_z_matrix, z_matrix
+from .dce_comp import batched_z_matrix, refine_topk, z_matrix
+from .ref import batched_wins
 
 __all__ = ["z_matrix", "batched_z_matrix", "top_k_by_wins",
-           "batched_top_k_by_wins"]
+           "batched_top_k_by_wins", "refine_topk"]
 
 
 def top_k_by_wins(C: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
@@ -35,15 +38,6 @@ def batched_top_k_by_wins(C: torch.Tensor, T: torch.Tensor, k: int, *,
     to the lowest index.  With `valid`, wins count against real rivals
     only and padded slots get -1, so they rank last.
     """
-    Z = batched_z_matrix(C, T)
-    n = C.shape[1]
-    # Exclude the diagonal: Z_ii is mathematically 0 but floats to +-eps.
-    offdiag = ~torch.eye(n, dtype=torch.bool, device=Z.device)[None]
-    win_mask = (Z < 0) & offdiag
-    if valid is not None:
-        win_mask = win_mask & valid[:, None, :]    # wins vs real rivals only
-    wins = win_mask.sum(dim=-1)
-    if valid is not None:
-        wins = torch.where(valid, wins, -1)        # padded slots rank last
-    k = min(k, n)
+    wins = batched_wins(batched_z_matrix(C, T), valid)
+    k = min(k, C.shape[1])
     return torch.sort(-wins, dim=-1, stable=True).indices[:, :k]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the dce_comp kernel's functions."""
+"""Plain PyTorch versions of the dce_comp kernels' functions."""
 
 from __future__ import annotations
 
@@ -42,3 +42,37 @@ def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     z1 = torch.bmm(left1, C[:, :, 2, :].transpose(1, 2))
     z2 = torch.bmm(left2, C[:, :, 3, :].transpose(1, 2))
     return z1 - z2
+
+
+def batched_wins(Z: torch.Tensor,
+                 valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Win counts of (B, n, n) Z tensors -> (B, n) int32: a win of i over
+    j is Z[b, i, j] < 0 with j != i (Z_ii is mathematically 0 but floats
+    to +-eps) and j valid; with `valid`, an invalid slot gets -1, so it
+    ranks after every real one."""
+    n = Z.shape[-1]
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=Z.device)[None]
+    win_mask = (Z < 0) & offdiag
+    if valid is not None:
+        win_mask = win_mask & valid[:, None, :]    # wins vs real rivals only
+    wins = win_mask.sum(dim=-1, dtype=torch.int32)
+    if valid is not None:
+        wins = torch.where(valid, wins, -1)        # padded slots rank last
+    return wins
+
+
+def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
+                valid: torch.Tensor | None, k: int, *,
+                return_wins: bool = False):
+    """The tournament refine as a chain of torch ops: gather the
+    candidates' ciphertexts, Z, win counts, and a stable sort by
+    descending wins (ties to the lowest slot).  -> ids (B, k) int64, -1
+    where the selected slot is invalid; k = min(k, n); with return_wins
+    also the (B, n) int32 win counts."""
+    wins = batched_wins(batched_z_matrix(C_dce[cand], T), valid)
+    k = min(k, cand.shape[1])
+    local = torch.sort(-wins, dim=-1, stable=True).indices[:, :k]
+    ids = torch.gather(cand, 1, local)
+    if valid is not None:
+        ids = torch.where(torch.gather(valid, 1, local), ids, -1)
+    return (ids, wins) if return_wins else ids

@@ -1,26 +1,60 @@
-"""Squared-L2 distance tiles of the flat filter: CUDA kernel and dispatch.
+"""The flat filter's scan: CUDA kernels and dispatch.
 
-The kernel (`csrc/l2_topk.cu`) replaces the Pallas TPU kernel
-`repro/kernels/l2_topk/l2_topk.py :: pairwise_sq_dists`.  For CUDA
-tensors the wrapper launches it (or raises); for CPU tensors it runs the
-plain version beside it, `plain_pairwise_sq_dists`.
+The kernels (`csrc/l2_topk.cu`) replace the Pallas TPU kernel
+`repro/kernels/l2_topk/l2_topk.py :: pairwise_sq_dists` and the chunk
+loop of its wrapper `repro/kernels/l2_topk/ops.py :: knn`:
+
+  pairwise_sq_dists — the distance tiles, stored: (nq, n);
+  knn — the same tiles fused with a per-query running top-k in shared
+      memory: one call scans the whole database (two launches, a scan
+      and a per-query merge, counted as one in `launches`).
+
+For CUDA tensors the wrappers launch them (or raise); for CPU tensors
+they run the plain versions beside them, `plain_pairwise_sq_dists` and
+`plain_knn` (the chunked merge over plain tiles).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import _build
 from ..common import on_cpu
 from .ref import pairwise_sq_dists as plain_pairwise_sq_dists
+from .ref import scan_knn as plain_knn
 
-__all__ = ["pairwise_sq_dists", "plain_pairwise_sq_dists", "launches"]
+__all__ = ["pairwise_sq_dists", "knn", "plain_pairwise_sq_dists",
+           "plain_knn", "MAX_KP", "launches"]
 
-# Kernel launches since import; a caller auditing a run resets it to 0.
-launches = 0
+# Kernel launches since import, per kernel (a knn call's two stages count
+# as one launch); a caller auditing a run resets the counts to 0.
+launches = {"pairwise_sq_dists": 0, "knn": 0}
 
-_ARGTYPES = [_build.PTR, _build.PTR, _build.PTR,
-             _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR]
+MAX_KP = 1024                   # the fused scan's largest top-k
+# Mirrors csrc/l2_topk.cu: rows of a block tile, which set how the rows
+# are cut into chunks.
+_ROWS = 512
+_SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
+
+_TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
+_KNN_ARGTYPES = [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR]
+
+
+def _check_operands(Q: torch.Tensor, X: torch.Tensor, what: str) -> None:
+    if Q.dim() != 2 or X.dim() != 2 or Q.shape[1] != X.shape[1]:
+        raise ValueError(f"{what} needs (nq, d) and (n, d), "
+                         f"got {tuple(Q.shape)} and {tuple(X.shape)}")
+    if Q.dtype != torch.float32 or X.dtype != torch.float32:
+        raise TypeError(f"the l2 kernels take float32, got {Q.dtype} "
+                        f"and {X.dtype}")
+    if not (Q.is_contiguous() and X.is_contiguous()):
+        raise ValueError("the l2 kernels take contiguous Q and X")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def pairwise_sq_dists(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -29,23 +63,69 @@ def pairwise_sq_dists(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     CUDA tensors must be float32 and contiguous (row-major); the output
     is allocated here and the kernel runs on the current stream without
     synchronizing."""
-    global launches
     if on_cpu(Q, X):
         return plain_pairwise_sq_dists(Q, X)
-    if Q.dim() != 2 or X.dim() != 2 or Q.shape[1] != X.shape[1]:
-        raise ValueError(f"pairwise_sq_dists needs (nq, d) and (n, d), "
-                         f"got {tuple(Q.shape)} and {tuple(X.shape)}")
-    if Q.dtype != torch.float32 or X.dtype != torch.float32:
-        raise TypeError(f"the l2 kernel takes float32, got {Q.dtype} "
-                        f"and {X.dtype}")
-    if not (Q.is_contiguous() and X.is_contiguous()):
-        raise ValueError("the l2 kernel takes contiguous Q and X")
+    _check_operands(Q, X, "pairwise_sq_dists")
     nq, d = Q.shape
     n = X.shape[0]
     out = torch.empty((nq, n), dtype=torch.float32, device=Q.device)
-    fn = _build.function("repro_l2_sq_dists", _ARGTYPES)
+    fn = _build.function("repro_l2_sq_dists", _TILE_ARGTYPES)
     err = fn(Q.data_ptr(), X.data_ptr(), out.data_ptr(), nq, n, d,
-             Q.device.index, torch.cuda.current_stream(Q.device).cuda_stream)
+             Q.device.index, _stream(Q.device))
     _build.check(err, "l2_topk.pairwise_sq_dists")
-    launches += 1
+    launches["pairwise_sq_dists"] += 1
     return out
+
+
+def _plan(nq: int, n: int, k: int, dev):
+    """Check k and the shared memory a block needs; cut the rows into G
+    chunks of a multiple of _ROWS rows, one block per SM and query
+    group.  Returns (chunk_rows, G)."""
+    if k > MAX_KP:
+        raise ValueError(f"k={k} exceeds the fused l2 scan's limit of "
+                         f"{MAX_KP}")
+    smem_fn = _build.function("repro_l2_knn_smem", [_build.INT])
+    smem_fn.restype = ctypes.c_longlong
+    need = smem_fn(k)
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
+    if need > limit:
+        raise ValueError(f"the fused l2 scan needs {need} bytes of shared "
+                         f"memory a block at k={k}; the card has {limit}")
+    qb = _build.function("repro_l2_knn_queries_per_block", [_build.INT])(k)
+    groups = -(-nq // qb)
+    tiles = -(-n // _ROWS)
+    G = min(tiles, max(1, -(-props.multi_processor_count // groups)))
+    chunk_rows = -(-tiles // G) * _ROWS
+    return chunk_rows, -(-n // chunk_rows)
+
+
+def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
+    """Exact k-NN of each query against X, in one scan.
+
+    Q: (nq, d), X: (n, d)  ->  (dists (nq, k) float32 ascending, ids
+    (nq, k) int64), ties to the lowest id; k = min(k, n).  Distances are
+    ||q||^2 - 2 q.x + ||x||^2 in true fp32.  CUDA tensors must be float32
+    and contiguous, and k <= MAX_KP; the kernels run on the current
+    stream without synchronizing.  `chunk` is the plain version's block
+    of rows (CPU tensors only)."""
+    if on_cpu(Q, X):
+        return plain_knn(Q, X, k, chunk=chunk)
+    _check_operands(Q, X, "knn")
+    nq, d = Q.shape
+    n = X.shape[0]
+    k = min(int(k), n)
+    dev = Q.device
+    out_d = torch.empty((nq, max(k, 0)), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, max(k, 0)), dtype=torch.int64, device=dev)
+    if k <= 0 or nq == 0:
+        return out_d, out_i
+    chunk_rows, G = _plan(nq, n, k, dev)
+    part = torch.empty((nq, G, k), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
+    err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(), out_d.data_ptr(),
+             out_i.data_ptr(), nq, n, d, k, chunk_rows, G, dev.index,
+             _stream(dev))
+    _build.check(err, "l2_topk.knn")
+    launches["knn"] += 1
+    return out_d, out_i

@@ -4,8 +4,9 @@ Counterpart of `repro.serving.search_engine`:
 
   filter:  a pluggable backend produces k' candidate ids per query —
              * FlatScanFilter  — exhaustive scan of the DCPE ciphertexts
-               through the l2_topk CUDA kernel (chunked distance tiles
-               and a running top-k', no (nq, n) matrix in device memory);
+               through the l2_topk CUDA kernel (distance tiles fused with
+               a running top-k', one call per batch, no (nq, n) matrix
+               in device memory);
              * IVFScanFilter   — partition-pruned scan: host-side coarse
                probe over DCPE ciphertext centroids, then one masked
                gather+scan over the probed rows in torch ops;
@@ -17,8 +18,8 @@ Counterpart of `repro.serving.search_engine`:
              * HNSWGraphFilter — the per-query host walk, kept as the
                graph filter's parity oracle.
   refine:  one batched DCE tournament over the candidate sets through the
-           dce_comp CUDA kernel (`batched_top_k_by_wins`) — no per-query
-           Python loop.
+           fused dce_comp CUDA kernel (`refine_topk`: gather, Z, win
+           counts and top-k in one call) — no per-query Python loop.
 
 `SecureSearchEngine.search` is a batch-of-one wrapper over
 `search_batch`, so the per-query and batched paths return identical ids.
@@ -102,15 +103,11 @@ def refine_candidates(C_dce: torch.Tensor, cand: torch.Tensor,
     ids; T: (nq, D) trapdoors; valid: (nq, kp) bool or None (padded-slot
     mask) -> (nq, k) int64 ids, ascending true distance; -1 marks slots
     where a query had fewer than k real candidates (never a fabricated
-    id).  All tensors on one device.
+    id).  All tensors on one device.  One fused dce_comp call: the
+    candidates' ciphertexts are read through `cand`, and neither a
+    gathered copy nor the Z tensor is materialized on the card.
     """
-    Cc = C_dce[cand]                                   # (nq, kp, 4, D)
-    local = dce_ops.batched_top_k_by_wins(Cc, T, k, valid=valid)
-    ids = torch.gather(cand, 1, local)
-    if valid is None:
-        return ids
-    vsel = torch.gather(valid, 1, local)
-    return torch.where(vsel, ids, -1)
+    return dce_ops.refine_topk(C_dce, cand, T, valid, k)
 
 
 # Gathered row elements per step of the pruned scan: bounds its (b, L, d)
@@ -216,7 +213,8 @@ def scan_ivf_oblivious(C_dev: torch.Tensor, Q_sap: np.ndarray, pools,
 
 
 class FlatScanFilter:
-    """Exhaustive l2_topk scan over all DCPE ciphertexts."""
+    """Exhaustive l2_topk scan over all DCPE ciphertexts.  `chunk` is
+    the row block of the plain chunked scan that CPU tensors run."""
 
     name = "flat"
 
@@ -554,8 +552,10 @@ class SecureSearchEngine:
                     hops=int(getattr(self.backend, "last_n_hops", 0)),
                     edges_scanned=int(
                         getattr(self.backend, "last_n_edges_scanned", 0)))
-        cand = torch.as_tensor(cand, device=self.device).to(torch.int64)
-        valid = torch.as_tensor(valid, device=self.device).to(torch.bool)
+        cand = torch.as_tensor(cand, device=self.device).to(
+            torch.int64).contiguous()
+        valid = torch.as_tensor(valid, device=self.device).to(
+            torch.bool).contiguous()
         if cand.shape[1] < k:       # uniform (nq, k) contract: -1 fill
             pad = (0, k - cand.shape[1])
             cand = torch.nn.functional.pad(cand, pad)

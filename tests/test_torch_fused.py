@@ -1,0 +1,329 @@
+"""The fused flat scan and the fused refine against the JAX package, on
+the CPU.
+
+The CUDA kernels of `csrc/l2_topk.cu` (`l2_topk.knn`) and
+`csrc/dce_comp.cu` (`dce_comp.refine_topk`) run only on the card.  Here
+their blocking and selection rules are emulated in torch, key for key,
+and held against `repro.kernels.l2_topk.ops.knn` and
+`repro.kernels.dce_comp.ops.batched_top_k_by_wins` (Pallas in interpret
+mode) on identical numpy inputs; the new entries' plain versions, which
+CPU tensors run, are held against the same functions and against the
+JAX engine's `refine_candidates`.  Tolerances: ids exactly equal;
+distances within 1e-5 relative (fp32 sums in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dce as jdce
+from repro.kernels.dce_comp import ops as j_dce_ops
+from repro.kernels.l2_topk import ops as j_l2_ops
+from repro.serving import search_engine as jse
+from repro_torch.kernels import _build
+from repro_torch.kernels.dce_comp import dce_comp
+from repro_torch.kernels.dce_comp import ref as t_dce_ref
+from repro_torch.kernels.l2_topk import l2_topk
+from repro_torch.kernels.l2_topk import ops as t_l2_ops
+from repro_torch.serving import search_engine as se
+from test_torch_adc import EMPTY, _keys, _unkey
+
+L2_RTOL = 1e-5
+
+# Mirrors csrc/l2_topk.cu and csrc/dce_comp.cu.
+ROWS = l2_topk._ROWS           # rows of a scan tile
+MIN_BUFFER = 128               # scan: buffer keys per query, at least
+THREADS = 256
+RUN = 8                        # merge: keys read per partial per round
+MERGE_KEYS = 4                 # merge: keys a thread holds per batch
+GROUPS, TJ = 16, 80            # refine: thread groups, j-tile columns
+
+
+@pytest.fixture(autouse=True)
+def no_kernel_launch(monkeypatch):
+    """On the CPU no wrapper may reach the CUDA build or launch path."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU tensor reached the kernel launch path")
+    monkeypatch.setattr(_build, "function", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _pow2(n):
+    s = 1
+    while s < n:
+        s <<= 1
+    return s
+
+
+def _state_len(kp):
+    return max(32, _pow2(kp))
+
+
+# ---------------------------------------------------------------------------
+# l2_topk.knn: stage 1 (row chunks, tiles of ROWS rows, a per-query running
+# top-k' whose full buffer sends keys back to their threads until the block
+# has flushed) and stage 2 (the chunks' sorted partials merged in runs,
+# with a flush after each run).
+# ---------------------------------------------------------------------------
+
+class _Select:
+    """One query's segment: a state of SC keys, a buffer of S - SC (all S
+    until the first flush, while the state is empty), a threshold; `put`
+    keeps what does not fit, as a thread does."""
+
+    def __init__(self, kp, S):
+        self.kp, self.S, self.SC = kp, S, _state_len(kp)
+        self.state = torch.full((self.SC,), EMPTY, dtype=torch.int64)
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = EMPTY
+        self.off = 0
+        self.flushes = 0
+
+    def put(self, keys):
+        """Offer keys (one round); returns those that found the buffer
+        full (below the threshold, not yet placed)."""
+        below = keys[keys < self.thr]
+        room = self.S - self.off - self.buf.numel()
+        self.buf = torch.cat([self.buf, below[:room]])
+        return below[room:]
+
+    def flush(self):
+        seg = torch.cat([self.state[:self.off], self.buf])
+        self.state = torch.sort(seg).values[:self.SC]
+        self.state = torch.cat([self.state, torch.full(
+            (self.SC - self.state.numel(),), EMPTY, dtype=torch.int64)])
+        self.off = self.SC
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = int(self.state[self.kp - 1])
+        self.flushes += 1
+
+    def offer_until_placed(self, keys):
+        while True:
+            keys = self.put(keys)
+            if keys.numel() == 0:
+                return
+            self.flush()
+
+
+def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
+    """The fused scan's selection over a (nq, n) float32 distance matrix:
+    -> (dists (nq, kp), ids (nq, kp)) decoded from the merged keys."""
+    nq, n = d_full.shape
+    kp = min(kp, n)
+    ids = torch.arange(n, dtype=torch.int64)
+    S1 = _pow2(_state_len(kp) + MIN_BUFFER)
+    S2 = _pow2(_state_len(kp) + THREADS * MERGE_KEYS)
+    out_d, out_i = [], []
+    for q in range(nq):
+        parts = []
+        for r0 in range(0, n, chunk_rows):
+            r1 = min(n, r0 + chunk_rows)
+            sel = _Select(kp, S1)
+            for t0 in range(r0, r1, ROWS):
+                t1 = min(r1, t0 + ROWS)
+                sel.offer_until_placed(_keys(d_full[q, t0:t1], ids[t0:t1],
+                                             True))
+            sel.flush()
+            parts.append(sel.state[:kp])
+        lists = torch.stack(parts)                       # (G, kp) sorted
+        sel = _Select(kp, S2)
+        for p0 in range(0, kp, RUN):
+            run = lists[:, p0:p0 + RUN].reshape(-1)      # list-major
+            below = False
+            for b0 in range(0, run.numel(), THREADS * MERGE_KEYS):
+                batch = run[b0:b0 + THREADS * MERGE_KEYS]
+                below |= bool((batch < sel.thr).any())
+                sel.offer_until_placed(batch)
+            if not below:        # every later key of a list is larger
+                break
+            sel.flush()          # tighten the threshold for the next run
+        d, i = _unkey(sel.state[:kp], True)
+        out_d.append(d)
+        out_i.append(i)
+    return torch.stack(out_d), torch.stack(out_i)
+
+
+@pytest.mark.parametrize("nq,n,d,k,chunk_rows,dup", [
+    (4, 3000, 33, 80, 1024, 300),    # duplicated rows across chunks
+    (3, 1700, 128, 80, 512, 0),      # n not a multiple of the tile
+    (2, 300, 128, 500, 512, 0),      # k' > n
+    (3, 5000, 128, 250, 2048, 1000),  # many full buffers, ties
+    (2, 2600, 33, 1024, 1024, 0),    # k' 1024
+])
+def test_knn_kernel_blocking_emulated_equals_jax(nq, n, d, k, chunk_rows,
+                                                dup):
+    """Integer-valued rows and queries: every distance is exact in any
+    summation order, so the ids, ties to the lowest id, must equal the
+    JAX package's and the distances too."""
+    rng = np.random.default_rng(n + d + k)
+    X = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    if dup:
+        X[n - dup:] = X[:dup]                 # ids i and n - dup + i tie
+    Q = rng.integers(-3, 4, size=(nq, d)).astype(np.float32)
+    jd, ji = j_l2_ops.knn(jnp.asarray(Q), jnp.asarray(X), k, interpret=True)
+    full = l2_topk.plain_pairwise_sq_dists(_t(Q), _t(X))
+    got_d, got_i = _emulate_knn(full, k, chunk_rows)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(jd),
+                               rtol=L2_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n,d,k", [(2000, 128, 80), (700, 33, 40)])
+def test_knn_kernel_blocking_emulated_on_real_valued_rows(n, d, k):
+    """Gaussian rows at DCPE-like magnitudes: ids equal to the JAX
+    package's, distances within 1e-5 relative."""
+    rng = np.random.default_rng(n + d)
+    X = (1024.0 * rng.standard_normal((n, d))).astype(np.float32)
+    Q = (1024.0 * rng.standard_normal((5, d))).astype(np.float32)
+    jd, ji = j_l2_ops.knn(jnp.asarray(Q), jnp.asarray(X), k, interpret=True)
+    full = l2_topk.plain_pairwise_sq_dists(_t(Q), _t(X))
+    got_d, got_i = _emulate_knn(full, k, 512)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(jd), rtol=L2_RTOL)
+
+
+def test_knn_selection_flushes_on_a_full_buffer():
+    """Descending distances: every row beats the ones before, so each
+    tile offers more keys than the buffer holds and the threads must keep
+    and re-offer them; the result is still the exact top-k'."""
+    n, kp = 3000, 80
+    d = torch.arange(n, 0, -1, dtype=torch.float32)[None]
+    sel = _Select(kp, _pow2(_state_len(kp) + MIN_BUFFER))
+    ids = torch.arange(n, dtype=torch.int64)
+    for t0 in range(0, n, ROWS):
+        sel.offer_until_placed(_keys(d[0, t0:t0 + ROWS], ids[t0:t0 + ROWS],
+                                     True))
+    sel.flush()
+    assert sel.flushes > n // ROWS
+    _, got = _unkey(sel.state[:kp], True)
+    np.testing.assert_array_equal(got.numpy(), np.arange(n - 1, n - kp - 1,
+                                                         -1))
+
+
+@pytest.mark.parametrize("chunk", [64, 4096])
+def test_plain_knn_is_the_reference_chunked_scan(chunk):
+    """The plain version that CPU tensors run equals the JAX package's
+    knn at the same chunk, and the full stable sort."""
+    rng = np.random.default_rng(chunk)
+    Q = rng.standard_normal((6, 20)).astype(np.float32)
+    X = rng.standard_normal((777, 20)).astype(np.float32)
+    jd, ji = j_l2_ops.knn(jnp.asarray(Q), jnp.asarray(X), 30, chunk=chunk,
+                          interpret=True)
+    td, ti = t_l2_ops.knn(_t(Q), _t(X), 30, chunk=chunk)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    _, ri = l2_topk.plain_knn(_t(Q), _t(X), 30, chunk=chunk)
+    np.testing.assert_array_equal(ri.numpy(), ti.numpy())
+    assert not any(l2_topk.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# dce_comp.refine_topk: stage 1 (a block per query and TI rows, win counts
+# summed over 80-column j-tiles and the 16 column threads) and stage 2 (a
+# slot's rank = #{w_j > w_i} + #{j < i : w_j = w_i}, written below k).
+# ---------------------------------------------------------------------------
+
+def _cipher_sets(B, N, n, d, seed, dup=0, invalid=0.0):
+    """Real DCE ciphertexts of N rows, B candidate sets of n slots read
+    through a shuffled cand (`dup` slots repeat another slot's id, so
+    wins tie), an `invalid` share of slots masked (half of them -1, as
+    the graph filter leaves them), query 0 with 3 valid slots."""
+    rng = np.random.default_rng(seed)
+    key = jdce.keygen(d, seed=seed)
+    C = jdce.encrypt(rng.standard_normal((N, d)), key, seed=seed + 1)
+    T = jdce.trapgen(rng.standard_normal((B, d)), key, seed=seed + 2)
+    cand = np.stack([rng.permutation(N)[:n] for _ in range(B)])
+    if dup:
+        cand[:, n - dup:] = cand[:, :dup]
+    valid = rng.random((B, n)) >= invalid
+    if invalid:
+        valid[0] = False
+        valid[0, :3] = True
+    return (C.astype(np.float32), cand.astype(np.int64),
+            T.astype(np.float32), valid)
+
+
+def _emulate_refine(C_dce, cand, T, valid, k, RI):
+    """Stage 1 per (query, TI-row tile, 64-column j-tile) and stage 2 by
+    the rank rule -> (ids (B, k), local slots (B, k), wins (B, n))."""
+    B, n = cand.shape
+    k = min(k, n)
+    Cc = C_dce[cand.clamp(min=0)]
+    Z = t_dce_ref.batched_z_matrix(Cc, T)
+    TI = GROUPS * RI
+    wins = torch.zeros((B, n), dtype=torch.int32)
+    vj = torch.ones((B, n), dtype=torch.bool) if valid is None else valid
+    for b in range(B):
+        for i0 in range(0, n, TI):
+            for j0 in range(0, n, TJ):
+                i = torch.arange(i0, min(n, i0 + TI))[:, None]
+                j = torch.arange(j0, min(n, j0 + TJ))[None, :]
+                won = (Z[b, i, j] < 0) & (i != j) & vj[b, j]
+                wins[b, i0:i0 + TI] += won.sum(1, dtype=torch.int32)
+    wins = torch.where(vj, wins, -1)
+    ids = torch.empty((B, k), dtype=torch.int64)
+    local = torch.empty((B, k), dtype=torch.int64)
+    for b in range(B):
+        w = wins[b]
+        for i in range(n):
+            rank = int((w > w[i]).sum() + (w[:i] == w[i]).sum())
+            if rank < k:
+                local[b, rank] = i
+                ids[b, rank] = -1 if w[i] < 0 else cand[b, i]
+    return ids, local, wins
+
+
+@pytest.mark.parametrize("B,n,k,dup,invalid,RI", [
+    (3, 40, 12, 0, 0.0, 1),
+    (4, 80, 10, 10, 0.0, 2),         # tied wins
+    (4, 80, 10, 0, 0.3, 2),          # masked slots, query 0 below k
+    (2, 100, 60, 20, 0.2, 5),        # k above the valid count, ties
+])
+def test_refine_kernel_ranking_emulated_equals_jax(B, n, k, dup, invalid,
+                                                   RI):
+    C, cand, T, valid = _cipher_sets(B, 400, n, 24, seed=n + k, dup=dup,
+                                     invalid=invalid)
+    v = valid if invalid else None
+    want_local = np.asarray(j_dce_ops.batched_top_k_by_wins(
+        jnp.asarray(C[cand]), jnp.asarray(T), k,
+        valid=None if v is None else jnp.asarray(v), interpret=True))
+    ids, local, wins = _emulate_refine(_t(C), _t(cand), _t(T),
+                                       None if v is None else _t(v), k, RI)
+    np.testing.assert_array_equal(local.numpy(), want_local)
+    want_ids = np.take_along_axis(cand, want_local, axis=1)
+    if v is not None:
+        want_ids = np.where(np.take_along_axis(v, want_local, axis=1),
+                            want_ids, -1)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+    got, got_wins = dce_comp.refine_topk(_t(C), _t(cand), _t(T),
+                                         None if v is None else _t(v), k,
+                                         return_wins=True)
+    np.testing.assert_array_equal(got.numpy(), want_ids)
+    np.testing.assert_array_equal(got_wins.numpy(), wins.numpy())
+
+
+@pytest.mark.parametrize("dup,invalid,k", [(0, 0.0, 10), (15, 0.2, 10),
+                                          (0, 0.5, 70)])
+def test_refine_candidates_equals_jax(dup, invalid, k):
+    """The engine's refine (one refine_topk call; on CPU tensors its plain
+    version) against the JAX engine's `refine_candidates`; invalid slots
+    hold -1 or a stale id, neither of which may be returned."""
+    C, cand, T, valid = _cipher_sets(5, 600, 80, 32, seed=k + dup,
+                                     dup=dup, invalid=invalid)
+    if invalid:
+        cand = np.where(valid | (np.arange(80) % 2 == 0), cand, -1)
+    v = valid if invalid else None
+    want = np.asarray(jse.refine_candidates(
+        jnp.asarray(C), jnp.asarray(cand), jnp.asarray(T),
+        None if v is None else jnp.asarray(v), k))
+    got = se.refine_candidates(_t(C), _t(cand), _t(T),
+                               None if v is None else _t(v), k)
+    assert got.dtype == torch.int64 and got.shape == (5, min(k, 80))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if v is not None:
+        assert (got[0, 3:] == -1).all()       # query 0: 3 real slots
+    assert not any(dce_comp.launches.values())

@@ -86,11 +86,16 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
         raise AssertionError("CPU tensor reached the kernel launch path")
     monkeypatch.setattr(_build, "function", refuse)
     monkeypatch.setattr(_build, "build", refuse)
-    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches)
+    before = _launch_counts()
     out = l2_topk.pairwise_sq_dists(torch.ones(2, 3), torch.ones(4, 3))
     torch.testing.assert_close(out, torch.zeros(2, 4))
+    d, i = l2_topk.knn(torch.ones(2, 3), torch.ones(4, 3), 3)
+    assert i.tolist() == [[0, 1, 2], [0, 1, 2]]
     Z = dce_comp.batched_z_matrix(torch.ones(2, 5, 4, 6), torch.ones(2, 6))
     assert Z.shape == (2, 5, 5)
+    ids = dce_comp.refine_topk(torch.ones(7, 4, 6), torch.zeros(2, 5).long(),
+                               torch.ones(2, 6), None, 3)
+    assert ids.tolist() == [[0, 0, 0], [0, 0, 0]]
     beam_i, *_ = graph_expand.expand_layer0(*_graph_inputs("cpu", 2, 64, 4, 3),
                                             ef=4, ef_cap=32, max_hops=16)
     assert beam_i.shape == (2, 32)
@@ -99,15 +104,27 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
     assert d.dtype == torch.int32 and i.shape == (2, 7)
     d, i = adc_topk.pq_adc_topk(*_pq_inputs("cpu", 2, 50, 3), 7)
     assert d.dtype == torch.float32 and i.dtype == torch.int64
-    assert (l2_topk.launches, dce_comp.launches,
-            graph_expand.launches) == before
+    assert _launch_counts() == before
     assert adc_topk.launches == adc_before
+
+
+def _launch_counts() -> dict:
+    """Every wrapper's launch count, by kernel (a copy)."""
+    return {**{f"l2_topk.{k}": v for k, v in l2_topk.launches.items()},
+            **{f"dce_comp.{k}": v for k, v in dce_comp.launches.items()},
+            **{f"adc_topk.{k}": v for k, v in adc_topk.launches.items()},
+            "graph_expand": graph_expand.launches}
 
 
 def test_mixed_devices_refused():
     meta = torch.empty(2, 3, device="meta")
     with pytest.raises(ValueError, match="mixed devices"):
         l2_topk.pairwise_sq_dists(torch.ones(2, 3), meta)
+    with pytest.raises(ValueError, match="mixed devices"):
+        l2_topk.knn(torch.ones(2, 3), meta, 2)
+    with pytest.raises(ValueError, match="mixed devices"):
+        dce_comp.refine_topk(torch.ones(7, 4, 6), torch.zeros(2, 5).long(),
+                             torch.ones(2, 6), meta.bool(), 3)
     q8, c8, cn, ok = _sq_inputs("cpu", 2, 10, 3)
     with pytest.raises(ValueError, match="mixed devices"):
         adc_topk.sq_adc_topk(q8, c8, cn, ok.to("meta"), 3)
@@ -194,20 +211,25 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
         monkeypatch.setattr(adc_topk, name, refuse)
     for name in ("sq_adc_topk", "pq_adc_topk", "sq_dists", "pq_dists"):
         monkeypatch.setattr(adc_ref, name, refuse)
-    before = (l2_topk.launches, dce_comp.launches, graph_expand.launches,
-              *adc_topk.launches.values())
+    monkeypatch.setattr(l2_topk, "plain_knn", refuse)
+    monkeypatch.setattr(dce_comp, "plain_refine_topk", refuse)
+    before = _launch_counts()
     Q = torch.randn(5, 33, device="cuda")
     X = torch.randn(70, 33, device="cuda")
     l2_topk.pairwise_sq_dists(Q, X)
-    dce_comp.batched_z_matrix(torch.randn(3, 9, 4, 40, device="cuda"),
-                              torch.randn(3, 40, device="cuda"))
+    l2_topk.knn(Q, X, 9)
+    C = torch.randn(3, 9, 4, 40, device="cuda")
+    T = torch.randn(3, 40, device="cuda")
+    dce_comp.batched_z_matrix(C, T)
+    dce_comp.refine_topk(C.reshape(27, 4, 40),
+                         torch.arange(27, device="cuda").reshape(3, 9), T,
+                         None, 4)
     graph_expand.expand_layer0(*_graph_inputs("cuda", 3, 64, 4, 8), ef=8,
                                ef_cap=32, max_hops=64)
     adc_topk.sq_adc_topk(*_sq_inputs("cuda", 3, 300, 17), 20)
     adc_topk.pq_adc_topk(*_pq_inputs("cuda", 3, 300, 4), 20)
     torch.cuda.synchronize()
-    assert (l2_topk.launches, dce_comp.launches, graph_expand.launches,
-            *adc_topk.launches.values()) == tuple(b + 1 for b in before)
+    assert _launch_counts() == {k: v + 1 for k, v in before.items()}
 
 
 @pytest.mark.cuda
@@ -303,6 +325,93 @@ def test_pq_adc_kernel_matches_plain_on_the_card(nq, n, m, kp, valid, dup):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d,k,dup", [
+    (1, 1, 4, 1, 0),                 # one row
+    (5, 1000, 33, 30, 0),            # ragged d: 4-byte copies
+    (33, 5000, 128, 80, 500),        # ragged query group, ties
+    (32, 70001, 128, 80, 3000),      # many chunks, ragged n, ties
+    (3, 3000, 960, 50, 0),           # GIST width
+    (9, 4000, 64, 1024, 0),          # k 1024: 8 queries a block
+    (40, 300, 16, 300, 100)])        # k = n: every row selected
+def test_knn_kernel_matches_plain_on_the_card(nq, n, d, k, dup):
+    """Integer-valued rows and queries: every distance is exact in any
+    summation order, so the fused scan must equal the plain chunked merge
+    exactly, ties (duplicated rows) to the lowest id included."""
+    _needs_card()
+    rng = np.random.default_rng(n + d)
+    X = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+    if dup:
+        X[n - dup:] = X[:dup]
+    Q = rng.integers(-8, 9, size=(nq, d)).astype(np.float32)
+    Q, X = torch.as_tensor(Q, device="cuda"), torch.as_tensor(X, device="cuda")
+    got = l2_topk.knn(Q, X, k)
+    want = l2_topk.plain_knn(Q, X, k)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _refine_inputs(device, B, n, d, seed, dup=0, invalid=0.0):
+    """Real DCE ciphertexts of B * n rows read through a shuffled cand;
+    `dup` slots of each set repeat another slot's id (tied wins); an
+    `invalid` share of slots masked, half of them with id -1; query 0
+    with 3 valid slots."""
+    rng = np.random.default_rng(seed)
+    key = dce.keygen(d, seed=seed)
+    C = dce.encrypt(rng.standard_normal((B * n, d)), key, seed=seed + 1)
+    T = dce.trapgen(rng.standard_normal((B, d)), key, seed=seed + 2)
+    cand = np.arange(B * n).reshape(B, n)
+    cand = rng.permuted(cand, axis=1)
+    if dup:
+        cand[:, n - dup:] = cand[:, :dup]
+    valid = rng.random((B, n)) >= invalid
+    if invalid:
+        valid[0] = False
+        valid[0, :3] = True
+        cand[~valid & (rng.random((B, n)) < 0.5)] = -1
+    return [torch.as_tensor(a, device=device)
+            for a in (C.astype(np.float32), cand, T.astype(np.float32),
+                      valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,k,dup,invalid", [
+    (1, 1, 4, 1, 0, 0.0),
+    (3, 9, 17, 4, 0, 0.0),           # ragged D
+    (32, 80, 128, 10, 0, 0.1),       # the flat and graph paths' shape
+    (32, 160, 128, 10, 20, 0.1),     # ADC int8, tied wins
+    (32, 320, 128, 10, 0, 0.0),      # ADC pq8
+    (4, 70, 64, 60, 10, 0.3),        # k above the valid count of query 0
+    (2, 1500, 32, 1500, 0, 0.0)])    # k = n, several rank tiles
+def test_refine_kernel_matches_plain_on_the_card(B, n, d, k, dup, invalid):
+    """The fused refine's win counts equal those of the Z entry (the same
+    main loop) exactly, its ids are the stable ranking of those wins, and
+    both equal the plain version wherever no pair of valid slots is a
+    near-tie (|Z| <= 1e-5 max|Z|, where sums in another order may flip)."""
+    _needs_card()
+    from repro_torch.kernels.dce_comp.ref import batched_wins
+    C_dce, cand, T, valid = _refine_inputs("cuda", B, n, d, seed=n + d,
+                                           dup=dup, invalid=invalid)
+    v = valid if invalid else None
+    ids, wins = dce_comp.refine_topk(C_dce, cand, T, v, k, return_wins=True)
+    ids_p, wins_p = dce_comp.plain_refine_topk(C_dce, cand, T, v, k,
+                                               return_wins=True)
+    Cc = C_dce[cand]
+    assert torch.equal(wins, batched_wins(dce_comp.batched_z_matrix(Cc, T),
+                                          v))
+    local = torch.sort(-wins, dim=1, stable=True).indices[:, :k]
+    want = torch.where(torch.gather(valid, 1, local),
+                       torch.gather(cand, 1, local), -1)
+    assert torch.equal(ids, want)
+    Z = dce_comp.plain_batched_z_matrix(Cc, T)
+    pairs = valid[:, :, None] & valid[:, None, :] & ~torch.eye(
+        n, dtype=torch.bool, device="cuda")[None]
+    unsure = (pairs & (Z.abs() <= 1e-5 * Z.abs().max())).any(-1)
+    assert torch.equal(wins[~unsure], wins_p[~unsure])
+    sure = ~unsure.any(-1)
+    assert torch.equal(ids[sure], ids_p[sure])
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_card()
     Q = torch.randn(4, 8, device="cuda")
@@ -310,6 +419,22 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         l2_topk.pairwise_sq_dists(Q.double(), Q.double())
     with pytest.raises(ValueError):
         l2_topk.pairwise_sq_dists(Q, torch.randn(8, 4, device="cuda").T)
+    X = torch.randn(2000, 8, device="cuda")
+    with pytest.raises(ValueError, match="limit"):
+        l2_topk.knn(Q, X, l2_topk.MAX_KP + 1)
+    with pytest.raises(TypeError):
+        l2_topk.knn(Q.double(), X.double(), 5)
+    with pytest.raises(ValueError, match="mixed devices"):
+        l2_topk.knn(Q, X.cpu(), 5)
+    C_dce, cand, T, valid = _refine_inputs("cuda", 2, 9, 8, seed=1)
+    with pytest.raises(TypeError):
+        dce_comp.refine_topk(C_dce, cand.int(), T, valid, 3)
+    with pytest.raises(TypeError):
+        dce_comp.refine_topk(C_dce.double(), cand, T, valid, 3)
+    with pytest.raises(ValueError):
+        dce_comp.refine_topk(C_dce, cand, T[:1], valid, 3)
+    with pytest.raises(ValueError, match="mixed devices"):
+        dce_comp.refine_topk(C_dce, cand, T, valid.cpu(), 3)
     with pytest.raises(ValueError):
         dce_comp.batched_z_matrix(torch.randn(2, 3, 4, 8, device="cuda"),
                                   torch.randn(3, 8, device="cuda"))
