@@ -29,7 +29,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
      1e-5 * max|Z| (the rest is reported);
      sq_adc_topk / pq_adc_topk (quantized scan + top-kp): ids and
      distances exactly equal (int32 surrogates; float32 sums taken in
-     the same subspace order), exhausted slots included;
+     the same subspace order), exhausted slots included; an `adc_split`
+     line before each of their records splits the call's device time
+     into scan, selection and merge (torch.profiler by kernel; the scan
+     alone is the same call with every row masked);
      l2 tiles: |kernel - plain| <= 1e-5 * (||q||^2 + ||x||^2);
      Z tiles:  |kernel - plain| <= 1e-5 * max|Z|, and equal signs
                wherever |Z_plain| > 1e-5 * max|Z|;
@@ -565,6 +568,48 @@ def adc_outputs_equal(got, want, what: str) -> float:
     return float((got[0].double() - want[0].double()).abs().max())
 
 
+def adc_split(name: str, call, masked, reps: int = 20) -> dict:
+    """Device time of a fused ADC call split into scan, selection and
+    merge (torch.profiler, by kernel: the scan kernel and the merge
+    kernel).  `masked` is the same call with every row masked: its scan
+    kernel stages the codes and computes every distance but offers no key,
+    so its time is the scan alone and the rest of the scan kernel's time
+    with the rows as given is the selection."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def by_kernel(fn) -> dict:
+        events = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps),
+                     on_trace_ready=lambda p: events.extend(p.key_averages())
+                     ) as prof:
+            for _ in range(reps + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        out = {}                # ms a launch, over the launches it saw
+        for stage in ("scan", "merge"):
+            seen = [ev for ev in events
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and f"{stage}_kernel" in ev.key and ev.count > 0
+                    and getattr(ev, "self_device_time_total", 0) > 0]
+            if seen:
+                out[stage] = (sum(ev.self_device_time_total for ev in seen)
+                              / 1e3 / sum(ev.count for ev in seen))
+        if set(out) != {"scan", "merge"}:
+            raise AssertionError(f"{name}: the profiler saw {out}, not the "
+                                 f"scan and merge kernels")
+        return out
+    real, alone = by_kernel(call), by_kernel(masked)
+    return {"phase": "adc_split", "kernel": name, "reps": reps,
+            "scan_kernel_ms": real["scan"], "scan_ms": alone["scan"],
+            "selection_ms": real["scan"] - alone["scan"],
+            "merge_ms": real["merge"], "merge_ms_rows_masked": alone["merge"]}
+
+
 def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
                  n_valid: int | None = None) -> dict:
     """K4 against its plain version: random int8 codes (the last 1% of
@@ -602,6 +647,10 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
                               reps=10, warmup=2),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    none = torch.zeros_like(ok)
+    log(json.dumps(adc_split(
+        rec["name"], lambda: adc_topk.sq_adc_topk(*args),
+        lambda: adc_topk.sq_adc_topk(q8, c8, cn, none, kp))))
     c8t = c8.T
     big = adc_topk.INT_BIG
 
@@ -638,8 +687,13 @@ def check_pq_adc(nq: int, m: int, n: int, kp: int, gen) -> dict:
     kpp = min(kp, n)
     nbytes = m * n + n + 4.0 * nq * m * 256 + 12.0 * nq * kpp
     b_ms, b_by = bound(float(nq) * n * m, nbytes)
+    name = f"adc_topk.pq_adc_topk[nq={nq},m={m},n={n},kp={kp}]"
+    none = torch.zeros_like(ok)
+    log(json.dumps(adc_split(
+        name, lambda: adc_topk.pq_adc_topk(*args),
+        lambda: adc_topk.pq_adc_topk(lut, codes_t, none, kp))))
     return {
-        "name": f"adc_topk.pq_adc_topk[nq={nq},m={m},n={n},kp={kp}]",
+        "name": name,
         "route": "cuda",
         "source": "src/repro_torch/csrc/adc_topk.cu",
         "replaces": "src/repro/kernels/adc_topk/adc_topk.py:249",

@@ -18,40 +18,66 @@
 // so the tie rule needs no extra code anywhere.
 //
 // Two launches per call.  Stage 1: a block takes QB queries and a chunk of
-// rows, walks the chunk in tiles of 256 rows (one row a thread) and keeps,
-// per query, a running top-kp in shared memory: a sorted state of SC >=
-// kp keys, a buffer, and a threshold (the kp-th best key so far).  A key
-// below the threshold is appended to the buffer (shared atomic counter);
-// when a buffer could overflow in the next tile, all QB segments
-// [state | buffer] are sorted by one bitonic network and the buffer is
-// emptied.  After the first tiles the threshold admits few keys, so the
-// sorts are rare and the scan dominates.  The chunk's top-kp keys go to a
-// partial buffer (nq, G, kp).  Stage 2: one block per query runs the same
-// selection over its G * kp partial keys and writes (dists, ids).
+// rows (about one block per SM), walks the chunk in tiles and keeps, per
+// query, a running top-kp in shared memory: a sorted state, a buffer of
+// 256 keys and a threshold (the kp-th best key so far).  Each thread
+// compares its keys with their queries' thresholds in registers and puts
+// only the keys below them into the buffers; a key that finds its buffer
+// full stays with its thread until a warp has merged that buffer into its
+// state (Select::merge_buffers: the buffer sorted in registers, one
+// bitonic merge), then it is offered again.  The chunk's top-kp keys go to
+// a partial buffer (nq, G, kp).  Stage 2: one block per query merges its
+// G sorted partial lists in runs of 8 keys a list, stopping after a round
+// that brings nothing below its kp-th best (Select::merge_runs).
 //
-// What bounds them on the H100:
+// What bounds them on the H100, and what the design does about it:
 //   K4 at the main-path shape (32 queries, 1M rows, d = 128, kp = 160):
-//   128 MB of codes + 5 MB of norms and flags, ~40 us at 3.35 TB/s; the
-//   8.4 G int8 operations would take ~4 us on the tensor cores.  This
-//   version computes on the CUDA cores with __dp4a (4 int8 products into
-//   int32 per instruction, 1 G instructions), so the integer issue rate
-//   and the shared-memory reads feeding it bound it before the bytes do.
-//   Each block stages a 256-row x 128-byte slice of codes in shared memory
-//   (coalesced global loads; 16-byte shared loads, a padded stride so they
-//   are conflict-free) and each thread keeps 8 query accumulators, so a
-//   staged word feeds 8 dp4a.  The codes are read once per group of 8
-//   queries (4 times at 32 queries, mostly from L2, as the 4 query groups
-//   of a chunk are neighbouring blocks).
+//   128 MB of codes + 5 MB of norms and flags, ~40 us at 3.35 TB/s; its
+//   8.4 G int8 operations take ~4 us at the 1979 TOPS of the tensor cores.
+//   So it is bound by bytes once each code byte is read once:
+//     * one block takes 32 queries (16 where kp > 256 needs the shared
+//       memory), the whole default batch, so the codes leave device
+//       memory once per call;
+//     * int8 x int8 -> int32 is exact in any order, so the products run
+//       on the tensor cores: mma.sync m16n8k32 s8, queries as A and rows
+//       as B (ldmatrix x4 both), int32 accumulators in registers; 16
+//       warps a block, a warp owns 16 rows x all the block's queries of
+//       a 256-row tile, so the 4 lanes that share a query put its keys
+//       with one atomic;
+//     * rows and queries are staged in 64-byte depth slices by a 4-stage
+//       cp.async ring (3 where kp > 512 needs the shared memory; 16-byte
+//       copies, zero-filled past d, past the chunk
+//       and past nq, and zero codes add exactly 0), rows 80 bytes apart so
+//       the ldmatrix row reads are conflict-free; a d that is not a
+//       multiple of 16, or misaligned codes, take masked byte loads;
+//     * the epilogue forms cn - 2 cross from the accumulator fragments;
+//       the norms and flags of a tile's rows are loaded a tile ahead.
 //   K5 at the main-path shape (32 queries, 1M rows, m = 16, kp = 320):
-//   16 MB of codes, ~5 us at 3.35 TB/s, and 512 M float adds, ~8 us at
-//   67 TFLOP/s; but each add needs a look-up in the query's table, a
-//   random shared-memory read with bank conflicts, so the shared-memory
-//   read rate bounds it.  A block holds the tables of 4 queries (16 KB
-//   each at m = 16) in shared memory; the codes stream coalesced along n.
-// Both: d not a multiple of 4 (or codes not 4-byte aligned) is read with
-// masked byte loads; nothing is padded or copied.  Tensor-core (wgmma)
-// int8 products for K4, and a cheaper selection (per-warp queues instead
-// of block-wide sorts), are later work.
+//   16 MB of codes (~5 us) and 512 M float adds (~8 us at 67 TFLOP/s),
+//   but every add needs a table entry from shared memory: 2 GB of reads a
+//   call, 69 us at the SMs' 128 bytes a cycle, more where random codes
+//   meet in a bank.  So the shared-memory read rate bounds it:
+//     * a block holds the tables of QB queries (8 at m = 16: 128 KB; 4,
+//       2 or 1 where a wider m needs the room), interleaved across the
+//       queries as [j][code][QB], so one 16-byte load brings 4 queries'
+//       entries for a code; at QB = 8 two lanes share a row and read the
+//       two halves of its 32-byte entry, so the 8 lanes of a load phase
+//       meet 4 random entries (about 2 passes of shared memory a phase,
+//       against 2.5 for 8 random 16-byte entries);
+//     * a lane takes 4 (8 at QB = 8) consecutive rows and reads each
+//       subspace's codes as 32-bit loads from codes_t (m, n), prefetched
+//       a group of 4 subspaces ahead, across tiles; each query's sum runs
+//       over j in ascending order, one __fadd_rn at a time, as the plain
+//       version's.
+// Both select as above.  After the first tiles the thresholds admit few
+// keys; a full buffer costs one warp a sort of 256 keys and a merge of the
+// state.  The lanes that share a query put their keys with one shared
+// atomic (offsets from ballots).  A flush merges the full buffers and, on
+// the warps that would idle, the fullest others, and a buffer that a
+// pass leaves exactly full is merged at once, so the queries' flushes
+// fall together.  What still holds them back: the warp merges (a bitonic
+// network of dependent shuffles) and the passes around them take longer
+// than the scan itself, and K5's look-ups meet in shared-memory banks.
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -65,207 +91,486 @@ using topk::FLOAT_INF_BITS;
 using topk::order_float;
 using topk::order_int;
 using topk::pack_key;
-using topk::state_len;
 using topk::u64;
 using topk::unorder;
 
-constexpr int THREADS = 256;
-constexpr int TILE = 256;          // rows (or partial keys) offered per step
-constexpr int KC = 32;             // int8 path: words (4 codes) per staged slice
-constexpr int KCS = KC + 4;        // slice row stride in words: 9 x 16 B (odd)
-constexpr int SQ_QB = 8;           // queries per block, int8
-constexpr int PQ_QB = 4;           // queries per block, PQ
-constexpr int PQ_K = 256;          // centroids per subspace
+constexpr int THREADS = 256;            // K5 and the merge
+constexpr int SQ_THREADS = 512;         // K4: 16 warps
 constexpr int MAX_KP = 1024;
 constexpr int MAX_D = 2048;
 constexpr int INT_BIG = 1 << 30;
+constexpr int BUF_E = 8;                // buffer: 32 * BUF_E keys a query
+constexpr int BUFFER = 32 * BUF_E;
+
+// K4: rows of a tile (16 a warp: two n8 tiles), depth bytes a staged
+// slice (two k32 steps), slice row stride, ring stages.
+constexpr int SQ_WARPS = SQ_THREADS / 32;
+constexpr int SQ_ROWS = 16 * SQ_WARPS;
+constexpr int SQ_KS = 64;
+constexpr int SQ_STRIDE = SQ_KS + 16;
+constexpr int SQ_DEEP = 4;              // ring stages while kp <= 512
+constexpr int SQ_SHALLOW = 3;           // where kp > 512 needs the room
+
+// K5: centroids a subspace, rows of a tile (4 or 8 consecutive a lane).
+constexpr int PQ_K = 256;
+constexpr int PQ_ROWS = 4 * THREADS;
 
 typedef topk::Select<THREADS> Select;
+typedef topk::Select<SQ_THREADS> SqSelect;
 
-// Sorted segment per query: the state (state_len) and a buffer that
-// holds at least two tiles of offers.
-__host__ __device__ inline int sort_len(int kp) {
-  return topk::pow2_at_least(state_len(kp) + 2 * TILE);
+// A query's state: at least the buffer's length (merge_segment needs it).
+__host__ __device__ inline int scan_state_len(int kp) {
+  const int sc = topk::state_len(kp);
+  return sc > BUFFER ? sc : BUFFER;
 }
 
-__host__ __device__ inline int words_padded(int d) {
-  return ((d + 3) / 4 + KC - 1) / KC * KC;
+__host__ __device__ inline int scan_seg_len(int kp) {
+  return scan_state_len(kp) + BUFFER;
 }
 
-size_t sq_smem(int kp, int d) {
-  return Select::bytes(SQ_QB, sort_len(kp)) + (size_t)TILE * KCS * 4 +
-         (size_t)SQ_QB * words_padded(d) * 4;
+__host__ __device__ inline int sq_queries_per_block(int kp) {
+  return kp <= 256 ? 32 : 16;
 }
 
-size_t pq_smem(int kp, int m) {
-  return Select::bytes(PQ_QB, sort_len(kp)) + (size_t)PQ_QB * m * PQ_K * 4;
+__host__ __device__ inline size_t sq_stage_bytes(int qb) {
+  return (size_t)(SQ_ROWS + qb) * SQ_STRIDE;
 }
 
-size_t merge_smem(int kp) { return Select::bytes(1, sort_len(kp)); }
-
-__device__ __forceinline__ Select make_select(unsigned char* smem, int nseg,
-                                              int kp, size_t tail_bytes) {
-  return Select::at(smem, nseg, kp, sort_len(kp), tail_bytes);
+__host__ __device__ inline int sq_stages(int kp) {
+  return kp <= 512 ? SQ_DEEP : SQ_SHALLOW;
 }
 
-// Word w (codes 4w .. 4w+3, little-endian) of a row of d int8 codes,
-// zero past d.
-__device__ __forceinline__ int pack4(const int8_t* row, int w, int d) {
+size_t sq_smem(int qb, int kp) {
+  return SqSelect::bytes(qb, scan_seg_len(kp)) +
+         sq_stages(kp) * sq_stage_bytes(qb);
+}
+
+size_t pq_smem(int qb, int kp, int m) {
+  return Select::bytes(qb, scan_seg_len(kp)) + (size_t)qb * m * PQ_K * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a (16 x 32 int8, row-major) * b (32 x 8 int8, column-major), int32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes k .. k+3 of a row of d int8 codes (little-endian), zero past d.
+__device__ __forceinline__ unsigned pack4(const int8_t* row, int k, int d) {
   unsigned v = 0;
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int k = 4 * w + b;
-    if (k < d) v |= (unsigned)(unsigned char)row[k] << (8 * b);
-  }
-  return (int)v;
+  for (int b = 0; b < 4; ++b)
+    if (k + b < d) v |= (unsigned)(unsigned char)row[k + b] << (8 * b);
+  return v;
 }
 
-// Stage 1 of K4: grid (query groups, row chunks).
-__global__ void __launch_bounds__(THREADS)
+// Copy `count` rows of depth slice [k0, k0 + SQ_KS) of a (.., d) int8
+// matrix, rows `first` .. first + count - 1 (zero past `end` and past d),
+// into shared rows SQ_STRIDE bytes apart.  vec: 16-byte cp.async, else
+// synchronous masked byte loads, 4 bytes a store.
+__device__ __forceinline__ void stage_rows(unsigned char* dst,
+                                           const int8_t* src, int first,
+                                           int count, int end, int d, int k0,
+                                           bool vec, int tid) {
+  if (vec) {
+    for (int c = tid; c < count * (SQ_KS / 16); c += SQ_THREADS) {
+      const int row = c / (SQ_KS / 16), k = k0 + (c % (SQ_KS / 16)) * 16;
+      const bool in = first + row < end && k < d;
+      cp_async16(dst + row * SQ_STRIDE + (k - k0),
+                 in ? src + (size_t)(first + row) * d + k : src, in);
+    }
+  } else {
+    for (int c = tid; c < count * (SQ_KS / 4); c += SQ_THREADS) {
+      const int row = c / (SQ_KS / 4), k = k0 + (c % (SQ_KS / 4)) * 4;
+      const unsigned v = first + row < end
+          ? pack4(src + (size_t)(first + row) * d, k, d) : 0u;
+      *reinterpret_cast<unsigned*>(dst + row * SQ_STRIDE + (k - k0)) = v;
+    }
+  }
+}
+
+// Stage 1 of K4: grid (query groups, row chunks); QB = 16 MT queries, a
+// ring of STAGES slices.  Queries are the mma's A operand and rows its B:
+//   warp w, lane l (g = l / 4, t = l % 4): queries 16 mt + 8 h + g and rows
+//   16 w + 8 nt + 2 t + u of every tile, in acc[mt][nt][2 h + u];
+// so the 4 lanes of a group g share a query, and put one group of keys.
+template <int MT, int STAGES>
+__global__ void __launch_bounds__(SQ_THREADS, 1)
 sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
                const int* __restrict__ cn, const unsigned char* __restrict__ ok,
                u64* __restrict__ part, int nq, int n, int d, int kp,
-               int chunk_rows, int G, int aligned) {
+               int chunk_rows, int G, int vec) {
+  constexpr int QB = 16 * MT;
+  constexpr int RPW = SQ_ROWS / SQ_WARPS;      // rows a warp: 16
+  constexpr int NT = RPW / 8;                  // row tiles of 8 a warp
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * SQ_QB;
-  const int g = blockIdx.y;
-  const int DW = (d + 3) / 4;
-  const int DWP = words_padded(d);
-  const int S = sort_len(kp);
-  int* cs = reinterpret_cast<int*>(smem + (size_t)SQ_QB * S * 8);
-  int* qs = cs + TILE * KCS;
-  Select sel = make_select(smem, SQ_QB, kp,
-                           (size_t)TILE * KCS * 4 + (size_t)SQ_QB * DWP * 4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * QB;
+  const int SC = scan_state_len(kp), S = SC + BUFFER;
+  unsigned char* ring = smem + (size_t)QB * S * 8;
+  SqSelect sel = SqSelect::at(smem, QB, kp, S, STAGES * sq_stage_bytes(QB),
+                              SC);
   sel.init(tid);
-  for (int i = tid; i < SQ_QB * DWP; i += THREADS) {
-    const int q = i / DWP, w = i - q * DWP;
-    qs[i] = (q0 + q < nq && w < DW) ? pack4(q8 + (size_t)(q0 + q) * d, w, d)
-                                    : 0;
-  }
-  __syncthreads();
 
-  const int r_begin = g * chunk_rows;
+  const int r_begin = blockIdx.y * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
-  for (int t0 = r_begin; t0 < r_end; t0 += TILE) {
-    int acc[SQ_QB];
+  const int nk = (d + SQ_KS - 1) / SQ_KS;
+  const int total = (r_end - r_begin + SQ_ROWS - 1) / SQ_ROWS * nk;
+  auto load = [&](int s) {                 // slice s of the chunk's walk
+    unsigned char* xs = ring + (s % STAGES) * sq_stage_bytes(QB);
+    const int k0 = (s % nk) * SQ_KS;
+    stage_rows(xs, c8, r_begin + (s / nk) * SQ_ROWS, SQ_ROWS, r_end, d, k0,
+               vec, tid);
+    stage_rows(xs + SQ_ROWS * SQ_STRIDE, q8, q0, QB, nq, d, k0, vec, tid);
+  };
 #pragma unroll
-    for (int q = 0; q < SQ_QB; ++q) acc[q] = 0;
-    for (int k0 = 0; k0 < DW; k0 += KC) {
-      for (int i = tid; i < TILE * KC; i += THREADS) {
-        const int rr = i / KC, w = i - rr * KC;
-        const int r = t0 + rr, gw = k0 + w;
-        int v = 0;
-        if (r < r_end && gw < DW)
-          v = aligned ? reinterpret_cast<const int*>(c8)[(size_t)r * DW + gw]
-                      : pack4(c8 + (size_t)r * d, gw, d);
-        cs[rr * KCS + w] = v;
-      }
-      __syncthreads();
-      const int* crow = cs + tid * KCS;
-#pragma unroll
-      for (int w = 0; w < KC; w += 4) {
-        const int4 c = *reinterpret_cast<const int4*>(crow + w);
-#pragma unroll
-        for (int q = 0; q < SQ_QB; ++q) {
-          const int4 e = *reinterpret_cast<const int4*>(qs + q * DWP + k0 + w);
-          acc[q] = __dp4a(c.x, e.x, acc[q]);
-          acc[q] = __dp4a(c.y, e.y, acc[q]);
-          acc[q] = __dp4a(c.z, e.z, acc[q]);
-          acc[q] = __dp4a(c.w, e.w, acc[q]);
-        }
-      }
-      __syncthreads();
-    }
-    const int r = t0 + tid;
-    if (r < r_end && ok[r]) {
-      const int norm = cn[r];
-#pragma unroll
-      for (int q = 0; q < SQ_QB; ++q) {
-        const int dist = norm - 2 * acc[q];
-        if (q0 + q < nq && dist < INT_BIG)
-          sel.offer(q, pack_key(order_int(dist), r));
-      }
-    }
-    sel.end_step(tid, TILE);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
   }
-  sel.flush(tid);
-  for (int i = tid; i < SQ_QB * kp; i += THREADS) {
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0;
+  // cn and ok of the lane's rows 8 nt + 2 t + u ([2 nt + u]) of this tile,
+  // and of the next, loaded a tile ahead (zero past the chunk)
+  int norm[2 * NT], norm_next[2 * NT];
+  unsigned char okr[2 * NT], ok_next[2 * NT];
+  auto load_rows = [&](int tile0, int (&nrm)[2 * NT],
+                       unsigned char (&okv)[2 * NT]) {
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {
+      const int r = tile0 + warp * RPW + 2 * t + (i >> 1) * 8 + (i & 1);
+      nrm[i] = r < r_end ? cn[r] : 0;
+      okv[i] = r < r_end ? ok[r] : 0;
+    }
+  };
+  load_rows(r_begin, norm, okr);
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<STAGES - 2>();
+    // slice `it` has landed for every thread, and every thread is done
+    // with slice it - 1, whose stage the next copies overwrite
+    __syncthreads();
+    if (it + STAGES - 1 < total) load(it + STAGES - 1);
+    cp_async_commit();
+    const int tile0 = r_begin + (it / nk) * SQ_ROWS;
+    const int row0 = tile0 + warp * RPW + 2 * t;      // + 8 nt + u
+    if (it % nk == 0) load_rows(tile0 + SQ_ROWS, norm_next, ok_next);
+    const unsigned char* xs = ring + (it % STAGES) * sq_stage_bytes(QB);
+    const unsigned char* qs = xs + SQ_ROWS * SQ_STRIDE;
+#pragma unroll
+    for (int kk = 0; kk < SQ_KS; kk += 32) {
+      unsigned a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], qs + (mt * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * SQ_STRIDE +
+                               kk + (lane >> 4) * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, xs + (warp * RPW + np * 16 + (lane & 7) +
+                             (lane >> 4) * 8) * SQ_STRIDE +
+                           kk + ((lane >> 3) & 1) * 16);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_s8(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+    }
+    if (it % nk != nk - 1) continue;
+
+    // the tile's last slice: distances, then offers until every key below
+    // its threshold is placed.  Bit 8 (2 mt + h) + (2 nt + u) of `pend`:
+    // query 16 mt + 8 h + g, row 8 nt + 2 t + u.  Every thread reaches
+    // each barrier.
+    static_assert(2 * MT * 2 * NT <= 32, "one pending bit per key");
+    unsigned pend = 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 2 * nt + (c & 1), gq = 2 * mt + (c >> 1);
+          const int dist = norm[i] - 2 * acc[mt][nt][c];
+          acc[mt][nt][c] = dist;
+          if (okr[i] && q0 + 8 * gq + g < nq && dist < INT_BIG)
+            pend |= 1u << (8 * gq + i);
+        }
+    auto key_of = [&](int gq, int i) {
+      return pack_key(order_int(acc[gq >> 1][i >> 1][2 * (gq & 1) + (i & 1)]),
+                      row0 + (i >> 1) * 8 + (i & 1));
+    };
+    while (true) {
+      // keys at or above their thresholds drop out; the puts run only
+      // where a lane of the warp has a key left
+#pragma unroll
+      for (int gq = 0; gq < 2 * MT; ++gq) {
+        const u64 thr = sel.thr[8 * gq + g];
+#pragma unroll
+        for (int i = 0; i < 2 * NT; ++i)
+          if (key_of(gq, i) >= thr) pend &= ~(1u << (8 * gq + i));
+      }
+      if (__any_sync(0xffffffffu, pend != 0)) {
+        int q[2 * MT];
+        unsigned mask[2 * MT];
+#pragma unroll
+        for (int gq = 0; gq < 2 * MT; ++gq) {
+          q[gq] = 8 * gq + g;
+          mask[gq] = (pend >> (8 * gq)) & 0xffu;
+        }
+        sel.template put_groups<2 * MT, 2 * NT>(q, mask, lane,
+                                                0xfu << (lane & ~3), key_of);
+        pend = 0;
+#pragma unroll
+        for (int gq = 0; gq < 2 * MT; ++gq) pend |= mask[gq] << (8 * gq);
+      }
+      // also merge a buffer that a pass left exactly full, so the next
+      // tile meets the lower threshold
+      if (!__syncthreads_or(pend != 0 || sel.full(tid))) break;
+      sel.template merge_buffers<BUF_E>(tid, false);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0;
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {
+      norm[i] = norm_next[i];
+      okr[i] = ok_next[i];
+    }
+  }
+  cp_async_wait<0>();
+  sel.template merge_buffers<BUF_E>(tid, true);
+  for (int i = tid; i < QB * kp; i += SQ_THREADS) {
     const int q = i / kp, j = i - q * kp;
     if (q0 + q < nq)
-      part[((size_t)(q0 + q) * G + g) * kp + j] = sel.keys[(size_t)q * S + j];
+      part[((size_t)(q0 + q) * G + blockIdx.y) * kp + j] =
+          sel.keys[(size_t)q * S + j];
   }
 }
 
-// Stage 1 of K5: grid (query groups, row chunks).
-__global__ void __launch_bounds__(THREADS)
+// W consecutive floats from shared memory (W = 4, 2 or 1).
+template <int W>
+__device__ __forceinline__ void load_entry(float (&v)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (W == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// The codes of rows r0 .. r0 + 3 at subspace j, row r0 in the low byte;
+// zero past r_end.  aligned: n % 4 == 0 and codes_t 4-byte aligned.
+__device__ __forceinline__ unsigned codes4(const uint8_t* codes_t, int n,
+                                           int j, int r0, int r_end,
+                                           bool aligned) {
+  const uint8_t* p = codes_t + (size_t)j * n + r0;
+  if (aligned) return r0 < r_end ? *reinterpret_cast<const unsigned*>(p) : 0u;
+  unsigned v = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (r0 + b < r_end) v |= (unsigned)p[b] << (8 * b);
+  return v;
+}
+
+// Stage 1 of K5: grid (query groups, row chunks).  The block's tables lie
+// as [j][code][QB]: entry (j, code) of query q at float (j * 256 + code) *
+// QB + q.  At QB = 8 two lanes share a row, lane h of the pair reading
+// queries 4 h .. 4 h + 3 (16 bytes of the 32-byte entry), so the 8 lanes of
+// a load phase touch 4 entries; below 8 a lane reads a row's whole entry.
+//   thread tid: rows RPL * (tid / LPR) .. + RPL - 1 of each tile, queries
+//   QPL * (tid % LPR) .. + QPL - 1, in acc[row][query].
+template <int QB>
+__global__ void __launch_bounds__(THREADS, 1)
 pq_scan_kernel(const float* __restrict__ lut,
                const uint8_t* __restrict__ codes_t,
                const unsigned char* __restrict__ ok, u64* __restrict__ part,
-               int nq, int n, int m, int kp, int chunk_rows, int G) {
+               int nq, int n, int m, int kp, int chunk_rows, int G,
+               int aligned) {
+  constexpr int LPR = QB == 8 ? 2 : 1;    // lanes a row
+  constexpr int RPL = 4 * LPR;            // rows a lane
+  constexpr int QPL = QB / LPR;           // queries a lane
+  constexpr int GJ = 4;                   // subspaces a code prefetch
+  static_assert(RPL * THREADS / LPR == PQ_ROWS, "a tile's rows");
+  static_assert(QPL * RPL <= 32, "one pending bit per key");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * PQ_QB;
-  const int g = blockIdx.y;
-  const int S = sort_len(kp);
-  const int T = m * PQ_K;                         // one query's table
-  float* luts = reinterpret_cast<float*>(smem + (size_t)PQ_QB * S * 8);
-  Select sel = make_select(smem, PQ_QB, kp, (size_t)PQ_QB * T * 4);
+  const int tid = threadIdx.x, lane = tid & 31, h = tid % LPR;
+  const int q0 = blockIdx.x * QB;
+  const int SC = scan_state_len(kp), S = SC + BUFFER;
+  const int T = m * PQ_K;                 // one query's table
+  float* tab = reinterpret_cast<float*>(smem + (size_t)QB * S * 8);
+  Select sel = Select::at(smem, QB, kp, S, (size_t)QB * T * 4, SC);
   sel.init(tid);
-  for (int i = tid; i < PQ_QB * T; i += THREADS) {
-    const int q = i / T;
-    luts[i] = q0 + q < nq ? lut[(size_t)q0 * T + i] : 0.f;
+  for (int i = tid; i < QB * T; i += THREADS) {
+    const int q = i / T, jc = i - q * T;
+    tab[(size_t)jc * QB + q] = q0 + q < nq ? lut[(size_t)(q0 + q) * T + jc]
+                                           : 0.f;
   }
   __syncthreads();
 
-  const int r_begin = g * chunk_rows;
+  const int r_begin = blockIdx.y * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
-  for (int t0 = r_begin; t0 < r_end; t0 += TILE) {
-    const int r = t0 + tid;
-    if (r < r_end && ok[r]) {
-      float acc[PQ_QB];
+  const unsigned group = LPR == 2 ? 0x55555555u << h : 0xffffffffu;
+  // The codes are loaded a group of GJ subspaces ahead, across tiles, and
+  // ok a tile ahead (zero past the chunk).
+  auto load_ok = [&](int r0, unsigned char (&okv)[RPL]) {
 #pragma unroll
-      for (int q = 0; q < PQ_QB; ++q) acc[q] = 0.f;
-      for (int j = 0; j < m; ++j) {
-        const int code = codes_t[(size_t)j * n + r];
+    for (int b = 0; b < RPL; ++b) okv[b] = r0 + b < r_end ? ok[r0 + b] : 0;
+  };
+  auto load_codes = [&](int r0, int j0, unsigned (&w)[GJ][RPL / 4]) {
 #pragma unroll
-        for (int q = 0; q < PQ_QB; ++q)
-          acc[q] = __fadd_rn(acc[q], luts[q * T + j * PQ_K + code]);
+    for (int u = 0; u < GJ; ++u)
+#pragma unroll
+      for (int x = 0; x < RPL / 4; ++x)
+        w[u][x] = j0 + u < m
+            ? codes4(codes_t, n, j0 + u, r0 + 4 * x, r_end, aligned) : 0u;
+  };
+  unsigned cur[GJ][RPL / 4], nxt[GJ][RPL / 4];
+  unsigned char okr[RPL], ok_next[RPL];
+  load_codes(r_begin + RPL * (tid / LPR), 0, cur);
+  load_ok(r_begin + RPL * (tid / LPR), okr);
+  for (int t0 = r_begin; t0 < r_end; t0 += PQ_ROWS) {
+    const int r0 = t0 + RPL * (tid / LPR);
+    load_ok(r0 + PQ_ROWS, ok_next);
+    float acc[RPL][QPL];
+#pragma unroll
+    for (int b = 0; b < RPL; ++b)
+#pragma unroll
+      for (int w = 0; w < QPL; ++w) acc[b][w] = 0.f;
+    for (int j0 = 0; j0 < m; j0 += GJ) {
+      if (j0 + GJ < m) load_codes(r0, j0 + GJ, nxt);
+      else load_codes(r0 + PQ_ROWS, 0, nxt);        // the next tile's
+#pragma unroll
+      for (int u = 0; u < GJ; ++u) {
+        const int j = j0 + u;
+        if (j >= m) break;
+        const float* tj = tab + (size_t)j * PQ_K * QB + h * QPL;
+#pragma unroll
+        for (int b = 0; b < RPL; ++b) {
+          const int code = (cur[u][b >> 2] >> (8 * (b & 3))) & 0xff;
+          float v[QPL];
+          load_entry<QPL>(v, tj + code * QB);
+#pragma unroll
+          for (int w = 0; w < QPL; ++w)
+            acc[b][w] = __fadd_rn(acc[b][w], v[w]);
+        }
       }
 #pragma unroll
-      for (int q = 0; q < PQ_QB; ++q)
-        if (q0 + q < nq && acc[q] < __int_as_float(FLOAT_INF_BITS))
-          sel.offer(q, pack_key(order_float(acc[q]), r));
+      for (int u = 0; u < GJ; ++u)
+#pragma unroll
+        for (int x = 0; x < RPL / 4; ++x) cur[u][x] = nxt[u][x];
     }
-    sel.end_step(tid, TILE);
+
+    // Bit RPL w + b of `pend`: query h QPL + w, row r0 + b.  Every thread
+    // reaches each barrier.
+    unsigned pend = 0;
+#pragma unroll
+    for (int w = 0; w < QPL; ++w)
+#pragma unroll
+      for (int b = 0; b < RPL; ++b)
+        if (okr[b] && q0 + h * QPL + w < nq &&
+            acc[b][w] < __int_as_float(FLOAT_INF_BITS))
+          pend |= 1u << (RPL * w + b);
+    while (true) {
+      // keys at or above their thresholds drop out; the puts run only
+      // where a lane of the warp has a key left
+#pragma unroll
+      for (int w = 0; w < QPL; ++w) {
+        const u64 thr = sel.thr[h * QPL + w];
+#pragma unroll
+        for (int b = 0; b < RPL; ++b)
+          if (pack_key(order_float(acc[b][w]), r0 + b) >= thr)
+            pend &= ~(1u << (RPL * w + b));
+      }
+      if (__any_sync(0xffffffffu, pend != 0)) {
+        constexpr unsigned ALL = (1u << RPL) - 1u;
+        int q[QPL];
+        unsigned mask[QPL];
+#pragma unroll
+        for (int w = 0; w < QPL; ++w) {
+          q[w] = h * QPL + w;
+          mask[w] = (pend >> (RPL * w)) & ALL;
+        }
+        sel.template put_groups<QPL, RPL>(
+            q, mask, lane, group, [&](int w, int b) {
+              return pack_key(order_float(acc[b][w]), r0 + b);
+            });
+        pend = 0;
+#pragma unroll
+        for (int w = 0; w < QPL; ++w) pend |= mask[w] << (RPL * w);
+      }
+      if (!__syncthreads_or(pend != 0 || sel.full(tid))) break;
+      sel.template merge_buffers<BUF_E>(tid, false);
+    }
+#pragma unroll
+    for (int b = 0; b < RPL; ++b) okr[b] = ok_next[b];
   }
-  sel.flush(tid);
-  for (int i = tid; i < PQ_QB * kp; i += THREADS) {
+  sel.template merge_buffers<BUF_E>(tid, true);
+  for (int i = tid; i < QB * kp; i += THREADS) {
     const int q = i / kp, j = i - q * kp;
     if (q0 + q < nq)
-      part[((size_t)(q0 + q) * G + g) * kp + j] = sel.keys[(size_t)q * S + j];
+      part[((size_t)(q0 + q) * G + blockIdx.y) * kp + j] =
+          sel.keys[(size_t)q * S + j];
   }
 }
 
-// Stage 2 of both: one block per query selects the top kp of its G * kp
-// partial keys and decodes them.
+// Stage 2 of both: one block per query selects the top kp of its G sorted
+// partial lists and decodes them.
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const u64* __restrict__ part, unsigned* __restrict__ out_d,
              long long* __restrict__ out_i, int G, int kp, int is_float) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int q = blockIdx.x;
-  Select sel = make_select(smem, 1, kp, 0);
+  Select sel = Select::at(smem, 1, kp, Select::merge_len(kp, G), 0);
   sel.init(tid);
-  __syncthreads();
-  const int total = G * kp;
-  const u64* src = part + (size_t)q * total;
-  for (int t0 = 0; t0 < total; t0 += TILE) {
-    const int i = t0 + tid;
-    if (i < total) sel.offer(0, src[i]);      // EMPTY is never below thr
-    sel.end_step(tid, TILE);
-  }
-  sel.flush(tid);
+  sel.merge_runs(part + (size_t)q * G * kp, G, tid);
   for (int j = tid; j < kp; j += THREADS) {
     const u64 top = sel.keys[j];
     const size_t o = (size_t)q * kp + j;
@@ -279,14 +584,6 @@ merge_kernel(const u64* __restrict__ part, unsigned* __restrict__ out_d,
   }
 }
 
-cudaError_t launch_merge(const u64* part, unsigned* out_d, long long* out_i,
-                         int nq, int G, int kp, int is_float,
-                         cudaStream_t stream) {
-  merge_kernel<<<nq, THREADS, merge_smem(kp), stream>>>(part, out_d, out_i,
-                                                        G, kp, is_float);
-  return cudaGetLastError();
-}
-
 cudaError_t set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -294,26 +591,46 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-bool bad_plan(int nq, int n, int kp, int chunk_rows, int G) {
-  return kp < 1 || kp > MAX_KP || kp > n || chunk_rows < TILE ||
-         chunk_rows % TILE || (long long)chunk_rows * G < n ||
+cudaError_t launch_merge(const u64* part, unsigned* out_d, long long* out_i,
+                         int nq, int G, int kp, int is_float,
+                         cudaStream_t stream) {
+  const size_t smem = Select::bytes(1, Select::merge_len(kp, G));
+  cudaError_t err =
+      set_smem(reinterpret_cast<const void*>(merge_kernel), smem);
+  if (err != cudaSuccess) return err;
+  merge_kernel<<<nq, THREADS, smem, stream>>>(part, out_d, out_i, G, kp,
+                                              is_float);
+  return cudaGetLastError();
+}
+
+bool bad_plan(int n, int kp, int chunk_rows, int G, int tile) {
+  return kp < 1 || kp > MAX_KP || kp > n || chunk_rows < tile ||
+         chunk_rows % tile || (long long)chunk_rows * G < n ||
          (long long)chunk_rows * (G - 1) >= n || G > 65535 ||
          (long long)G * kp > (1LL << 31) - 1;
+}
+
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return set_smem(reinterpret_cast<const void*>(kernel), smem);
 }
 
 }  // namespace
 
 // Shared memory (bytes) that stage 1 of K4 (pq = 0, width = d) or K5
-// (pq = 1, width = m) needs at this kp; the wrapper refuses a call whose
-// need exceeds the device's per-block limit.
-extern "C" long long repro_adc_smem_bytes(int pq, int kp, int width) {
-  return (long long)(pq ? pq_smem(kp, width) : sq_smem(kp, width));
+// (pq = 1, width = m) needs with qb queries a block at this kp; the
+// wrapper takes K5's largest qb of 8, 4, 2, 1 that fits the device's
+// per-block limit and refuses a call where none does.  K4 takes 32
+// queries a block, 16 where kp > 256, at any d.
+extern "C" long long repro_adc_smem_bytes(int pq, int qb, int kp, int width) {
+  return (long long)(pq ? pq_smem(qb, kp, width) : sq_smem(qb, kp));
 }
 
 // q8 (nq, d) int8, c8 (n, d) int8, cn (n,) int32, ok (n,) uint8 (0 = row
 // masked), part (nq, G, kp) uint64 scratch, out_d (nq, kp) int32, out_i
 // (nq, kp) int64; all contiguous on `device`.  Rows are split into G
-// chunks of chunk_rows (a multiple of 256).  Launches both stages on
+// chunks of chunk_rows (a multiple of 256), one block per (group of 32
+// queries, or 16 where kp > 256, chunk).  Launches both stages on
 // `stream` and returns cudaGetLastError().
 extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
                                  const int* cn, const unsigned char* ok,
@@ -323,39 +640,61 @@ extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
-  if (bad_plan(nq, n, kp, chunk_rows, G) || d < 1 || d > MAX_D)
+  if (bad_plan(n, kp, chunk_rows, G, SQ_ROWS) || d < 1 || d > MAX_D)
     return cudaErrorInvalidValue;
-  const size_t smem = sq_smem(kp, d);
-  err = set_smem(reinterpret_cast<const void*>(sq_scan_kernel), smem);
-  if (err != cudaSuccess) return err;
-  const int aligned = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(c8) % 4 == 0);
-  const dim3 grid((nq + SQ_QB - 1) / SQ_QB, G);
-  sq_scan_kernel<<<grid, THREADS, smem, stream>>>(q8, c8, cn, ok, part, nq, n,
-                                                  d, kp, chunk_rows, G,
-                                                  aligned);
+  const int qb = sq_queries_per_block(kp);
+  const size_t smem = sq_smem(qb, kp);
+  const int vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(c8) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(q8) % 16 == 0;
+  const dim3 grid((nq + qb - 1) / qb, G);
+#define REPRO_SQ_LAUNCH(MT, STAGES)                                        \
+  do {                                                                      \
+    err = prepare(sq_scan_kernel<MT, STAGES>, smem);                        \
+    if (err != cudaSuccess) return err;                                     \
+    sq_scan_kernel<MT, STAGES><<<grid, SQ_THREADS, smem, stream>>>(         \
+        q8, c8, cn, ok, part, nq, n, d, kp, chunk_rows, G, vec);            \
+  } while (0)
+  if (qb == 32) REPRO_SQ_LAUNCH(2, SQ_DEEP);
+  else if (sq_stages(kp) == SQ_DEEP) REPRO_SQ_LAUNCH(1, SQ_DEEP);
+  else REPRO_SQ_LAUNCH(1, SQ_SHALLOW);
+#undef REPRO_SQ_LAUNCH
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part, out_d, out_i, nq, G, kp, 0, stream);
 }
 
 // lut (nq, m, 256) float32, codes_t (m, n) uint8, ok (n,) uint8, part,
-// out_d (nq, kp) float32, out_i (nq, kp) int64: as above.
+// out_d (nq, kp) float32, out_i (nq, kp) int64: as above, with qb (8, 4,
+// 2 or 1) queries a block and chunks of a multiple of 1024 rows.
 extern "C" int repro_pq_adc_topk(const float* lut, const uint8_t* codes_t,
                                  const unsigned char* ok, u64* part,
                                  unsigned* out_d, long long* out_i, int nq,
-                                 int n, int m, int kp, int chunk_rows, int G,
-                                 int device, cudaStream_t stream) {
+                                 int n, int m, int kp, int qb, int chunk_rows,
+                                 int G, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
-  if (bad_plan(nq, n, kp, chunk_rows, G) || m < 1)
+  if (bad_plan(n, kp, chunk_rows, G, PQ_ROWS) || m < 1 ||
+      (qb != 8 && qb != 4 && qb != 2 && qb != 1))
     return cudaErrorInvalidValue;
-  const size_t smem = pq_smem(kp, m);
-  err = set_smem(reinterpret_cast<const void*>(pq_scan_kernel), smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nq + PQ_QB - 1) / PQ_QB, G);
-  pq_scan_kernel<<<grid, THREADS, smem, stream>>>(lut, codes_t, ok, part, nq,
-                                                  n, m, kp, chunk_rows, G);
+  const size_t smem = pq_smem(qb, kp, m);
+  const int aligned =
+      n % 4 == 0 && reinterpret_cast<uintptr_t>(codes_t) % 4 == 0;
+  const dim3 grid((nq + qb - 1) / qb, G);
+#define REPRO_PQ_LAUNCH(QB)                                                 \
+  do {                                                                      \
+    err = prepare(pq_scan_kernel<QB>, smem);                                \
+    if (err != cudaSuccess) return err;                                     \
+    pq_scan_kernel<QB><<<grid, THREADS, smem, stream>>>(                    \
+        lut, codes_t, ok, part, nq, n, m, kp, chunk_rows, G, aligned);      \
+  } while (0)
+  switch (qb) {
+    case 8: REPRO_PQ_LAUNCH(8); break;
+    case 4: REPRO_PQ_LAUNCH(4); break;
+    case 2: REPRO_PQ_LAUNCH(2); break;
+    default: REPRO_PQ_LAUNCH(1); break;
+  }
+#undef REPRO_PQ_LAUNCH
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part, out_d, out_i, nq, G, kp, 1, stream);

@@ -76,8 +76,6 @@ constexpr int DEEP = 3;            // stages of the ring while k' <= 128
 constexpr int SHALLOW = 2;         // stages where the selection needs room
 constexpr int MAX_KP = 1024;
 constexpr int MIN_BUFFER = 128;    // buffer keys per query, at least
-constexpr int RUN = 8;             // merge: keys read per partial per round
-constexpr int MERGE_KEYS = 4;      // merge: keys a thread holds per batch
 
 typedef topk::Select<THREADS> Select;
 
@@ -91,10 +89,6 @@ __host__ __device__ inline int scan_stages(int kp) {
 
 __host__ __device__ inline int scan_sort_len(int kp) {
   return topk::pow2_at_least(topk::state_len(kp) + MIN_BUFFER);
-}
-
-__host__ __device__ inline int merge_sort_len(int kp) {
-  return topk::pow2_at_least(topk::state_len(kp) + THREADS * MERGE_KEYS);
 }
 
 // Staged slices, ||q||^2 and ||x||^2 of a block of qb queries.
@@ -395,51 +389,18 @@ l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 }
 
 // Stage 2 of repro_l2_knn: one block per query merges the G sorted
-// partial top-kp lists, RUN keys of every list a round, flushing after
-// each round so the threshold tightens, and stops after a round in which
-// no key was below it: every later key of a list is larger than the ones
-// it had.
+// partial top-kp lists (Select::merge_runs: runs of MERGE_RUN keys of
+// every list a round, stopping after a round that brings nothing below
+// the running kp-th best).
 __global__ void __launch_bounds__(THREADS)
 l2_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_d,
                 long long* __restrict__ out_i, int G, int kp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int q = blockIdx.x;
-  Select sel = Select::at(smem, 1, kp, merge_sort_len(kp), 0);
+  Select sel = Select::at(smem, 1, kp, Select::merge_len(kp, G), 0);
   sel.init(tid);
-  __syncthreads();
-  const u64* src = part + (size_t)q * G * kp;
-  const int per_round = G * RUN;
-  for (int p0 = 0; p0 < kp; p0 += RUN) {
-    int below = 0;
-    for (int base = 0; base < per_round; base += THREADS * MERGE_KEYS) {
-      u64 key[MERGE_KEYS];
-      unsigned pend = 0;
-      const u64 thr0 = sel.thr[0];
-#pragma unroll
-      for (int u = 0; u < MERGE_KEYS; ++u) {
-        const int idx = base + u * THREADS + tid;
-        const int p = p0 + idx % RUN;
-        key[u] = EMPTY;
-        if (idx < per_round && p < kp) {
-          key[u] = src[(size_t)(idx / RUN) * kp + p];
-          if (key[u] < thr0) pend |= 1u << u;
-        }
-      }
-      below |= pend != 0;
-      while (true) {
-        const u64 thr = sel.thr[0];
-#pragma unroll
-        for (int u = 0; u < MERGE_KEYS; ++u)
-          if ((pend >> u) & 1u)
-            if (key[u] >= thr || sel.try_put(0, key[u])) pend &= ~(1u << u);
-        if (!__syncthreads_or(pend != 0)) break;
-        sel.flush(tid);
-      }
-    }
-    if (!__syncthreads_or(below)) break;
-    sel.flush(tid);
-  }
+  sel.merge_runs(part + (size_t)q * G * kp, G, tid);
   for (int j = tid; j < kp; j += THREADS) {
     const u64 top = sel.keys[j];
     const size_t o = (size_t)q * kp + j;
@@ -528,7 +489,7 @@ extern "C" int repro_l2_knn(const float* Q, const float* X, u64* part,
         Q, X, part, nq, n, d, kp, chunk_rows, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t msmem = Select::bytes(1, merge_sort_len(kp));
+  const size_t msmem = Select::bytes(1, Select::merge_len(kp, G));
   err = set_smem(reinterpret_cast<const void*>(l2_merge_kernel), msmem);
   if (err != cudaSuccess) return err;
   l2_merge_kernel<<<nq, THREADS, msmem, stream>>>(part, out_d, out_i, G, kp);

@@ -5,8 +5,17 @@ The kernels (`csrc/adc_topk.cu`) replace the Pallas TPU kernels
 `:: pq_adc_topk` (PQ).  For CUDA tensors the wrappers launch them (or
 raise); for CPU tensors they run the plain versions beside them,
 `plain_sq_adc_topk` and `plain_pq_adc_topk`.  Each call is two launches
-from the same source (a scan with a per-chunk top-kp, then a per-query
-merge of the chunks) and counts as one in `launches`.
+from the same source and counts as one in `launches`:
+
+  sq_adc_topk: a grid of (query groups of 32, or 16 where kp > 256) x
+      (row chunks of a multiple of 256 rows, about one block per SM); each
+      block streams its chunk's codes once through the tensor cores (int8
+      mma, int32 sums) and keeps a running top-kp per query; then one block
+      per query merges the chunks' partial lists;
+  pq_adc_topk: a grid of (query groups of QB = 8, 4, 2 or 1, the largest
+      whose tables fit in shared memory) x (row chunks of a multiple of
+      1024 rows); each block holds its queries' tables interleaved as
+      [j][code][q] and sums 4 or 8 rows a lane; then the same merge.
 """
 
 from __future__ import annotations
@@ -31,14 +40,20 @@ launches = {"sq_adc_topk": 0, "pq_adc_topk": 0}
 MAX_KP = 1024                   # the kernels' largest top-kp
 MAX_D = 2048                    # the int8 kernel's widest row
 PQ_K = 256
-# Mirrors csrc/adc_topk.cu: rows a block offers per step, and queries a
-# block scans together, which set how the rows are cut into chunks.
-_TILE = 256
-_QUERIES_PER_BLOCK = {"sq": 8, "pq": 4}
+# Mirrors csrc/adc_topk.cu: rows of a block's tile (chunks are whole
+# tiles), and the queries a block scans together.
+_TILE = {"sq": 256, "pq": 1024}
+_PQ_QUERIES_PER_BLOCK = (8, 4, 2, 1)     # the first whose tables fit
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 
 _SQ_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
-_PQ_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 7 + [_build.PTR]
+_PQ_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 8 + [_build.PTR]
+
+
+def sq_queries_per_block(kp: int) -> int:
+    """Queries a K4 block scans together: 32, or 16 where kp > 256 needs
+    the shared memory for the selection state."""
+    return 32 if kp <= 256 else 16
 
 
 def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
@@ -50,27 +65,33 @@ def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev):
-    """Check kp and the shared memory a block needs; cut the rows into G
-    chunks of a multiple of _TILE rows, about two blocks per SM."""
+    """Check kp; take the queries a block (for K5 the largest that fits
+    the card's shared memory, refusing an m where one query's tables do
+    not); cut the rows into G chunks of whole tiles, about one block per
+    SM.  Returns (queries a block, chunk_rows, G)."""
     if kp > MAX_KP:
         raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
                          f"{MAX_KP}")
-    smem_fn = _build.function("repro_adc_smem_bytes",
-                              [_build.INT] * 3)
+    smem_fn = _build.function("repro_adc_smem_bytes", [_build.INT] * 4)
     smem_fn.restype = ctypes.c_longlong
-    need = smem_fn(int(kind == "pq"), kp, width)
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
-    if need > limit:
-        what = "m" if kind == "pq" else "d"
+    pq = kind == "pq"
+    for qb in _PQ_QUERIES_PER_BLOCK if pq else (sq_queries_per_block(kp),):
+        need = smem_fn(int(pq), qb, kp, width)
+        if need <= limit:
+            break
+    else:
+        what = "m" if pq else "d"
         raise ValueError(f"the {kind}_adc_topk kernel needs {need} bytes of "
                          f"shared memory a block at {what}={width}, "
                          f"kp={kp}; the card has {limit}")
-    groups = -(-nq // _QUERIES_PER_BLOCK[kind])
-    tiles = -(-n // _TILE)
-    G = min(tiles, max(1, -(-2 * props.multi_processor_count // groups)))
-    chunk_rows = -(-tiles // G) * _TILE
-    return chunk_rows, -(-n // chunk_rows)
+    groups = -(-nq // qb)
+    tile = _TILE[kind]
+    tiles = -(-n // tile)
+    G = min(tiles, max(1, -(-props.multi_processor_count // groups)))
+    chunk_rows = -(-tiles // G) * tile
+    return qb, chunk_rows, -(-n // chunk_rows)
 
 
 def _outputs(nq: int, kp: int, dtype, dev):
@@ -111,7 +132,7 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
     dev = q8.device
     if kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.int32, dev)
-    chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
+    _, chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
     out_d, out_i = _outputs(nq, kp, torch.int32, dev)
     part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
     fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
@@ -155,13 +176,13 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
     dev = lut.device
     if kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.float32, dev)
-    chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
+    qb, chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
     out_d, out_i = _outputs(nq, kp, torch.float32, dev)
     part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
     fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
     err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
              part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, m,
-             kp, chunk_rows, G, dev.index,
+             kp, qb, chunk_rows, G, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adc_topk.pq_adc_topk")
     launches["pq_adc_topk"] += 1

@@ -341,22 +341,40 @@ def test_f32_ivf_scans_equal_reference():
 # The CUDA kernels' blocking, key packing and merge, emulated in torch.
 # ---------------------------------------------------------------------------
 
-TILE = adc_topk._TILE
+TILE = adc_topk._TILE                      # rows of a K4 / K5 tile
+WARPS = {"sq": 16, "pq": 8}                # warps of a K4 / K5 block
 EMPTY = torch.iinfo(torch.int64).max       # the kernels' ~0 as signed
+# Mirrors csrc/adc_topk.cu and csrc/topk_select.cuh.
+BUFFER = 256                   # buffer keys a query (32 BUF_E)
+SQ_KS = 64                     # K4: depth bytes a staged slice
+THREADS = 256
+RUN = 8                        # merge_runs: keys read per list a round
+MERGE_KEYS = 4                 # merge_runs: keys a thread holds a batch
+SHARED_LIMIT = adc_topk._SHARED_LIMIT
+
+
+def _pow2(n):
+    s = 1
+    while s < n:
+        s <<= 1
+    return s
 
 
 def _state_len(kp):
-    sc = 32
-    while sc < kp:
-        sc <<= 1
-    return sc
+    return max(32, _pow2(kp))
 
 
-def _sort_len(kp):
-    s = 1
-    while s < _state_len(kp) + 2 * TILE:
-        s <<= 1
-    return s
+def _scan_state_len(kp):
+    return max(_state_len(kp), BUFFER)
+
+
+def _smem(kind, qb, kp, width):
+    """csrc/adc_topk.cu's repro_adc_smem_bytes."""
+    select = qb * (_scan_state_len(kp) + BUFFER) * 8 + qb * 12
+    if kind == "pq":
+        return select + qb * width * 256 * 4
+    stages = 4 if kp <= 512 else 3
+    return select + stages * (TILE["sq"] + qb) * (SQ_KS + 16)
 
 
 def _keys(d: torch.Tensor, ids: torch.Tensor, is_float: bool):
@@ -385,60 +403,212 @@ def _unkey(keys: torch.Tensor, is_float: bool):
     return d, ids
 
 
-def _select(tiles, kp: int):
-    """One query's block-level selection: threshold filter, buffer,
-    flush (a sort of [state | buffer]) when the next tile could overflow
-    the buffer; the final flush's first kp keys."""
-    S, SC = _sort_len(kp), _state_len(kp)
-    state = torch.full((SC,), EMPTY, dtype=torch.int64)
-    buf, thr = [], EMPTY
-    flushes = 0
+class _Segment:
+    """One query on the merge_buffers route: a sorted state of SC keys, a
+    buffer of BUFFER keys from the start, a threshold.  `put` returns the
+    keys below the threshold that found the buffer full (their threads keep
+    them); `merge` is merge_segment: the SC smallest of state and buffer."""
 
-    def flush():
-        nonlocal state, buf, thr, flushes
-        seg = torch.cat([state, *buf, torch.full(
-            (S - SC - sum(b.numel() for b in buf),), EMPTY,
-            dtype=torch.int64)])
-        state = torch.sort(seg).values[:SC]
-        buf, thr = [], int(state[kp - 1])
-        flushes += 1
+    def __init__(self, kp):
+        self.kp, self.SC = kp, _scan_state_len(kp)
+        self.state = torch.full((self.SC,), EMPTY, dtype=torch.int64)
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = EMPTY
+        self.merges = self.refused = 0
+
+    def put(self, keys):
+        below = keys[keys < self.thr]
+        room = BUFFER - self.buf.numel()
+        self.buf = torch.cat([self.buf, below[:room]])
+        self.refused += below[room:].numel()
+        return below[room:]
+
+    def full(self):
+        return self.buf.numel() >= BUFFER
+
+    def merge(self):
+        assert self.buf.numel() <= BUFFER
+        self.state = torch.sort(torch.cat([self.state, self.buf])).values
+        self.state = self.state[:self.SC]
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = int(self.state[self.kp - 1])
+        self.merges += 1
+
+
+def _merge_due(segs, warps):
+    """merge_buffers(all=false): every full buffer, and as many of the
+    fullest others (most keys, then the lower segment) as fill the last
+    round of `warps` merges."""
+    full = sum(s.full() for s in segs)
+    slots = -(-full // warps) * warps
+    order = sorted(range(len(segs)), key=lambda q: (-segs[q].buf.numel(), q))
+    for q in order[:slots]:
+        if segs[q].buf.numel():
+            segs[q].merge()
+
+
+def _scan_block(tiles, kp, warps):
+    """Stage 1 of one block: `tiles` is a list over the chunk's tiles of
+    per-query key lists (valid rows, below the sentinel).  Each tile: every
+    thread offers its keys; while any key is left over or a buffer is
+    full, the buffers due are merged and the left-over keys are offered
+    again.  At the end every buffer that holds a key is merged.  -> the
+    segments."""
+    segs = [_Segment(kp) for _ in tiles[0]] if tiles else []
     for tile in tiles:
-        assert tile.numel() <= TILE
-        buf.append(tile[tile < thr])
-        assert sum(b.numel() for b in buf) <= S - SC       # no overflow
-        if sum(b.numel() for b in buf) > S - SC - TILE:
-            flush()
-    flush()
-    return state[:kp], flushes
+        pend = list(tile)
+        while True:
+            pend = [s.put(k) for s, k in zip(segs, pend)]
+            if not any(k.numel() for k in pend) and not any(
+                    s.full() for s in segs):
+                break
+            _merge_due(segs, warps)
+    for s in segs:
+        if s.buf.numel():
+            s.merge()
+    return segs
 
 
-def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int,
-             chunk_rows: int, is_float: bool, big):
-    """Stage 1 (per query and chunk of rows: tiles of TILE rows, masked
-    and sentinel rows never offered) and stage 2 (the partials, in tiles
-    of TILE keys)."""
+class _Select:
+    """One query's segment on the flush route: a state of SC keys, a
+    buffer of S - SC (all S until the first flush, while the state is
+    empty), a threshold; `put` keeps what does not fit, as a thread does."""
+
+    def __init__(self, kp, S):
+        self.kp, self.S, self.SC = kp, S, _state_len(kp)
+        self.state = torch.full((self.SC,), EMPTY, dtype=torch.int64)
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = EMPTY
+        self.off = 0
+        self.flushes = 0
+
+    def put(self, keys):
+        """Offer keys (one round); returns those that found the buffer
+        full (below the threshold, not yet placed)."""
+        below = keys[keys < self.thr]
+        room = self.S - self.off - self.buf.numel()
+        self.buf = torch.cat([self.buf, below[:room]])
+        return below[room:]
+
+    def flush(self):
+        seg = torch.cat([self.state[:self.off], self.buf])
+        self.state = torch.sort(seg).values[:self.SC]
+        self.state = torch.cat([self.state, torch.full(
+            (self.SC - self.state.numel(),), EMPTY, dtype=torch.int64)])
+        self.off = self.SC
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.thr = int(self.state[self.kp - 1])
+        self.flushes += 1
+
+    def offer_until_placed(self, keys):
+        while True:
+            keys = self.put(keys)
+            if keys.numel() == 0:
+                return
+            self.flush()
+
+
+def _merge_runs(lists: torch.Tensor, kp: int):
+    """Select::merge_runs over (G, kp) sorted partial lists: runs of RUN
+    keys of every list a round (list-major), in batches of THREADS *
+    MERGE_KEYS keys, a flush after each round, stopping after a round in
+    which no key was below the threshold; one list is the answer as it
+    is.  -> the kp smallest keys."""
+    if lists.shape[0] == 1:      # one list: it is the answer
+        return lists[0, :kp]
+    batch = min(lists.shape[0] * RUN, THREADS * MERGE_KEYS)
+    sel = _Select(kp, _pow2(_state_len(kp) + batch))
+    for p0 in range(0, kp, RUN):
+        run = lists[:, p0:p0 + RUN].reshape(-1)
+        below = False
+        for b0 in range(0, run.numel(), THREADS * MERGE_KEYS):
+            batch = run[b0:b0 + THREADS * MERGE_KEYS]
+            below |= bool((batch < sel.thr).any())
+            sel.offer_until_placed(batch)
+        if not below:            # every later key of a list is larger
+            break
+        sel.flush()              # tighten the threshold for the next run
+    return sel.state[:kp]
+
+
+def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int, qb: int,
+             chunk_rows: int, kind: str, big):
+    """Both stages of K4 (kind "sq") or K5 ("pq") over a (nq, n)
+    distance matrix: blocks of qb queries x chunks of chunk_rows rows
+    walked in the kernel's tiles (masked rows and sentinel distances never
+    offered), each chunk's partial the first kp keys of its states; then
+    the per-query merge.  -> (dists, ids, the blocks' segments)."""
+    tile, warps, is_float = TILE[kind], WARPS[kind], kind == "pq"
     nq, n = d_full.shape
     kp = min(kp, n)
     ids = torch.arange(n, dtype=torch.int64)
-    dists, out_i = [], []
-    for q in range(nq):
-        parts = []
+    parts = [[] for _ in range(nq)]
+    segments = []
+    for q0 in range(0, nq, qb):
+        qs = range(q0, min(nq, q0 + qb))
         for r0 in range(0, n, chunk_rows):
             r1 = min(n, r0 + chunk_rows)
             tiles = []
-            for t0 in range(r0, r1, TILE):
-                t1 = min(r1, t0 + TILE)
-                dq = d_full[q, t0:t1]
-                keep = (ok[t0:t1] != 0) & (dq < big)
-                tiles.append(_keys(dq[keep], ids[t0:t1][keep], is_float))
-            parts.append(_select(tiles, kp)[0])
-        flat = torch.cat(parts)
-        top, _ = _select([flat[i:i + TILE] for i in
-                          range(0, flat.numel(), TILE)], kp)
-        d, i = _unkey(top, is_float)
+            for t0 in range(r0, r1, tile):
+                t1 = min(r1, t0 + tile)
+                keep = ok[t0:t1] != 0
+                tiles.append([_keys(d_full[q, t0:t1][keep & (d_full[q, t0:t1]
+                                                              < big)],
+                                    ids[t0:t1][keep & (d_full[q, t0:t1]
+                                                       < big)], is_float)
+                              for q in qs])
+            segs = _scan_block(tiles, kp, warps)
+            segments += segs
+            for q, s in zip(qs, segs):
+                parts[q].append(s.state[:kp])
+    dists, out_i = [], []
+    for q in range(nq):
+        d, i = _unkey(_merge_runs(torch.stack(parts[q]), kp), is_float)
         dists.append(d)
         out_i.append(i)
-    return torch.stack(dists), torch.stack(out_i)
+    return torch.stack(dists), torch.stack(out_i), segments
+
+
+def _sq_dists_by_slices(q8, c8, cn):
+    """K4's arithmetic: depth cut into SQ_KS-byte slices zero-padded past
+    d, int8 products summed in int32 slice by slice (exact in any order),
+    then cn - 2 cross in int32."""
+    nq, d = q8.shape
+    pad = -(-d // SQ_KS) * SQ_KS
+    qz = np.zeros((nq, pad), np.int64)
+    cz = np.zeros((c8.shape[0], pad), np.int64)
+    qz[:, :d], cz[:, :d] = q8, c8
+    cross = np.zeros((nq, c8.shape[0]), np.int64)
+    for k0 in range(0, pad, SQ_KS):
+        cross += qz[:, k0:k0 + SQ_KS] @ cz[:, k0:k0 + SQ_KS].T
+        assert np.abs(cross).max() < 2 ** 31           # int32 accumulators
+    return (cn.astype(np.int64)[None, :] - 2 * cross).astype(np.int32)
+
+
+def _pq_dists_interleaved(lut, codes_t, qb):
+    """K5's arithmetic: each block's tables laid out as in shared memory,
+    entry (j, code) of query q at float (j * 256 + code) * qb + q, and
+    each sum taken over j ascending, one float32 add at a time."""
+    nq, m, _ = lut.shape
+    T = m * 256
+    out = []
+    for q0 in range(0, nq, qb):
+        tab = np.zeros(T * qb, np.float32)
+        for q in range(min(qb, nq - q0)):
+            tab[np.arange(T) * qb + q] = lut[q0 + q].ravel()
+        acc = np.zeros((min(qb, nq - q0), codes_t.shape[1]), np.float32)
+        for j in range(m):
+            for q in range(acc.shape[0]):
+                acc[q] = acc[q] + tab[(j * 256 + codes_t[j].astype(np.int64))
+                                      * qb + q]
+        out.append(acc)
+    return np.concatenate(out)
+
+
+def _pq_queries_per_block(kp, m):
+    """_plan's choice for K5: the largest of 8, 4, 2, 1 that fits."""
+    return next(qb for qb in adc_topk._PQ_QUERIES_PER_BLOCK
+                if _smem("pq", qb, kp, m) <= SHARED_LIMIT)
 
 
 @pytest.mark.parametrize("nq,n,d,kp,valid,dup,chunk_rows", [
@@ -446,34 +616,117 @@ def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int,
     (2, 700, 17, 300, 1.0, 0, 256),      # kp > chunk: partials hold EMPTY
     (2, 100, 16, 30, 0.12, 0, 256),      # exhaustion
     (2, 3000, 960, 64, 1.0, 300, 2048),
+    (33, 2000, 40, 50, 0.95, 200, 512),  # a second query group of one
+    (3, 2600, 24, 1024, 1.0, 0, 1024),   # kp 1024: 16 queries a block
 ])
 def test_sq_kernel_blocking_emulated_equals_oracle(nq, n, d, kp, valid, dup,
                                                    chunk_rows):
     q8, c8, cn = _sq_case(nq, n, d, seed=n, dup=dup, far=d == 960)
     ok = np.random.default_rng(n).random(n) < valid
-    full = j_adc_ref.sq_dists(q8, c8, cn)
-    got_d, got_i = _emulate(_t(full), _t(ok), kp, chunk_rows, False,
-                            INT_BIG)
+    full = _sq_dists_by_slices(q8, c8, cn)
+    np.testing.assert_array_equal(full, j_adc_ref.sq_dists(q8, c8, cn))
+    qb = adc_topk.sq_queries_per_block(min(kp, n))
+    got_d, got_i, segs = _emulate(_t(full), _t(ok), kp, qb, chunk_rows,
+                                  "sq", INT_BIG)
     want_d, want_i = _oracle(full, ok, kp, INT_BIG)
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     np.testing.assert_array_equal(got_d.numpy(), want_d)
+    assert _smem("sq", qb, kp, d) <= SHARED_LIMIT
+    assert all(s.buf.numel() == 0 for s in segs)
 
 
 @pytest.mark.parametrize("nq,n,m,kp,valid,dup,chunk_rows", [
     (3, 5000, 16, 320, 0.99, 500, 1024),
-    (2, 100, 16, 30, 0.12, 0, 256),
-    (2, 3000, 2, 64, 1.0, 0, 512),       # two subspaces: many equal sums
+    (2, 100, 16, 30, 0.12, 0, 1024),
+    (2, 3000, 2, 64, 1.0, 0, 1024),      # two subspaces: many equal sums
+    (33, 3000, 8, 40, 0.97, 200, 2048),  # a second query group of one
+    (5, 2500, 32, 100, 1.0, 0, 1024),    # m 32: 4 queries a block
+    (3, 1500, 64, 1024, 0.9, 100, 1024),  # m 64, kp 1024: 2 a block
 ])
 def test_pq_kernel_blocking_emulated_equals_oracle(nq, n, m, kp, valid, dup,
                                                    chunk_rows):
     lut, codes_t = _pq_case(nq, n, m, seed=n, dup=dup)
     ok = np.random.default_rng(n).random(n) < valid
-    full = j_adc_ref.pq_dists(lut, codes_t)
-    got_d, got_i = _emulate(_t(full), _t(ok), kp, chunk_rows, True,
-                            float("inf"))
+    qb = _pq_queries_per_block(min(kp, n), m)
+    full = _pq_dists_interleaved(lut, codes_t, qb)
+    _same(full, j_adc_ref.pq_dists(lut, codes_t))
+    got_d, got_i, segs = _emulate(_t(full), _t(ok), kp, qb, chunk_rows,
+                                  "pq", float("inf"))
     want_d, want_i = _oracle(full, ok, kp, np.float32(np.inf))
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     _same(got_d.numpy(), want_d)
+    assert all(s.buf.numel() == 0 for s in segs)
+
+
+def _refill_case(kind, n):
+    """Query 0: distances that make a buffer overflow inside a tile.  PQ
+    (tiles of 1024 rows, buffers of 256): descending, so every row beats
+    the ones before it.  int8 (tiles of 256 rows, as long as a buffer):
+    per tile, 2 / 5 of the rows beat everything before them and the rest
+    lose, so a buffer holding one tile's keys overflows on the next.
+    Query 1 ascending (few offers), query 2 random."""
+    if kind == "pq":
+        d0 = torch.arange(n, 0, -1, dtype=torch.float32)
+    else:
+        d0 = torch.empty(n, dtype=torch.int32)
+        for t0 in range(0, n, TILE["sq"]):
+            rows = torch.arange(t0, min(n, t0 + TILE["sq"]))
+            win = rows % 5 < 2
+            d0[rows] = torch.where(win, 10 ** 6 - rows,
+                                   10 ** 7 + rows).to(torch.int32)
+    rand = torch.as_tensor(np.random.default_rng(n).permutation(n))
+    return torch.stack([d0, torch.sort(d0).values, d0[rand]])
+
+
+@pytest.mark.parametrize("kind,n,kp", [("sq", 3000, 160), ("sq", 2000, 30),
+                                       ("pq", 5000, 320), ("pq", 3000, 1)])
+def test_adc_selection_refills_a_full_buffer_within_a_tile(kind, n, kp):
+    """A buffer fills in the middle of a tile: the keys left over stay
+    with their threads, are offered again after the merge, and the result
+    is still the exact top-kp."""
+    is_float = kind == "pq"
+    d = _refill_case(kind, n)
+    ok = torch.ones(n, dtype=torch.bool)
+    big = float("inf") if is_float else INT_BIG
+    got_d, got_i, segs = _emulate(d, ok, kp, 2, 4 * TILE[kind], kind, big)
+    want = torch.sort(d, dim=1, stable=True)
+    np.testing.assert_array_equal(got_i.numpy(), want.indices[:, :kp])
+    np.testing.assert_array_equal(got_d.numpy(), want.values[:, :kp])
+    assert segs[0].refused > 0 and segs[0].merges > n // (4 * TILE[kind])
+
+
+def test_plan_mirrors_the_kernels(monkeypatch):
+    """_plan's queries a block (K4: 32, or 16 past kp 256; K5: the largest
+    of 8, 4, 2, 1 whose tables fit), its refusal, and chunks of whole
+    tiles, about one block per SM."""
+    class Props:
+        multi_processor_count = 132
+        shared_memory_per_block_optin = SHARED_LIMIT
+
+    def function(name, argtypes):
+        assert name == "repro_adc_smem_bytes" and len(argtypes) == 4
+        return lambda pq, qb, kp, width: _smem("pq" if pq else "sq", qb, kp,
+                                               width)
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props())
+    assert adc_topk._plan("sq", 128, 32, 10 ** 6, 160, None) == (32, 7680,
+                                                                  131)
+    assert adc_topk._plan("sq", 960, 33, 2 ** 18, 320, None)[0] == 16
+    assert adc_topk._plan("sq", 2048, 32, 2 ** 18, 1024, None)[0] == 16
+    assert adc_topk._plan("pq", 16, 32, 10 ** 6, 320, None) == (8, 30720, 33)
+    for m, qb in ((8, 8), (16, 8), (32, 4), (64, 2), (200, 1)):
+        assert adc_topk._plan("pq", m, 32, 5000, 1024, None)[0] == qb
+        assert _pq_queries_per_block(1024, m) == qb
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_topk._plan("pq", 256, 2, 2000, 1024, None)
+    with pytest.raises(ValueError, match="limit"):
+        adc_topk._plan("sq", 16, 2, 2000, adc_topk.MAX_KP + 1, None)
+    for kind, width in (("sq", 17), ("pq", 3)):
+        for nq, n, kp in ((1, 1, 1), (33, 70001, 300), (5, 1023, 40)):
+            qb, chunk, G = adc_topk._plan(kind, width, nq, n, kp, None)
+            assert chunk % TILE[kind] == 0 and (G - 1) * chunk < n <= G * chunk
+            assert G * -(-nq // qb) <= 132 or chunk == TILE[kind]
 
 
 def test_key_order_is_the_stable_sort_order():

@@ -27,16 +27,14 @@ from repro_torch.kernels.dce_comp import ref as t_dce_ref
 from repro_torch.kernels.l2_topk import l2_topk
 from repro_torch.kernels.l2_topk import ops as t_l2_ops
 from repro_torch.serving import search_engine as se
-from test_torch_adc import EMPTY, _keys, _unkey
+from test_torch_adc import (_keys, _merge_runs, _pow2, _Select, _state_len,
+                            _unkey)
 
 L2_RTOL = 1e-5
 
 # Mirrors csrc/l2_topk.cu and csrc/dce_comp.cu.
 ROWS = l2_topk._ROWS           # rows of a scan tile
 MIN_BUFFER = 128               # scan: buffer keys per query, at least
-THREADS = 256
-RUN = 8                        # merge: keys read per partial per round
-MERGE_KEYS = 4                 # merge: keys a thread holds per batch
 GROUPS, TJ = 16, 80            # refine: thread groups, j-tile columns
 
 
@@ -53,62 +51,12 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))
 
 
-def _pow2(n):
-    s = 1
-    while s < n:
-        s <<= 1
-    return s
-
-
-def _state_len(kp):
-    return max(32, _pow2(kp))
-
-
 # ---------------------------------------------------------------------------
 # l2_topk.knn: stage 1 (row chunks, tiles of ROWS rows, a per-query running
 # top-k' whose full buffer sends keys back to their threads until the block
 # has flushed) and stage 2 (the chunks' sorted partials merged in runs,
 # with a flush after each run).
 # ---------------------------------------------------------------------------
-
-class _Select:
-    """One query's segment: a state of SC keys, a buffer of S - SC (all S
-    until the first flush, while the state is empty), a threshold; `put`
-    keeps what does not fit, as a thread does."""
-
-    def __init__(self, kp, S):
-        self.kp, self.S, self.SC = kp, S, _state_len(kp)
-        self.state = torch.full((self.SC,), EMPTY, dtype=torch.int64)
-        self.buf = torch.empty(0, dtype=torch.int64)
-        self.thr = EMPTY
-        self.off = 0
-        self.flushes = 0
-
-    def put(self, keys):
-        """Offer keys (one round); returns those that found the buffer
-        full (below the threshold, not yet placed)."""
-        below = keys[keys < self.thr]
-        room = self.S - self.off - self.buf.numel()
-        self.buf = torch.cat([self.buf, below[:room]])
-        return below[room:]
-
-    def flush(self):
-        seg = torch.cat([self.state[:self.off], self.buf])
-        self.state = torch.sort(seg).values[:self.SC]
-        self.state = torch.cat([self.state, torch.full(
-            (self.SC - self.state.numel(),), EMPTY, dtype=torch.int64)])
-        self.off = self.SC
-        self.buf = torch.empty(0, dtype=torch.int64)
-        self.thr = int(self.state[self.kp - 1])
-        self.flushes += 1
-
-    def offer_until_placed(self, keys):
-        while True:
-            keys = self.put(keys)
-            if keys.numel() == 0:
-                return
-            self.flush()
-
 
 def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
     """The fused scan's selection over a (nq, n) float32 distance matrix:
@@ -117,7 +65,6 @@ def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
     kp = min(kp, n)
     ids = torch.arange(n, dtype=torch.int64)
     S1 = _pow2(_state_len(kp) + MIN_BUFFER)
-    S2 = _pow2(_state_len(kp) + THREADS * MERGE_KEYS)
     out_d, out_i = [], []
     for q in range(nq):
         parts = []
@@ -131,18 +78,7 @@ def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
             sel.flush()
             parts.append(sel.state[:kp])
         lists = torch.stack(parts)                       # (G, kp) sorted
-        sel = _Select(kp, S2)
-        for p0 in range(0, kp, RUN):
-            run = lists[:, p0:p0 + RUN].reshape(-1)      # list-major
-            below = False
-            for b0 in range(0, run.numel(), THREADS * MERGE_KEYS):
-                batch = run[b0:b0 + THREADS * MERGE_KEYS]
-                below |= bool((batch < sel.thr).any())
-                sel.offer_until_placed(batch)
-            if not below:        # every later key of a list is larger
-                break
-            sel.flush()          # tighten the threshold for the next run
-        d, i = _unkey(sel.state[:kp], True)
+        d, i = _unkey(_merge_runs(lists, kp), True)
         out_d.append(d)
         out_i.append(i)
     return torch.stack(out_d), torch.stack(out_i)

@@ -287,7 +287,11 @@ def test_graph_expand_kernel_matches_plain_on_the_card(nq, R, M0, d, ef,
     (3, 100, 16, 30, 0.12, 0),       # ~12 valid rows: empty slots
     (33, 5000, 128, 1024, 1.0, 0),   # kp 1024, ragged query group
     (32, 70001, 128, 160, 0.99, 3000),   # ties, ragged n, many chunks
-    (4, 3000, 960, 50, 1.0, 500)])   # GIST width: int32 surrogates > 2^24
+    (4, 3000, 960, 50, 1.0, 500),    # GIST width: int32 surrogates > 2^24
+    (1, 5000, 128, 160, 1.0, 0),     # one query in a group of 32
+    (33, 20000, 960, 300, 0.95, 200),    # d 960, 16 queries a block
+    (2, 3000, 17, 1024, 1.0, 100),   # kp 1024 over byte-loaded rows
+    (3, 40000, 1, 64, 1.0, 0)])      # d 1: one byte of a 64-byte slice
 def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
     """Integer surrogates: ids and int32 distances exactly equal."""
     _needs_card()
@@ -310,7 +314,11 @@ def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
     (3, 100, 16, 30, 0.12, 0),
     (33, 5000, 16, 1024, 1.0, 0),
     (32, 70001, 16, 320, 0.99, 3000),
-    (4, 3000, 3, 50, 1.0, 0)])       # few subspaces: many equal sums
+    (4, 3000, 3, 50, 1.0, 0),        # few subspaces: many equal sums
+    (1, 5000, 16, 320, 1.0, 0),      # one query in a group of 8
+    (5, 3000, 32, 100, 1.0, 0),      # m 32: 4 queries a block
+    (3, 2000, 64, 1024, 0.9, 100),   # m 64, kp 1024: 2 queries a block
+    (2, 1001, 200, 20, 1.0, 0)])     # m 200: 1 query a block, n % 4 != 0
 def test_pq_adc_kernel_matches_plain_on_the_card(nq, n, m, kp, valid, dup):
     """Sums in ascending subspace order on both sides: ids and float32
     distances bit-equal."""
@@ -450,6 +458,6 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         adc_topk.sq_adc_topk(q8, c8, cn, ok, adc_topk.MAX_KP + 1)
     with pytest.raises(TypeError):
         adc_topk.sq_adc_topk(q8.int(), c8, cn, ok, 5)
-    lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 64)
+    lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 256)
     with pytest.raises(ValueError, match="shared memory"):
         adc_topk.pq_adc_topk(lut, codes_t, ok, 1024)
