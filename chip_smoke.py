@@ -38,11 +38,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
                wherever |Z_plain| > 1e-5 * max|Z|;
      both because the hand kernel and cuBLAS sum in different orders in
      true fp32.
-     graph_expand (layer-0 beam search) on a synthetic random adjacency
-     (some -1 slots, some rows with ok = 0) over integer-valued rows, so
-     every distance is exact in both summation orders: beam-slot ids
-     must agree in >= 99.9% of slots and distances within 1e-5
-     relative where the ids agree (exact equality is expected).
+     graph_expand.graph_walk (the fused walk: upper-layer descent and
+     layer-0 beam search, one launch) on synthetic graphs with upper
+     layers (3 of them empty padded layers) at R 2^17 / M0 16, R 2^20 /
+     M0 32, d 960, R 2^21 (the visited bitmap in device memory) and
+     ef_cap 2048, and graph_expand.expand_layer0 (its layer-0 entry) at
+     its three shapes, over a random adjacency (some -1 slots, some rows
+     with ok = 0) and integer-valued rows, so every distance is exact in
+     both summation orders: ids, distances, visited words, hops and
+     edges bit-equal to the torch walk's;
+     dce_comp.z_matrix (K3, its column tiles split over more blocks):
+     within the Z tolerance of the plain version, and bit-equal to the
+     batched entry's Z of the same set;
+     the fused top-k scans also at k' 1600 (two passes of 800 each).
 3. The flat path: a synthetic SIFT-width corpus (clustered Gaussians)
    encrypted on the card by `DataOwner.encrypt_vectors`, queries
    encrypted by `User`, and `SecureSearchEngine(backend="flat")` on the
@@ -50,7 +58,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
    l2_topk.knn and one fused dce_comp.refine_topk call a batch), once
    through the kernels and once with the kernels swapped for their plain
    versions.  Final ids must agree in >= 99.9% of slots and recall@10
-   within 0.005 (ulp-level near-ties at the k' boundary may flip).  A
+   within 0.005 (ulp-level near-ties at the k' boundary may flip).  Then
+   4 batches at k = 200 (k' 1600, above the scan's 1024 a pass), kernels
+   against plain versions (`k1600_path`).  A
    small database is also searched on the card and on the host (plain
    versions) from the numpy encryption, through the flat, IVF, ADC
    (int8 / pq8, flat / IVF) and ADC graph filters: the ids must agree
@@ -61,15 +71,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
    attach; sq_adc_topk or pq_adc_topk once per batch, refine_topk for
    the refine), each once through the kernels and once with them swapped for
    their plain versions on the same engine (same limits as the flat
-   path); then `backend="ivf", quantization="int8"` (64 partitions,
-   nprobe 8), also against its plain versions.
+   path), and each with 1600 candidates (k = 100 int8, k = 50 pq8) as
+   the flat path; then `backend="ivf", quantization="int8"` (64
+   partitions, nprobe 8), also against its plain versions.
 5. The graph path, after the ADC engines are freed:
    `SecureSearchEngine(backend=GraphFilter(index))` over the HNSW of
    phase 1 (M = 8, ef_construction = 48), the same batches, k = 10,
-   ratio_k = 8, ef_search = 96: once through the kernels (graph_expand
-   and refine_topk once per batch), once with both swapped for
-   their plain versions (same limits as the flat path), and the
-   per-query host walk (`HNSWGraphFilter`) on the first 64 queries.
+   ratio_k = 8, ef_search = 96: once through the kernels (one
+   graph_walk and one refine_topk launch a batch, and no torch
+   descent), once with both swapped for their plain versions (same
+   limits as the flat path), and the per-query host walk
+   (`HNSWGraphFilter`) on the first 64 queries.  `graph_breakdown`
+   times the fused walk against the parent's torch descent and the
+   layer-0 entry alone, and the scan trace's download.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -186,7 +200,7 @@ def plain_kernels():
     from repro_torch.kernels.l2_topk import l2_topk, ops as l2_ops
     routes = [(l2_ops, "knn", l2_topk.plain_knn),
               (dce_ops, "refine_topk", dce_comp.plain_refine_topk),
-              (graph_ops, "expand_layer0", graph_expand.plain_expand_layer0),
+              (graph_ops, "graph_walk", graph_expand.plain_graph_walk),
               (adc_ops, "sq_adc_topk", adc_topk.plain_sq_adc_topk),
               (adc_ops, "pq_adc_topk", adc_topk.plain_pq_adc_topk)]
     saved = [getattr(mod, name) for mod, name, _ in routes]
@@ -199,28 +213,26 @@ def plain_kernels():
             setattr(mod, name, kern)
 
 
-def kernel_launches() -> dict:
-    """Launch counts by kernel, "module.entry": each wrapper counts the
-    launches of its kernel (z_matrix under batched_z_matrix)."""
+def _launch_counters() -> dict:
     from repro_torch.kernels.adc_topk import adc_topk
     from repro_torch.kernels.dce_comp import dce_comp
     from repro_torch.kernels.graph_expand import graph_expand
     from repro_torch.kernels.l2_topk import l2_topk
-    out = {"graph_expand.expand_layer0": graph_expand.launches}
-    for mod, counts in (("l2_topk", l2_topk.launches),
-                        ("dce_comp", dce_comp.launches),
-                        ("adc_topk", adc_topk.launches)):
-        out.update({f"{mod}.{k}": v for k, v in counts.items()})
-    return out
+    return {"l2_topk": l2_topk.launches, "dce_comp": dce_comp.launches,
+            "graph_expand": graph_expand.launches,
+            "adc_topk": adc_topk.launches}
+
+
+def kernel_launches() -> dict:
+    """Launch counts by kernel, "module.entry": each wrapper counts the
+    launches of its kernel (z_matrix under batched_z_matrix; a pass of a
+    top-k above 1024 is a launch)."""
+    return {f"{mod}.{k}": v for mod, counts in _launch_counters().items()
+            for k, v in counts.items()}
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels.adc_topk import adc_topk
-    from repro_torch.kernels.dce_comp import dce_comp
-    from repro_torch.kernels.graph_expand import graph_expand
-    from repro_torch.kernels.l2_topk import l2_topk
-    graph_expand.launches = 0
-    for counts in (l2_topk.launches, dce_comp.launches, adc_topk.launches):
+    for counts in _launch_counters().values():
         for k in counts:
             counts[k] = 0
 
@@ -263,15 +275,24 @@ def check_l2(nq: int, n: int, d: int, gen) -> dict:
     }
 
 
-def check_knn(nq: int, n: int, d: int, k: int, gen) -> dict:
+def check_knn(nq: int, n: int, d: int, k: int, gen,
+              home: str | None = None, exact: bool = False) -> dict:
     """The fused scan against its plain version (the chunked merge over
     plain tiles): DCPE-like magnitudes, the last 1% of rows repeating the
-    first, so exact ties between distinct ids occur."""
+    first, so exact ties between distinct ids occur.  `exact`: integer
+    rows and queries in [-8, 8] instead (every distance exact in any
+    summation order), and the ids and distances must be equal (the k'
+    1600 record: at 1600 slots, fp32 sums in another order swap some
+    neighbours within 1e-6 of each other)."""
     import torch
     from repro_torch.kernels.l2_topk import l2_topk
     dev = torch.device("cuda")
-    Q = 1024.0 * torch.randn((nq, d), generator=gen, device=dev)
-    X = 1024.0 * torch.randn((n, d), generator=gen, device=dev)
+    if exact:
+        Q = torch.randint(-8, 9, (nq, d), generator=gen, device=dev).float()
+        X = torch.randint(-8, 9, (n, d), generator=gen, device=dev).float()
+    else:
+        Q = 1024.0 * torch.randn((nq, d), generator=gen, device=dev)
+        X = 1024.0 * torch.randn((n, d), generator=gen, device=dev)
     dup = n // 100
     if dup:
         X[n - dup:] = X[:dup]
@@ -287,7 +308,8 @@ def check_knn(nq: int, n: int, d: int, k: int, gen) -> dict:
     err = (got[0] - want[0]).abs()[same]
     rel = float((err / scale[same]).max()) if err.numel() else 0.0
     if (got[1].shape != (nq, kk) or not torch.isfinite(got[0]).all()
-            or agree < MIN_ID_AGREEMENT or rel > L2_RTOL):
+            or agree < (1.0 if exact else MIN_ID_AGREEMENT)
+            or rel > (0.0 if exact else L2_RTOL)):
         raise AssertionError(f"fused l2 scan disagrees at nq={nq} n={n} "
                              f"d={d} k={k}: ids {agree}, max rel err {rel}")
     flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
@@ -302,7 +324,7 @@ def check_knn(nq: int, n: int, d: int, k: int, gen) -> dict:
         "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77",
         "max_abs_err": float(err.max()) if err.numel() else 0.0,
         "max_rel_err": rel, "id_agreement": agree,
-        "duplicated_rows": dup,
+        "duplicated_rows": dup, "integer_rows": exact,
         "ms": device_ms(lambda: l2_topk.knn(Q, X, k)),
         "plain_ms": device_ms(lambda: l2_topk.plain_knn(Q, X, k),
                               reps=10, warmup=2),
@@ -312,6 +334,7 @@ def check_knn(nq: int, n: int, d: int, k: int, gen) -> dict:
         "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2), "
                         "torch.topk(largest=False)",
         "bound_ms": b_ms, "bound_by": b_by,
+        **({"home": home} if home else {}),
     }
 
 
@@ -353,6 +376,25 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
         raise AssertionError(f"Z kernel disagrees at B={B} n={n} D={D}: "
                              f"max err {float(err.max()):.3g} of max|Z| "
                              f"{zmax:.3g}, signs ok {signs_ok}")
+    exact = {}
+    if single:
+        # K3's split plan against the batched entry's plan (32 copies of
+        # the set, unsplit): the same two fp32 chains, so bit-equal; and
+        # on small integers (every sum exact) bit-equal to the plain one
+        Cb32 = C[None].expand(32, -1, -1, -1).contiguous()
+        Tb32 = T[None].expand(32, -1).contiguous()
+        exact["equal_to_batched_entry"] = bool(torch.equal(
+            got, dce_comp.batched_z_matrix(Cb32, Tb32)[5]))
+        Ci = torch.randint(-8, 9, C.shape, generator=gen,
+                           device="cuda").float()
+        Ti = torch.randint(-3, 4, T.shape, generator=gen,
+                           device="cuda").float()
+        exact["equal_to_plain_on_integers"] = bool(torch.equal(
+            kern(Ci, Ti), plain(Ci, Ti)))
+        exact["plan"] = dce_comp.z_plan(1, n)
+        if not all(v for k, v in exact.items() if k != "plan"):
+            raise AssertionError(f"z_matrix at n={n} D={D} is not "
+                                 f"bit-equal: {exact}")
     Cb = C if not single else C[None]
     Tb = T if not single else T[None]
     L1 = (Cb[:, :, 0] * Tb[:, None]).contiguous()
@@ -372,7 +414,7 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
         "replaces": ("src/repro/kernels/dce_comp/dce_comp.py:67" if single
                      else "src/repro/kernels/dce_comp/dce_comp.py:131"),
         "max_abs_err": float(err.max()),
-        "max_rel_err": float(err.max()) / zmax,
+        "max_rel_err": float(err.max()) / zmax, **exact,
         "ms": device_ms(lambda: kern(C, T)),
         "plain_ms": device_ms(lambda: plain(C, T)),
         "library_ms": device_ms(
@@ -479,28 +521,36 @@ def graph_inputs(R: int, M0: int, d: int, nq: int, gen):
     return neigh0, ok, C, Q, ep, ep_d
 
 
-def graph_expand_bound(hops, edges, R: int, M0: int, d: int,
-                       ef_cap: int) -> tuple[float, str]:
-    """K6's bound from what this run's walks needed: per hop the M0 ids
-    of the expanded row; per scored edge (a fresh neighbour: valid, ok,
-    not yet visited) its row of d floats and its ok flag, and 3d fp32
-    operations (sub, mul, add); once per query its query row and entry
-    point; and the outputs (beam ids and distances, hops, edges and the
-    visited words).  Padding slots, rows with ok = 0 and neighbours
-    already visited need no row."""
+def graph_expand_bound(hops, edges, R: int, M0: int, d: int, ef_cap: int,
+                       up_hops=None, up_edges=None,
+                       M: int = 0) -> tuple[float, str]:
+    """K6's bound from what this run's walks needed: per layer-0 hop the
+    M0 ids of the expanded row; per scored edge (a fresh neighbour:
+    valid, ok, not yet visited) its row of d floats and its ok flag, and
+    3d fp32 operations (sub, mul, add); once per query its query row and
+    entry point; and the outputs (beam ids and distances, hops, edges and
+    the visited words).  Padding slots, rows with ok = 0 and neighbours
+    already visited need no row.  With the upper layers' steps (up_hops,
+    up_edges: valid neighbours scored), M ids a step and the same per
+    edge."""
     nq = hops.shape[0]
     n_hops, n_edges = int(hops.sum()), int(edges.sum())
-    nbytes = (n_hops * M0 * 4.0 + n_edges * (4.0 * d + 1.0)
+    u_hops = int(up_hops.sum()) if up_hops is not None else 0
+    u_edges = int(up_edges.sum()) if up_edges is not None else 0
+    nbytes = (n_hops * M0 * 4.0 + u_hops * M * 4.0
+              + (n_edges + u_edges) * (4.0 * d + 1.0)
               + nq * (4.0 * d + 8.0)
               + nq * (ef_cap * 8.0 + 8.0 + ((R + 31) // 32) * 4.0))
-    return bound(n_edges * 3.0 * d, nbytes)
+    return bound((n_edges + u_edges) * 3.0 * d, nbytes)
 
 
 def check_graph_expand(R: int, M0: int, d: int, gen, nq: int = BATCH,
                        ef: int = 96, ef_cap: int = 128,
                        max_hops: int = 512) -> dict:
-    """K6 against its plain version; the defaults are the graph path's
-    beam plan (k' 80, ef_search 96: ef 96, ef_cap 128, max_hops 512)."""
+    """K6's layer-0 entry against its plain version (integer-valued
+    rows: bit-equal ids, distances, visited, hops and edges); the defaults
+    are the graph path's beam plan (k' 80, ef_search 96: ef 96, ef_cap
+    128, max_hops 512)."""
     import torch
     from repro_torch.kernels.graph_expand import graph_expand
     args = graph_inputs(R, M0, d, nq, gen)
@@ -515,30 +565,109 @@ def check_graph_expand(R: int, M0: int, d: int, gen, nq: int = BATCH,
     rel = err / want[1].abs()[fin].clamp_min(1e-30)
     max_abs = float(err.max()) if err.numel() else 0.0
     max_rel = float(rel.max()) if rel.numel() else 0.0
-    if agree < MIN_ID_AGREEMENT or max_rel > GRAPH_RTOL:
-        raise AssertionError(f"graph_expand disagrees at R={R} M0={M0} "
-                             f"d={d}: ids {agree}, max rel err {max_rel}")
+    names = ("ids", "distances", "visited", "hops", "edges")
+    bad = [nm for nm, g, w in zip(names, got, want)
+           if g.dtype != w.dtype or not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"graph_expand differs from its plain version "
+                             f"at R={R} M0={M0} d={d}: {bad} (ids equal in "
+                             f"{agree} of slots, max rel err {max_rel})")
     hops, edges = got[3], got[4]
     b_ms, b_by = graph_expand_bound(hops, edges, R, M0, d, ef_cap)
+    ms = device_ms(lambda: graph_expand.expand_layer0(*args, **kw))
     return {
         "name": f"graph_expand.expand_layer0[nq={nq},R={R},M0={M0},d={d}]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/graph_expand.cu",
         "replaces": "src/repro/kernels/graph_expand/graph_expand.py:234",
         "max_abs_err": max_abs, "max_rel_err": max_rel,
-        "beam_slot_id_agreement": agree,
-        "visited_equal": bool(torch.equal(got[2], want[2])),
-        "hops_equal": bool(torch.equal(got[3], want[3])),
-        "edges_equal": bool(torch.equal(got[4], want[4])),
+        "beam_slot_id_agreement": agree, "bit_equal": True,
         "max_hops_per_query": int(hops.max()),
         "mean_hops_per_query": float(hops.float().mean()),
         "mean_edges_per_query": float(edges.float().mean()),
-        "ms": device_ms(lambda: graph_expand.expand_layer0(*args, **kw)),
+        "ms": ms, "us_per_hop": 1e3 * ms / max(1, int(hops.max())),
         "plain_ms": device_ms(
             lambda: graph_expand.plain_expand_layer0(*args, **kw),
             reps=10, warmup=2),
         "library_ms": None, "library_call": "none (no PyTorch call runs "
                                             "a beam search)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def walk_inputs(R: int, M0: int, M: int, LU: int, d: int, nq: int, gen,
+                empty_top: int = 3):
+    """`graph_inputs`' layer 0 under LU upper layers: the top `empty_top`
+    padded with -1 rows only, the others M random ids (~10% -1) on nested
+    node sets of R / 4^(li+1) rows, all holding the entry (an ok row)."""
+    import torch
+    dev = torch.device("cuda")
+    neigh0, ok, C, Q, _, _ = graph_inputs(R, M0, d, nq, gen)
+    perm = torch.randperm(R, generator=gen, device=dev)
+    up = torch.full((LU, R, M), -1, dtype=torch.int32, device=dev)
+    for li in range(LU - empty_top):
+        nodes = perm[: max(2, R >> (2 * li + 2))]
+        pick = torch.randint(0, nodes.numel(), (nodes.numel(), M),
+                             generator=gen, device=dev)
+        rows = nodes[pick].int()
+        rows[torch.rand(rows.shape, generator=gen, device=dev) < 0.1] = -1
+        up[li, nodes] = rows
+    entry = int(perm[0])
+    ok[entry] = True
+    return neigh0, up.contiguous(), ok, C, Q, entry
+
+
+def check_graph_walk(R: int, M0: int, M: int, LU: int, d: int, gen,
+                     nq: int = BATCH, ef: int = 96, ef_cap: int = 128,
+                     max_hops: int = 512) -> dict:
+    """The fused walk against its plain version (the torch walk) on a
+    synthetic graph with upper layers (3 of them empty) over
+    integer-valued rows: every distance is exact in any summation order,
+    so ids, distances, visited words, hops and edges must be bit-equal.
+    The defaults are the graph path's beam plan."""
+    import torch
+    from repro_torch.graph import traverse
+    from repro_torch.kernels.graph_expand import graph_expand
+    n0, up, ok, C, Q, entry = walk_inputs(R, M0, M, LU, d, nq, gen)
+    kw = dict(ef_cap=ef_cap, max_hops=max_hops)
+    args = (n0, up, ok, C, Q, entry, ef)
+    got = graph_expand.graph_walk(*args, **kw)
+    want = graph_expand.plain_graph_walk(*args, **kw)
+    torch.cuda.synchronize()
+    names = ("ids", "distances", "visited", "hops", "edges")
+    bad = [nm for nm, g, w in zip(names, got, want)
+           if g.dtype != w.dtype or not torch.equal(g, w)]
+    G, pool, svis = graph_expand.walk_plan(R, M0, M, d, ef)
+    smem = graph_expand.walk_smem(ef, M0, M, d, G, pool, svis, R)
+    if graph_expand.walk_smem_on_card(ef, M0, M, d, G, pool, svis, R) != smem:
+        bad.append("shared-memory plan")
+    if bad:
+        raise AssertionError(f"graph_walk differs from the torch walk at "
+                             f"R={R} M0={M0} M={M} d={d} ef={ef}: {bad}")
+    hops, edges = got[3], got[4]
+    _, _, up_hops, up_edges = traverse.upper_entry(up, ok, (C,), Q, entry)
+    b_ms, b_by = graph_expand_bound(hops - up_hops, edges - up_edges, R,
+                                    M0, d, ef_cap, up_hops, up_edges, M)
+    ms = device_ms(lambda: graph_expand.graph_walk(*args, **kw))
+    return {
+        "name": f"graph_expand.graph_walk[nq={nq},R={R},M0={M0},M={M},"
+                f"LU={LU},d={d},ef={ef},ef_cap={ef_cap}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/graph_expand.cu",
+        "replaces": "src/repro/kernels/graph_expand/graph_expand.py:234",
+        "also_replaces": "src/repro/graph/traverse.py:141",
+        "max_abs_err": 0.0, "bit_equal": True,
+        "plan": {"rows_a_group": G, "adjacency_pool": pool,
+                 "visited_on_chip": svis, "shared_bytes": smem},
+        "max_hops_per_query": int(hops.max()),
+        "mean_hops_per_query": float(hops.float().mean()),
+        "mean_upper_hops_per_query": float(up_hops.float().mean()),
+        "mean_edges_per_query": float(edges.float().mean()),
+        "ms": ms, "us_per_hop": 1e3 * ms / int(hops.max()),
+        "plain_ms": device_ms(lambda: graph_expand.plain_graph_walk(
+            *args, **kw), reps=5, warmup=1),
+        "library_ms": None, "library_call": "none (no PyTorch call runs "
+                                            "a graph walk)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -611,7 +740,8 @@ def adc_split(name: str, call, masked, reps: int = 20) -> dict:
 
 
 def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
-                 n_valid: int | None = None) -> dict:
+                 n_valid: int | None = None,
+                 home: str | None = None) -> dict:
     """K4 against its plain version: random int8 codes (the last 1% of
     rows repeat the first, so exact ties between distinct ids occur),
     their norms, ~1% of rows masked (or exactly n_valid valid)."""
@@ -646,6 +776,7 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
         "plain_ms": device_ms(lambda: adc_topk.plain_sq_adc_topk(*args),
                               reps=10, warmup=2),
         "bound_ms": b_ms, "bound_by": b_by,
+        **({"home": home} if home else {}),
     }
     none = torch.zeros_like(ok)
     log(json.dumps(adc_split(
@@ -669,7 +800,8 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
     return rec
 
 
-def check_pq_adc(nq: int, m: int, n: int, kp: int, gen) -> dict:
+def check_pq_adc(nq: int, m: int, n: int, kp: int, gen,
+                 home: str | None = None) -> dict:
     """K5 against its plain version: random tables (half of the entries
     integer-valued, so equal sums occur) and codes, ~1% of rows masked."""
     import torch
@@ -705,6 +837,7 @@ def check_pq_adc(nq: int, m: int, n: int, kp: int, gen) -> dict:
         "library_call": "none (no PyTorch call sums table look-ups and "
                         "selects the top-k in one)",
         "bound_ms": b_ms, "bound_by": b_by,
+        **({"home": home} if home else {}),
     }
 
 
@@ -721,6 +854,68 @@ def run_batches(eng, Q, T, stats=None):
         if stats is not None:
             stats.append(st)
     return np.concatenate(ids), lat
+
+
+def k1600_path(eng, Q, T, k: int, path: str, n_batches: int = 4):
+    """`n_batches` batches of 32 at ratio_k 8 and a k that makes 1600
+    candidates (the flat filter's k' = 8 k; int8 and pq8 oversample by 2
+    and 4), above the fused top-k kernels' 1024 a pass: once through the
+    kernels, once with them swapped for their plain versions.  The
+    filter's candidate ids must be equal: K4 and K5 are bit-equal, slot
+    for slot; K1 sums in another fp32 order, which may swap neighbours
+    within an ulp of each other, so its candidates are held as each
+    query's set (>= 99.9% of them).  The final ids, after the refine,
+    must agree in >= 99.9% of slots.  -> the launches."""
+    import torch
+    f = eng.backend
+    kp = k * RATIO_K
+    batches = [(Q[s:s + BATCH], T[s:s + BATCH])
+               for s in range(0, n_batches * BATCH, BATCH)]
+    eng.search_batch(*batches[0], k, ratio_k=RATIO_K)          # warm-up
+
+    def run():
+        ids, lat, cands = [], [], []
+        for Qb, Tb in batches:
+            t0 = time.perf_counter()
+            out, _ = eng.search_batch(Qb, Tb, k, ratio_k=RATIO_K)
+            lat.append(time.perf_counter() - t0)
+            ids.append(out)
+        for Qb, _ in batches:
+            cands.append(f.candidates(np.asarray(Qb, np.float32), kp,
+                                      EF_SEARCH)[0])
+        torch.cuda.synchronize()
+        return np.concatenate(ids), lat, torch.cat(cands)
+
+    reset_launches()
+    ids, lat, cand = run()
+    launches = kernel_launches()
+    with plain_kernels():
+        ids_p, lat_p, cand_p = run()
+    if kernel_launches() != launches:
+        raise AssertionError("a kernel launched during the plain run")
+    exact = f.name != "flat"
+    if exact:
+        cand_agree = float((cand == cand_p).float().mean())
+    else:
+        cand_agree = float(sum(torch.isin(a, b).sum() for a, b in
+                               zip(cand, cand_p))) / cand.numel()
+    agree = float((ids == ids_p).mean())
+    rec = {"phase": "k1600", "path": path, "k": k,
+           "candidates_per_query": int(cand.shape[1]),
+           "batches": n_batches, "candidate_id_agreement": cand_agree,
+           "candidates_compared_as": "slots" if exact else "sets",
+           "id_agreement": agree,
+           "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "batch_p50_ms_plain": float(np.percentile(lat_p, 50)) * 1e3,
+           "launches_per_batch": {kk: v / n_batches
+                                  for kk, v in launches.items() if v}}
+    log(json.dumps(rec))
+    if (cand.shape[1] != 1600 or agree < MIN_ID_AGREEMENT
+            or cand_agree < (1.0 if exact else MIN_ID_AGREEMENT)):
+        raise AssertionError(f"{path} at k' 1600: candidates "
+                             f"{cand.shape[1]}, candidate ids "
+                             f"{cand_agree}, final ids {agree}")
+    return launches
 
 
 def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
@@ -894,9 +1089,10 @@ def main_path(n: int, n_queries: int) -> dict:
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
+    on_k1600 = k1600_path(eng, Q, T, 200, "flat_k1600")
     # the ADC paths search the same ciphertexts and queries
-    return launches, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q,
-                      "T": T}
+    return launches, on_k1600, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce,
+                                "Q": Q, "T": T}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1053,7 +1249,10 @@ def adc_path(ctx: dict, quantization: str, backend: str = "flat") -> dict:
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"{path}: kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
-    return launches
+    if ivf:
+        return launches, None
+    return launches, k1600_path(eng, Q, T, {"int8": 100, "pq8": 50}[
+        quantization], f"{path}_k1600")
 
 
 # --------------------------------------------------------------- phase 5
@@ -1113,11 +1312,16 @@ def recorded_walks(out: list):
 
 
 def graph_breakdown(eng, Q, T, reps: int = 10) -> dict:
-    """Host-clock time of one graph batch and of its two filter stages
-    run alone on the same queries (each ended by a synchronize): the
-    upper-layer descent (torch ops, a host sync per greedy step) and
-    the layer-0 kernel.  Medians of `reps`.  Also the layer-0 kernel's
-    device time on the real graph and its bound from that walk."""
+    """Host-clock time of one graph batch and of its parts run alone on
+    the same queries (each ended by a synchronize; medians of `reps`):
+    the filter, the fused walk (one graph_walk launch), the scan trace's
+    download (the (nq, R) bool trace that the filter downloads, and the
+    alternative: the kernel's packed words, 32x fewer bytes, unpacked on
+    the host), and, as the parent's "before", the torch upper-layer descent
+    (`traverse.upper_entry`, a host sync a greedy step) and the layer-0
+    entry alone from its endpoints.  Device times and bounds of the fused
+    walk and the layer-0 entry on the real graph, and the time a hop over
+    the batch's longest chain."""
     import torch
     from repro_torch.graph import beam_plan, traverse
     from repro_torch.kernels.graph_expand import graph_expand
@@ -1126,32 +1330,82 @@ def graph_breakdown(eng, Q, T, reps: int = 10) -> dict:
         gf._db[0].device)
     kp = K * RATIO_K
     ef, ef_cap, max_hops = beam_plan(kp, max(EF_SEARCH, kp))
+    C = gf._db[0]
+    R, M0 = gf._neigh0.shape
+    M = gf._neigh_up.shape[2]
+    d = Qb.shape[1]
 
     def timed(fn):
         return host_ms(fn, reps)
 
+    walk = lambda: graph_expand.graph_walk(
+        gf._neigh0, gf._neigh_up, gf._ok, C, Qb, gf.csr.entry, ef,
+        ef_cap=ef_cap, max_hops=max_hops)
     upper = lambda: traverse.upper_entry(gf._neigh_up, gf._ok, gf._db, Qb,
                                          gf.csr.entry)
-    ep, ep_d, _, _ = upper()
+    ep, ep_d, up_hops, up_edges = upper()
     layer0 = lambda: graph_expand.expand_layer0(
-        gf._neigh0, gf._ok, gf._db[0], Qb, ep, ep_d, ef, ef_cap=ef_cap,
+        gf._neigh0, gf._ok, C, Qb, ep, ep_d, ef, ef_cap=ef_cap,
         max_hops=max_hops)
-    _, _, _, hops, edges = layer0()
-    R, M0 = gf._neigh0.shape
-    b_ms, b_by = graph_expand_bound(hops, edges, R, M0, Qb.shape[1], ef_cap)
+    _, _, visited, hops, edges = walk()
+    # the kernel's (nq, ceil(R/32)) words, packed again from the trace
+    pad = torch.zeros((visited.shape[0], -R % 32), dtype=torch.bool,
+                      device=visited.device)
+    bits = torch.cat([visited, pad], 1).view(visited.shape[0], -1, 32)
+    words = (bits.int() << torch.arange(32, device=bits.device,
+                                        dtype=torch.int32)).sum(
+        -1, dtype=torch.int32)
+    unpacked = lambda: np.unpackbits(
+        words.cpu().numpy().view(np.uint8), axis=1,
+        bitorder="little")[:, :R].astype(bool)
+    if not np.array_equal(unpacked(), visited.cpu().numpy()):
+        raise AssertionError("packed scan trace differs from the bool one")
+    _, _, _, l0_hops, l0_edges = layer0()
+    b_walk, b_walk_by = graph_expand_bound(hops - up_hops, edges - up_edges,
+                                           R, M0, d, ef_cap, up_hops,
+                                           up_edges, M)
+    b_l0, b_l0_by = graph_expand_bound(l0_hops, l0_edges, R, M0, d, ef_cap)
+    walk_dev = device_ms(walk)
     return {
         "phase": "graph_breakdown", "batch": BATCH, "reps": reps,
         "search_batch_ms": timed(lambda: eng.search_batch(
             Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K, ef_search=EF_SEARCH)),
         "filter_candidates_ms": timed(lambda: gf.candidates(
             Q[:BATCH], kp, EF_SEARCH)),
-        "upper_descent_ms": timed(upper),
+        "graph_walk_ms": timed(walk),
+        "graph_walk_device_ms": walk_dev,
+        "graph_walk_bound_ms": b_walk, "graph_walk_bound_by": b_walk_by,
+        "graph_walk_us_per_hop": 1e3 * walk_dev / int(hops.max()),
+        "trace_download_ms": timed(lambda: visited.cpu()),
+        "trace_packed_download_unpack_ms": timed(unpacked),
+        "before_torch_descent_ms": timed(upper),
         "expand_layer0_ms": timed(layer0),
         "expand_layer0_device_ms": device_ms(layer0),
-        "expand_layer0_bound_ms": b_ms, "expand_layer0_bound_by": b_by,
-        "layer0_hops_per_query_mean": float(hops.float().mean()),
-        "layer0_edges_per_query_mean": float(edges.float().mean()),
+        "expand_layer0_bound_ms": b_l0, "expand_layer0_bound_by": b_l0_by,
+        "expand_layer0_us_per_hop":
+            1e3 * device_ms(layer0) / max(1, int(l0_hops.max())),
+        "hops_per_query_mean": float(hops.float().mean()),
+        "hops_per_query_max": int(hops.max()),
+        "upper_hops_per_query_mean": float(up_hops.float().mean()),
+        "layer0_hops_per_query_mean": float(l0_hops.float().mean()),
+        "layer0_edges_per_query_mean": float(l0_edges.float().mean()),
     }
+
+
+@contextlib.contextmanager
+def counted_descents(out: list):
+    """Count the torch upper-layer descents (`traverse.upper_entry`)."""
+    from repro_torch.graph import traverse
+    inner = traverse.upper_entry
+
+    def counted(*a, **kw):
+        out.append(1)
+        return inner(*a, **kw)
+    traverse.upper_entry = counted
+    try:
+        yield
+    finally:
+        traverse.upper_entry = inner
 
 
 def graph_path(g: dict) -> dict:
@@ -1182,9 +1436,9 @@ def graph_path(g: dict) -> dict:
     t_warm = time.perf_counter() - t0
 
     reset_launches()
-    walks, stats = [], []
+    walks, stats, descents = [], [], []
     t0 = time.perf_counter()
-    with recorded_walks(walks):
+    with recorded_walks(walks), counted_descents(descents):
         ids, lat = run_batches(eng, Q, T, stats)
     t_run = time.perf_counter() - t0
     launches = kernel_launches()
@@ -1243,7 +1497,7 @@ def graph_path(g: dict) -> dict:
                          for f in ("filter_dist_evals", "n_hops",
                                    "n_edges_scanned", "filter_bytes_scanned",
                                    "refine_comparisons")},
-        "launches": launches,
+        "launches": launches, "torch_descents": len(descents),
         "device_resident_bytes": resident - before,
         "device_peak_bytes": peak - before,
         "device_bytes_held_before_the_engine": before,
@@ -1258,10 +1512,13 @@ def graph_path(g: dict) -> dict:
     log(json.dumps(out))
     if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
         raise AssertionError("graph path returned ids outside the database")
-    if (launches["graph_expand.expand_layer0"] != len(lat)
-            or launches["dce_comp.refine_topk"] != len(lat)):
-        raise AssertionError(f"graph path kernels: {launches} for "
-                             f"{len(lat)} batches")
+    if (launches["graph_expand.graph_walk"] != len(lat)
+            or launches["graph_expand.expand_layer0"] != 0
+            or launches["dce_comp.refine_topk"] != len(lat) or descents):
+        raise AssertionError(f"graph path kernels: {launches} and "
+                             f"{len(descents)} torch descents for "
+                             f"{len(lat)} batches (one graph_walk and one "
+                             f"refine_topk a batch, no torch descent)")
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
@@ -1316,6 +1573,12 @@ def main() -> int:
                    check_z(32, 80, 128, gen), check_z(32, 80, 960, gen),
                    check_z(32, 160, 128, gen), check_z(32, 320, 128, gen),
                    check_z(1, 512, 128, gen, single=True),
+                   check_graph_walk(2 ** 17, 16, 8, 8, 128, gen),
+                   check_graph_walk(2 ** 20, 32, 16, 8, 128, gen),
+                   check_graph_walk(2 ** 17, 32, 16, 8, 960, gen),
+                   check_graph_walk(2 ** 21, 16, 8, 8, 128, gen),
+                   check_graph_walk(2 ** 17, 16, 8, 8, 128, gen, ef=1600,
+                                    ef_cap=2048, max_hops=8192),
                    check_graph_expand(2 ** 17, 16, 128, gen),
                    check_graph_expand(2 ** 20, 32, 128, gen),
                    check_graph_expand(2 ** 17, 32, 960, gen),
@@ -1323,7 +1586,13 @@ def main() -> int:
                    check_sq_adc(32, 2 ** 18, 960, 160, gen),
                    check_sq_adc(32, 100, 128, 30, gen, n_valid=12),
                    check_pq_adc(32, 16, 1_000_000, 320, gen),
-                   check_pq_adc(32, 8, 2 ** 18, 320, gen)]
+                   check_pq_adc(32, 8, 2 ** 18, 320, gen),
+                   check_knn(32, 1_000_000, 128, 1600, gen,
+                             home="flat_k1600", exact=True),
+                   check_sq_adc(32, 1_000_000, 128, 1600, gen,
+                                home="adc_int8_k1600"),
+                   check_pq_adc(32, 16, 1_000_000, 1600, gen,
+                                home="adc_pq8_k1600")]
         for r in records:
             log(json.dumps(dict(r, card=card)))
         gc.collect()
@@ -1331,16 +1600,18 @@ def main() -> int:
 
         # phase 3 ---------------------------------------------------
         small_reference_check()
-        flat, corpus = main_path(args.n, args.queries)
+        flat, flat_k1600, corpus = main_path(args.n, args.queries)
         gc.collect()                    # the flat engine is gone: free
         torch.cuda.empty_cache()        # its 4.9 GB before the ADC paths
 
         # phase 4 ---------------------------------------------------
-        on_adc = {}
+        on_adc = {"flat_k1600": flat_k1600}
         for path, quant, backend in (("adc_int8", "int8", "flat"),
                                      ("adc_pq8", "pq8", "flat"),
                                      ("ivf_int8", "int8", "ivf")):
-            on_adc[path] = adc_path(corpus, quant, backend)
+            on_adc[path], k1600 = adc_path(corpus, quant, backend)
+            if k1600 is not None:
+                on_adc[f"{path}_k1600"] = k1600
             gc.collect()
             torch.cuda.empty_cache()
         del corpus
@@ -1354,6 +1625,7 @@ def main() -> int:
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",
             "dce_comp.refine_topk": "flat",
             "dce_comp.batched_z_matrix": "flat",
+            "graph_expand.graph_walk": "graph",
             "graph_expand.expand_layer0": "graph",
             "adc_topk.sq_adc_topk": "adc_int8",
             "adc_topk.pq_adc_topk": "adc_pq8"}

@@ -78,6 +78,11 @@
 // fall together.  What still holds them back: the warp merges (a bitonic
 // network of dependent shuffles) and the passes around them take longer
 // than the scan itself, and K5's look-ups meet in shared-memory banks.
+// A kp above MAX_KP runs in passes of at most MAX_KP (the wrapper's): each
+// pass scans again and offers only the keys after its query's floor key,
+// the last key of the pass before (left by the pass's merge), so the
+// passes' lists joined are the first kp keys, bit for bit; one comparison
+// an offer, in kernel variants of their own.
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -221,12 +226,13 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst,
 //   warp w, lane l (g = l / 4, t = l % 4): queries 16 mt + 8 h + g and rows
 //   16 w + 8 nt + 2 t + u of every tile, in acc[mt][nt][2 h + u];
 // so the 4 lanes of a group g share a query, and put one group of keys.
-template <int MT, int STAGES>
+// FLOOR: a later pass, which offers only the keys after floor[q].
+template <int MT, int STAGES, bool FLOOR>
 __global__ void __launch_bounds__(SQ_THREADS, 1)
 sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
                const int* __restrict__ cn, const unsigned char* __restrict__ ok,
-               u64* __restrict__ part, int nq, int n, int d, int kp,
-               int chunk_rows, int G, int vec) {
+               u64* __restrict__ part, const u64* __restrict__ floor, int nq,
+               int n, int d, int kp, int chunk_rows, int G, int vec) {
   constexpr int QB = 16 * MT;
   constexpr int RPW = SQ_ROWS / SQ_WARPS;      // rows a warp: 16
   constexpr int NT = RPW / 8;                  // row tiles of 8 a warp
@@ -239,6 +245,10 @@ sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
   SqSelect sel = SqSelect::at(smem, QB, kp, S, STAGES * sq_stage_bytes(QB),
                               SC);
   sel.init(tid);
+  u64 lo[2 * MT];                   // floor keys of queries 8 gq + g
+#pragma unroll
+  for (int gq = 0; gq < 2 * MT; ++gq)
+    lo[gq] = FLOOR && q0 + 8 * gq + g < nq ? floor[q0 + 8 * gq + g] : 0;
 
   const int r_begin = blockIdx.y * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
@@ -333,7 +343,9 @@ sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
           const int i = 2 * nt + (c & 1), gq = 2 * mt + (c >> 1);
           const int dist = norm[i] - 2 * acc[mt][nt][c];
           acc[mt][nt][c] = dist;
-          if (okr[i] && q0 + 8 * gq + g < nq && dist < INT_BIG)
+          if (okr[i] && q0 + 8 * gq + g < nq && dist < INT_BIG &&
+              (!FLOOR || pack_key(order_int(dist), row0 + nt * 8 + (c & 1))
+                             > lo[gq]))
             pend |= 1u << (8 * gq + i);
         }
     auto key_of = [&](int gq, int i) {
@@ -426,13 +438,14 @@ __device__ __forceinline__ unsigned codes4(const uint8_t* codes_t, int n,
 // a load phase touch 4 entries; below 8 a lane reads a row's whole entry.
 //   thread tid: rows RPL * (tid / LPR) .. + RPL - 1 of each tile, queries
 //   QPL * (tid % LPR) .. + QPL - 1, in acc[row][query].
-template <int QB>
+// FLOOR: a later pass, which offers only the keys after floor[q].
+template <int QB, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 1)
 pq_scan_kernel(const float* __restrict__ lut,
                const uint8_t* __restrict__ codes_t,
                const unsigned char* __restrict__ ok, u64* __restrict__ part,
-               int nq, int n, int m, int kp, int chunk_rows, int G,
-               int aligned) {
+               const u64* __restrict__ floor, int nq, int n, int m, int kp,
+               int chunk_rows, int G, int aligned) {
   constexpr int LPR = QB == 8 ? 2 : 1;    // lanes a row
   constexpr int RPL = 4 * LPR;            // rows a lane
   constexpr int QPL = QB / LPR;           // queries a lane
@@ -447,6 +460,10 @@ pq_scan_kernel(const float* __restrict__ lut,
   float* tab = reinterpret_cast<float*>(smem + (size_t)QB * S * 8);
   Select sel = Select::at(smem, QB, kp, S, (size_t)QB * T * 4, SC);
   sel.init(tid);
+  u64 lo[QPL];                      // floor keys of queries h QPL + w
+#pragma unroll
+  for (int w = 0; w < QPL; ++w)
+    lo[w] = FLOOR && q0 + h * QPL + w < nq ? floor[q0 + h * QPL + w] : 0;
   for (int i = tid; i < QB * T; i += THREADS) {
     const int q = i / T, jc = i - q * T;
     tab[(size_t)jc * QB + q] = q0 + q < nq ? lut[(size_t)(q0 + q) * T + jc]
@@ -515,7 +532,8 @@ pq_scan_kernel(const float* __restrict__ lut,
 #pragma unroll
       for (int b = 0; b < RPL; ++b)
         if (okr[b] && q0 + h * QPL + w < nq &&
-            acc[b][w] < __int_as_float(FLOAT_INF_BITS))
+            acc[b][w] < __int_as_float(FLOAT_INF_BITS) &&
+            (!FLOOR || pack_key(order_float(acc[b][w]), r0 + b) > lo[w]))
           pend |= 1u << (RPL * w + b);
     while (true) {
       // keys at or above their thresholds drop out; the puts run only
@@ -561,16 +579,19 @@ pq_scan_kernel(const float* __restrict__ lut,
 }
 
 // Stage 2 of both: one block per query selects the top kp of its G sorted
-// partial lists and decodes them.
+// partial lists and decodes them; with floor_out, it leaves there the
+// query's last key (EMPTY if the valid rows ran out), the next pass's floor.
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const u64* __restrict__ part, unsigned* __restrict__ out_d,
-             long long* __restrict__ out_i, int G, int kp, int is_float) {
+             long long* __restrict__ out_i, u64* __restrict__ floor_out,
+             int G, int kp, int is_float) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int q = blockIdx.x;
   Select sel = Select::at(smem, 1, kp, Select::merge_len(kp, G), 0);
   sel.init(tid);
   sel.merge_runs(part + (size_t)q * G * kp, G, tid);
+  if (floor_out && tid == 0) floor_out[q] = sel.keys[kp - 1];
   for (int j = tid; j < kp; j += THREADS) {
     const u64 top = sel.keys[j];
     const size_t o = (size_t)q * kp + j;
@@ -592,14 +613,14 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 }
 
 cudaError_t launch_merge(const u64* part, unsigned* out_d, long long* out_i,
-                         int nq, int G, int kp, int is_float,
+                         u64* floor_out, int nq, int G, int kp, int is_float,
                          cudaStream_t stream) {
   const size_t smem = Select::bytes(1, Select::merge_len(kp, G));
   cudaError_t err =
       set_smem(reinterpret_cast<const void*>(merge_kernel), smem);
   if (err != cudaSuccess) return err;
-  merge_kernel<<<nq, THREADS, smem, stream>>>(part, out_d, out_i, G, kp,
-                                              is_float);
+  merge_kernel<<<nq, THREADS, smem, stream>>>(part, out_d, out_i, floor_out,
+                                              G, kp, is_float);
   return cudaGetLastError();
 }
 
@@ -630,45 +651,56 @@ extern "C" long long repro_adc_smem_bytes(int pq, int qb, int kp, int width) {
 // masked), part (nq, G, kp) uint64 scratch, out_d (nq, kp) int32, out_i
 // (nq, kp) int64; all contiguous on `device`.  Rows are split into G
 // chunks of chunk_rows (a multiple of 256), one block per (group of 32
-// queries, or 16 where kp > 256, chunk).  Launches both stages on
-// `stream` and returns cudaGetLastError().
+// queries, or 16 where kp > 256, chunk).  A pass of a call above MAX_KP:
+// floor_in (nq,) (nullptr on the first pass; kp > 256 on the others)
+// holds each query's last key of the pass before, and only keys after it
+// are offered; floor_out (or nullptr) gets this pass's last keys (it may
+// be floor_in).  Launches both stages on `stream` and returns
+// cudaGetLastError().
 extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
                                  const int* cn, const unsigned char* ok,
                                  u64* part, unsigned* out_d, long long* out_i,
-                                 int nq, int n, int d, int kp, int chunk_rows,
-                                 int G, int device, cudaStream_t stream) {
+                                 const u64* floor_in, u64* floor_out, int nq,
+                                 int n, int d, int kp, int chunk_rows, int G,
+                                 int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
   if (bad_plan(n, kp, chunk_rows, G, SQ_ROWS) || d < 1 || d > MAX_D)
     return cudaErrorInvalidValue;
   const int qb = sq_queries_per_block(kp);
+  if (floor_in && qb != 16) return cudaErrorInvalidValue;
   const size_t smem = sq_smem(qb, kp);
   const int vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(c8) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q8) % 16 == 0;
   const dim3 grid((nq + qb - 1) / qb, G);
-#define REPRO_SQ_LAUNCH(MT, STAGES)                                        \
+#define REPRO_SQ_LAUNCH(MT, STAGES, FLOOR)                                 \
   do {                                                                      \
-    err = prepare(sq_scan_kernel<MT, STAGES>, smem);                        \
+    err = prepare(sq_scan_kernel<MT, STAGES, FLOOR>, smem);                 \
     if (err != cudaSuccess) return err;                                     \
-    sq_scan_kernel<MT, STAGES><<<grid, SQ_THREADS, smem, stream>>>(         \
-        q8, c8, cn, ok, part, nq, n, d, kp, chunk_rows, G, vec);            \
+    sq_scan_kernel<MT, STAGES, FLOOR><<<grid, SQ_THREADS, smem, stream>>>(  \
+        q8, c8, cn, ok, part, floor_in, nq, n, d, kp, chunk_rows, G, vec);  \
   } while (0)
-  if (qb == 32) REPRO_SQ_LAUNCH(2, SQ_DEEP);
-  else if (sq_stages(kp) == SQ_DEEP) REPRO_SQ_LAUNCH(1, SQ_DEEP);
-  else REPRO_SQ_LAUNCH(1, SQ_SHALLOW);
+  const bool deep = sq_stages(kp) == SQ_DEEP;
+  if (qb == 32) REPRO_SQ_LAUNCH(2, SQ_DEEP, false);
+  else if (deep && floor_in) REPRO_SQ_LAUNCH(1, SQ_DEEP, true);
+  else if (deep) REPRO_SQ_LAUNCH(1, SQ_DEEP, false);
+  else if (floor_in) REPRO_SQ_LAUNCH(1, SQ_SHALLOW, true);
+  else REPRO_SQ_LAUNCH(1, SQ_SHALLOW, false);
 #undef REPRO_SQ_LAUNCH
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_merge(part, out_d, out_i, nq, G, kp, 0, stream);
+  return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 0, stream);
 }
 
 // lut (nq, m, 256) float32, codes_t (m, n) uint8, ok (n,) uint8, part,
-// out_d (nq, kp) float32, out_i (nq, kp) int64: as above, with qb (8, 4,
-// 2 or 1) queries a block and chunks of a multiple of 1024 rows.
+// out_d (nq, kp) float32, out_i (nq, kp) int64, floor_in, floor_out: as
+// above, with qb (8, 4, 2 or 1) queries a block and chunks of a multiple
+// of 1024 rows.
 extern "C" int repro_pq_adc_topk(const float* lut, const uint8_t* codes_t,
                                  const unsigned char* ok, u64* part,
-                                 unsigned* out_d, long long* out_i, int nq,
+                                 unsigned* out_d, long long* out_i,
+                                 const u64* floor_in, u64* floor_out, int nq,
                                  int n, int m, int kp, int qb, int chunk_rows,
                                  int G, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -681,21 +713,27 @@ extern "C" int repro_pq_adc_topk(const float* lut, const uint8_t* codes_t,
   const int aligned =
       n % 4 == 0 && reinterpret_cast<uintptr_t>(codes_t) % 4 == 0;
   const dim3 grid((nq + qb - 1) / qb, G);
-#define REPRO_PQ_LAUNCH(QB)                                                 \
+#define REPRO_PQ_LAUNCH(QB, FLOOR)                                          \
   do {                                                                      \
-    err = prepare(pq_scan_kernel<QB>, smem);                                \
+    err = prepare(pq_scan_kernel<QB, FLOOR>, smem);                         \
     if (err != cudaSuccess) return err;                                     \
-    pq_scan_kernel<QB><<<grid, THREADS, smem, stream>>>(                    \
-        lut, codes_t, ok, part, nq, n, m, kp, chunk_rows, G, aligned);      \
+    pq_scan_kernel<QB, FLOOR><<<grid, THREADS, smem, stream>>>(             \
+        lut, codes_t, ok, part, floor_in, nq, n, m, kp, chunk_rows, G,      \
+        aligned);                                                           \
   } while (0)
-  switch (qb) {
-    case 8: REPRO_PQ_LAUNCH(8); break;
-    case 4: REPRO_PQ_LAUNCH(4); break;
-    case 2: REPRO_PQ_LAUNCH(2); break;
-    default: REPRO_PQ_LAUNCH(1); break;
+  const bool fl = floor_in != nullptr;
+  switch (qb * 2 + fl) {
+    case 16: REPRO_PQ_LAUNCH(8, false); break;
+    case 17: REPRO_PQ_LAUNCH(8, true); break;
+    case 8: REPRO_PQ_LAUNCH(4, false); break;
+    case 9: REPRO_PQ_LAUNCH(4, true); break;
+    case 4: REPRO_PQ_LAUNCH(2, false); break;
+    case 5: REPRO_PQ_LAUNCH(2, true); break;
+    case 2: REPRO_PQ_LAUNCH(1, false); break;
+    default: REPRO_PQ_LAUNCH(1, true); break;
   }
 #undef REPRO_PQ_LAUNCH
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_merge(part, out_d, out_i, nq, G, kp, 1, stream);
+  return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 1, stream);
 }

@@ -46,7 +46,14 @@
 //     the shared-memory reads that feed it: 2 (RI + 5) floats a thread per
 //     depth for 10 RI FMAs;
 //   * a row's wins are summed over its 16 column threads by warp shuffles:
-//     no atomics, deterministic; the ranking is one small block a query.
+//     no atomics, deterministic; the ranking is one small block a query;
+//   * the Z entry, where B x ceil(n / TI) blocks leave SMs idle (z_matrix
+//     at n 512: 32 blocks on 132 SMs), also splits the j-tiles over a
+//     third grid dimension (the wrapper's plan, `dce_comp.z_plan`: at
+//     n 512, RI 2 and one j-tile a block, 112 blocks).  Every Z element
+//     is still summed whole in one thread, so Z stays bit-equal to the
+//     unsplit run; the refine epilogue counts a row's wins over all
+//     columns and is never split.
 // Ragged n and D, and candidate ids outside [0, N) (the slots a filter
 // marks invalid), are read as zeros; nothing is padded or copied.
 #include <cuda_runtime.h>
@@ -133,9 +140,11 @@ __host__ __device__ constexpr int stage_floats(int ri) {
   return (2 * GROUPS * ri + 2 * TJ) * DKP;
 }
 
-// The main loop of both entries.  Grid (ceil(n / TI), B).  Thread t: row
-// group ig = t / 16 (rows ig * RI + r), column group jg = t % 16 (columns
-// jg + 16 c of each j-tile).  Stages of DK depth (rows i of components 0
+// The main loop of both entries.  Grid (ceil(n / TI), B, splits): block z
+// walks the j-tiles [z per, (z + 1) per), per = ceil(j-tiles / splits)
+// (splits = 1 for the refine).  Thread t: row group ig = t / 16 (rows
+// ig * RI + r), column group jg = t % 16 (columns jg + 16 c of each
+// j-tile).  Stages of DK depth (rows i of components 0
 // and 1, rows j of components 2 and 3) stream through a ring of STAGES
 // in shared memory by cp.async; a thread scales the component-0/1 chunks
 // it copied itself by T_b once they have landed.  REFINE counts wins into
@@ -161,7 +170,10 @@ z_kernel(Rows rows, const float* __restrict__ T,
   const float* Tb = T + (size_t)b * D;
   const int nk = (D + DK - 1) / DK;
   const int njt = (n + TJ - 1) / TJ;
-  const int total = njt * nk;
+  // the refine walks every j-tile (its grid has no third dimension)
+  const int per = REFINE ? njt : (njt + gridDim.z - 1) / gridDim.z;
+  const int jt0 = REFINE ? 0 : blockIdx.z * per;
+  const int total = REFINE ? njt * nk : max(0, min(per, njt - jt0)) * nk;
   float* Ts = ring + STAGES * stage_floats(RI);     // T_b, zero past D
   for (int k = tid; k < nk * DK; k += THREADS) Ts[k] = k < D ? Tb[k] : 0.f;
   __syncthreads();
@@ -182,7 +194,7 @@ z_kernel(Rows rows, const float* __restrict__ T,
   }
   auto issue = [&](int item) {
     const int st = item % STAGES;
-    const int j0 = (item / nk) * TJ, k0 = (item % nk) * DK;
+    const int j0 = (jt0 + item / nk) * TJ, k0 = (item % nk) * DK;
 #pragma unroll
     for (int u = 0; u < LPT; ++u) {
       const int c = tid + u * THREADS;
@@ -274,7 +286,7 @@ z_kernel(Rows rows, const float* __restrict__ T,
       }
     }
     if (it % nk == nk - 1) {                 // the j-tile's last stage
-      const int j0 = (it / nk) * TJ;
+      const int j0 = (jt0 + it / nk) * TJ;
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
         const int i = i0 + ig * RI + r;
@@ -369,9 +381,11 @@ cudaError_t launch_ri(dim3 grid, const Rows& rows, const float* T,
 template <bool REFINE>
 cudaError_t launch_z(const Rows& rows, const float* T,
                      const unsigned char* valid, float* Z, int* wins, int B,
-                     int device, cudaStream_t stream) {
-  const int ri = rows_per_thread(B, rows.n, device);
-  const dim3 grid((rows.n + GROUPS * ri - 1) / (GROUPS * ri), B);
+                     int ri, int splits, cudaStream_t stream) {
+  const int njt = (rows.n + TJ - 1) / TJ;
+  const int per = (njt + splits - 1) / splits;
+  const dim3 grid((rows.n + GROUPS * ri - 1) / (GROUPS * ri), B,
+                  (njt + per - 1) / per);
   switch (ri) {
     case 1: return launch_ri<1, REFINE>(grid, rows, T, valid, Z, wins, stream);
     case 2: return launch_ri<2, REFINE>(grid, rows, T, valid, Z, wins, stream);
@@ -388,18 +402,23 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // C (B, n, 4, D), T (B, D), Z (B, n, n): float32, contiguous, all on
-// `device`.  B <= 65535 (one grid y-slice per query).  Launches on
-// `stream` and returns cudaGetLastError().
+// `device`.  B <= 65535 (one grid y-slice per query).  ri (1..5) rows a
+// thread and the j-tiles cut into `splits` ranges: the wrapper's plan
+// (`dce_comp.z_plan`).  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int repro_dce_batched_z(const float* C, const float* T, float* Z,
-                                   int B, int n, int D, int device,
-                                   cudaStream_t stream) {
+                                   int B, int n, int D, int ri, int splits,
+                                   int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || n == 0) return cudaSuccess;
-  if (B > 65535 || D < 1) return cudaErrorInvalidValue;
+  if (B > 65535 || D < 1 || ri < 1 || ri > MAX_RI || splits < 1 ||
+      splits > (n + TJ - 1) / TJ || splits > 65535)
+    return cudaErrorInvalidValue;
   const Rows rows{C, nullptr, (long long)B * n, n, D,
                   D % 4 == 0 && aligned16(C) && aligned16(T)};
-  return launch_z<false>(rows, T, nullptr, Z, nullptr, B, device, stream);
+  return launch_z<false>(rows, T, nullptr, Z, nullptr, B, ri, splits,
+                         stream);
 }
 
 // C_dce (N, 4, D) float32, cand (B, n) int64 row ids, T (B, D) float32,
@@ -418,7 +437,8 @@ extern "C" int repro_dce_refine_topk(const float* C_dce, long long N,
   if (B > 65535 || D < 1 || k < 1 || k > n) return cudaErrorInvalidValue;
   const Rows rows{C_dce, cand, N, n, D,
                   D % 4 == 0 && aligned16(C_dce) && aligned16(T)};
-  err = launch_z<true>(rows, T, valid, nullptr, wins, B, device, stream);
+  err = launch_z<true>(rows, T, valid, nullptr, wins, B,
+                       rows_per_thread(B, n, device), 1, stream);
   if (err != cudaSuccess) return err;
   rank_kernel<<<B, THREADS, 0, stream>>>(wins, cand, out, n, k);
   return cudaGetLastError();

@@ -47,8 +47,12 @@
 // FMA, which holds it well below the fp32 peak, and the selection (every
 // key of a chunk's first tile is offered) is a large share of the scan.
 // k' > 256 takes 8 queries a block (2 per thread), so the selection state
-// fits in shared memory up to k' = 1024.  Ragged nq, n and d are masked in
-// the loads (zero fill) and in the offers; nothing is padded or copied.
+// fits in shared memory up to k' = 1024.  A larger k' runs in passes of at
+// most 1024 (the wrapper's): each pass scans again and offers only the
+// keys after its query's floor key, the last key of the pass before, so
+// the passes' lists joined are the first k' keys; one comparison an offer,
+// in a kernel variant of its own.  Ragged nq, n and d are masked in the
+// loads (zero fill) and in the offers; nothing is padded or copied.
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -328,11 +332,13 @@ l2_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 
 // Stage 1 of repro_l2_knn: grid (query groups, row chunks).  E > 0: the
 // segments hold 32 E keys and are sorted a warp each in registers.
-template <int TQ, int STAGES, int E>
+// FLOOR: a later pass of a call above MAX_KP, which offers only the keys
+// after its query's floor key (the last key of the pass before).
+template <int TQ, int STAGES, int E, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 1)
 l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
-               u64* __restrict__ part, int nq, int n, int d, int kp,
-               int chunk_rows, int G) {
+               u64* __restrict__ part, const u64* __restrict__ floor, int nq,
+               int n, int d, int kp, int chunk_rows, int G) {
   constexpr int QB = 4 * TQ;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -340,6 +346,12 @@ l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
   const int g = blockIdx.y;
   Tiles<TQ, STAGES> t(smem + (size_t)QB * S * 8, Q, X, nq, n, d,
                       blockIdx.x * QB);
+  u64 lo[TQ];                                    // the floor keys
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int q = t.q0 + (tid & 31) % QSTEP + QSTEP * i;
+    lo[i] = FLOOR && q < nq ? floor[q] : 0;
+  }
   Select sel = Select::at(smem, QB, kp, S, tile_smem(QB, STAGES));
   auto flush = [&]() {
     if constexpr (E > 0) sel.template flush_warps<E>(tid);
@@ -357,7 +369,9 @@ l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 #pragma unroll
             for (int j = 0; j < RT; ++j)
               if (t.q0 + qloc + QSTEP * i < nq &&
-                  tile0 + rloc + RSTEP * j < r_end)
+                  tile0 + rloc + RSTEP * j < r_end &&
+                  (!FLOOR || pack_key(order_float(dist[i][j]),
+                                      tile0 + rloc + RSTEP * j) > lo[i]))
                 pend |= 1ull << (i * RT + j);
           // Offer; a key that finds its buffer full stays pending until
           // the block has flushed.  Every thread reaches each barrier.
@@ -391,16 +405,19 @@ l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 // Stage 2 of repro_l2_knn: one block per query merges the G sorted
 // partial top-kp lists (Select::merge_runs: runs of MERGE_RUN keys of
 // every list a round, stopping after a round that brings nothing below
-// the running kp-th best).
+// the running kp-th best); with floor_out, it leaves there the query's
+// last key (EMPTY if the rows ran out), the next pass's floor.
 __global__ void __launch_bounds__(THREADS)
 l2_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_d,
-                long long* __restrict__ out_i, int G, int kp) {
+                long long* __restrict__ out_i, u64* __restrict__ floor_out,
+                int G, int kp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int q = blockIdx.x;
   Select sel = Select::at(smem, 1, kp, Select::merge_len(kp, G), 0);
   sel.init(tid);
   sel.merge_runs(part + (size_t)q * G * kp, G, tid);
+  if (floor_out && tid == 0) floor_out[q] = sel.keys[kp - 1];
   for (int j = tid; j < kp; j += THREADS) {
     const u64 top = sel.keys[j];
     const size_t o = (size_t)q * kp + j;
@@ -455,12 +472,17 @@ extern "C" long long repro_l2_knn_smem(int kp) {
 // Q (nq, d), X (n, d) float32; part (nq, G, kp) uint64 scratch; out_d
 // (nq, kp) float32, out_i (nq, kp) int64; all contiguous on `device`.
 // Rows are split into G chunks of chunk_rows (a multiple of 512), one
-// block per (query group, chunk).  Launches both stages on `stream` and
-// returns cudaGetLastError().
+// block per (query group, chunk).  A call above MAX_KP runs in passes:
+// floor_in (nq,) (nullptr on the first pass; kp > 256 on the others)
+// holds each query's last key of the pass before, and only keys after
+// it are offered; floor_out (or nullptr) gets this pass's last keys (it
+// may be floor_in: the scan has read it before the merge writes).
+// Launches both stages on `stream` and returns cudaGetLastError().
 extern "C" int repro_l2_knn(const float* Q, const float* X, u64* part,
-                            float* out_d, long long* out_i, int nq, int n,
-                            int d, int kp, int chunk_rows, int G, int device,
-                            cudaStream_t stream) {
+                            float* out_d, long long* out_i,
+                            const u64* floor_in, u64* floor_out, int nq,
+                            int n, int d, int kp, int chunk_rows, int G,
+                            int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
@@ -470,28 +492,28 @@ extern "C" int repro_l2_knn(const float* Q, const float* X, u64* part,
       (long long)G * kp > (1LL << 31) - 1)
     return cudaErrorInvalidValue;
   const int qb = queries_per_block(kp);
+  if (floor_in && qb != 8) return cudaErrorInvalidValue;
   const size_t smem = knn_smem(kp);
   const dim3 grid((nq + qb - 1) / qb, G);
-  const void* kernel =
-      kp <= 128 ? reinterpret_cast<const void*>(l2_scan_kernel<8, DEEP, 8>)
-      : qb == 32 ? reinterpret_cast<const void*>(l2_scan_kernel<8, SHALLOW, 16>)
-                 : reinterpret_cast<const void*>(l2_scan_kernel<2, SHALLOW, 0>);
-  err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  if (kp <= 128)
-    l2_scan_kernel<8, DEEP, 8><<<grid, THREADS, smem, stream>>>(
-        Q, X, part, nq, n, d, kp, chunk_rows, G);
-  else if (qb == 32)
-    l2_scan_kernel<8, SHALLOW, 16><<<grid, THREADS, smem, stream>>>(
-        Q, X, part, nq, n, d, kp, chunk_rows, G);
-  else
-    l2_scan_kernel<2, SHALLOW, 0><<<grid, THREADS, smem, stream>>>(
-        Q, X, part, nq, n, d, kp, chunk_rows, G);
+#define REPRO_L2_SCAN(TQ, STAGES, E, FLOOR)                                \
+  do {                                                                      \
+    err = set_smem(reinterpret_cast<const void*>(                          \
+                       l2_scan_kernel<TQ, STAGES, E, FLOOR>), smem);        \
+    if (err != cudaSuccess) return err;                                     \
+    l2_scan_kernel<TQ, STAGES, E, FLOOR><<<grid, THREADS, smem, stream>>>(  \
+        Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G);                 \
+  } while (0)
+  if (kp <= 128) REPRO_L2_SCAN(8, DEEP, 8, false);
+  else if (qb == 32) REPRO_L2_SCAN(8, SHALLOW, 16, false);
+  else if (floor_in) REPRO_L2_SCAN(2, SHALLOW, 0, true);
+  else REPRO_L2_SCAN(2, SHALLOW, 0, false);
+#undef REPRO_L2_SCAN
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t msmem = Select::bytes(1, Select::merge_len(kp, G));
   err = set_smem(reinterpret_cast<const void*>(l2_merge_kernel), msmem);
   if (err != cudaSuccess) return err;
-  l2_merge_kernel<<<nq, THREADS, msmem, stream>>>(part, out_d, out_i, G, kp);
+  l2_merge_kernel<<<nq, THREADS, msmem, stream>>>(part, out_d, out_i,
+                                                  floor_out, G, kp);
   return cudaGetLastError();
 }

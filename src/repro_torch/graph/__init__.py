@@ -5,8 +5,9 @@
 (bit-identical `to_arrays()` with `core.hnsw`); `traverse` the torch
 lockstep walk (upper-layer greedy descent + layer-0 beam search, perf
 and oblivious variants); `filter` the `SecureSearchEngine` backend.  The
-layer-0 beam search runs in the graph_expand CUDA kernel, through its
-entry point `kernels.graph_expand.ops.graph_topk`.
+f32 perf walk (upper-layer descent and layer-0 beam search) runs in one
+launch of the graph_expand CUDA kernel, through its entry point
+`kernels.graph_expand.ops.graph_topk`.
 """
 
 from .csr import CSRGraph

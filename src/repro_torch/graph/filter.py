@@ -3,11 +3,10 @@
 
 The same owner-built HNSW over DCPE ciphertexts as `HNSWGraphFilter`,
 but the walk runs batched over the CSR mirror for the whole query set:
-the upper-layer descent in torch ops, then one launch of the
-graph_expand CUDA kernel for the layer-0 beam search (`kernels/
-graph_expand/ops.graph_topk`).  `oblivious=True` runs the bounded-hop,
-fixed-fanout torch walk (constant hop/edge counts) of the `hardened`
-tier.  `quantization="int8"|"pq8"` scores edges with the ADC surrogates
+one launch of the graph_expand CUDA kernel for the upper-layer descent
+and the layer-0 beam search (`kernels/graph_expand/ops.graph_topk`).
+`oblivious=True` runs the bounded-hop, fixed-fanout torch walk
+(constant hop/edge counts) of the `hardened` tier.  `quantization="int8"|"pq8"` scores edges with the ADC surrogates
 of `core.adc` (codebook trained keylessly at attach, as `ADCFilter`
 does) and oversamples candidates for the exact refine; as in the
 reference, those walks and the oblivious one run the torch walk, and

@@ -16,8 +16,10 @@ only (row capacity R, beam capacity ef_cap, padded layer count LU):
 Edge scoring is a `quant` mode: "f32" exact ciphertext distances,
 "int8"/"pq8" the ADC surrogate distances of the `core.adc` codebooks.
 
-`beam_layer0` is the plain version of the graph_expand CUDA kernel,
-which runs the layer-0 search on the card; it lives beside the kernel
+`traverse` is the plain version of the graph_expand CUDA kernel's
+`graph_walk` entry, which runs the whole f32 perf walk (descent and
+layer 0) on the card; `beam_layer0`, the plain version of its
+`expand_layer0` entry, lives beside the kernel
 (`kernels/graph_expand/ref.py`) and is re-exported here.
 Ids equal the JAX walk's because every tie rule is kept: `jnp.argmin`
 and `torch.argmin` both return the first minimum, and the merge is a
@@ -26,8 +28,8 @@ gives), never `torch.topk`.
 
 The loops are host loops: the early-exit conditions (`jnp.any(~done)`
 in the JAX `while_loop`s) cost one `.item()` per step here.  On the card
-the layer-0 loop runs inside the kernel; the upper-layer descent is a
-few steps per layer.
+the f32 perf walk runs inside the kernel, one warp per query; the int8,
+pq8 and oblivious walks run these loops.
 
 `oblivious=True` is the bounded-hop fixed-fanout variant of the
 `hardened` profile: the loops always run their static trip counts and

@@ -2,7 +2,7 @@
 
 l2_topk      — filter-phase squared-L2 distance tiles + streaming k-NN
 dce_comp     — refine-phase batched DCE DistanceComp (pairwise Z) tiles
-graph_expand — layer-0 beam search of the batched HNSW graph filter
+graph_expand — the batched HNSW graph walk (descent + layer-0 beam search)
 adc_topk     — quantized (int8 / PQ) ADC filter scan + fused top-kp
 
 Each kernel directory carries the dispatching wrapper (`<name>.py`:

@@ -16,6 +16,10 @@ from the same source and counts as one in `launches`:
       whose tables fit in shared memory) x (row chunks of a multiple of
       1024 rows); each block holds its queries' tables interleaved as
       [j][code][q] and sums 4 or 8 rows a lane; then the same merge.
+
+A kp above MAX_KP runs in passes of at most MAX_KP (`common.floor_passes`:
+each pass offers only the keys after its query's last key of the pass
+before), each pass counted in `launches`.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import on_cpu
+from ..common import floor_passes, on_cpu
 from .ref import INT_BIG
 from .ref import pq_adc_topk as plain_pq_adc_topk
 from .ref import sq_adc_topk as plain_sq_adc_topk
@@ -37,7 +41,7 @@ __all__ = ["sq_adc_topk", "pq_adc_topk", "plain_sq_adc_topk",
 # one launch); a caller auditing a run resets the counts to 0.
 launches = {"sq_adc_topk": 0, "pq_adc_topk": 0}
 
-MAX_KP = 1024                   # the kernels' largest top-kp
+MAX_KP = 1024                   # the kernels' largest top-kp a pass
 MAX_D = 2048                    # the int8 kernel's widest row
 PQ_K = 256
 # Mirrors csrc/adc_topk.cu: rows of a block's tile (chunks are whole
@@ -46,8 +50,8 @@ _TILE = {"sq": 256, "pq": 1024}
 _PQ_QUERIES_PER_BLOCK = (8, 4, 2, 1)     # the first whose tables fit
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 
-_SQ_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
-_PQ_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 8 + [_build.PTR]
+_SQ_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 7 + [_build.PTR]
+_PQ_ARGTYPES = [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR]
 
 
 def sq_queries_per_block(kp: int) -> int:
@@ -65,13 +69,13 @@ def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev):
-    """Check kp; take the queries a block (for K5 the largest that fits
-    the card's shared memory, refusing an m where one query's tables do
-    not); cut the rows into G chunks of whole tiles, about one block per
-    SM.  Returns (queries a block, chunk_rows, G)."""
+    """Check a pass's kp; take the queries a block (for K5 the largest
+    that fits the card's shared memory, refusing an m where one query's
+    tables do not); cut the rows into G chunks of whole tiles, about one
+    block per SM.  Returns (queries a block, chunk_rows, G)."""
     if kp > MAX_KP:
         raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
-                         f"{MAX_KP}")
+                         f"{MAX_KP} a pass")
     smem_fn = _build.function("repro_adc_smem_bytes", [_build.INT] * 4)
     smem_fn.restype = ctypes.c_longlong
     props = torch.cuda.get_device_properties(dev)
@@ -100,6 +104,10 @@ def _outputs(nq: int, kp: int, dtype, dev):
             torch.empty((nq, kp), dtype=torch.int64, device=dev))
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
                 ok: torch.Tensor, kp: int):
     """Fused int8 ADC scan + top-kp.
@@ -109,7 +117,7 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
     int64), ties to the lowest id; slots beyond the valid rows are
     (INT_BIG, -1).  kp = min(kp, n).  CUDA tensors must have those dtypes
     and be contiguous; the kernels run on the current stream without
-    synchronizing."""
+    synchronizing (a kp above MAX_KP waits for each pass's ids)."""
     if on_cpu(q8, c8, cn, ok):
         return plain_sq_adc_topk(q8, c8, cn, ok, kp)
     if (q8.dim() != 2 or c8.dim() != 2 or q8.shape[1] != c8.shape[1]
@@ -132,17 +140,21 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
     dev = q8.device
     if kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.int32, dev)
-    _, chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
-    out_d, out_i = _outputs(nq, kp, torch.int32, dev)
-    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
-    fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
-    err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
-             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, d,
-             kp, chunk_rows, G, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "adc_topk.sq_adc_topk")
-    launches["sq_adc_topk"] += 1
-    return out_d, out_i
+
+    def one_pass(kp, floor_in, floor_out):
+        _, chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
+        out_d, out_i = _outputs(nq, kp, torch.int32, dev)
+        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+        fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
+        err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
+                 part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                 _ptr(floor_in), _ptr(floor_out), nq, n, d, kp, chunk_rows,
+                 G, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "adc_topk.sq_adc_topk")
+        launches["sq_adc_topk"] += 1
+        return out_d, out_i
+
+    return floor_passes(kp, MAX_KP, nq, one_pass, INT_BIG, dev)
 
 
 def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
@@ -176,14 +188,19 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
     dev = lut.device
     if kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.float32, dev)
-    qb, chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
-    out_d, out_i = _outputs(nq, kp, torch.float32, dev)
-    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
-    fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
-    err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
-             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), nq, n, m,
-             kp, qb, chunk_rows, G, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "adc_topk.pq_adc_topk")
-    launches["pq_adc_topk"] += 1
-    return out_d, out_i
+
+    def one_pass(kp, floor_in, floor_out):
+        qb, chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
+        out_d, out_i = _outputs(nq, kp, torch.float32, dev)
+        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+        fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
+        err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
+                 part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                 _ptr(floor_in), _ptr(floor_out), nq, n, m, kp, qb,
+                 chunk_rows, G, dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "adc_topk.pq_adc_topk")
+        launches["pq_adc_topk"] += 1
+        return out_d, out_i
+
+    return floor_passes(kp, MAX_KP, nq, one_pass, float("inf"), dev)

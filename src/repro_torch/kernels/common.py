@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["next_bucket", "running_topk_scan", "top_positions", "pad_to",
-           "padded_size", "on_cpu"]
+           "padded_size", "on_cpu", "pass_sizes", "floor_passes"]
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -94,3 +94,41 @@ def pad_to(x: torch.Tensor, axis: int, multiple: int,
 
 def padded_size(n: int, multiple: int) -> int:
     return n + ((-n) % multiple)
+
+
+def pass_sizes(k: int, most: int) -> list[int]:
+    """k slots as ceil(k / most) passes of near-equal size, the larger
+    first; above `most`, every pass takes at least most / 2."""
+    p = -(-k // most)
+    return [k // p + (i < k % p) for i in range(p)]
+
+
+def floor_passes(k: int, most: int, nq: int, one_pass, fill, device):
+    """The first k keys of each query from a fused scan + top-k kernel
+    that keeps at most `most`: one pass where k <= most, else passes of
+    `pass_sizes(k, most)`, each offering only the keys after its query's
+    floor key, the last key of the pass before.  `one_pass(kp, floor_in,
+    floor_out)` runs one pass: it reads floor_in ((nq,) int64 key bits;
+    None on the first pass) and leaves its own last keys in floor_out;
+    it returns (dists (nq, kp), ids (nq, kp)), ids -1 where the valid
+    rows ran out.  The passes stop
+    when every query ran out, and the rest is (fill, -1).  Each pass
+    computes the same distances and keys, so the joined lists are the
+    first k keys in the stable sort's order.  -> (dists (nq, k), ids)."""
+    if k <= most:
+        return one_pass(k, None, None)
+    sizes = pass_sizes(k, most)
+    floor = torch.empty(nq, dtype=torch.int64, device=device)
+    dists, ids = [], []
+    for i, kp in enumerate(sizes):
+        d, idx = one_pass(kp, floor if i else None, floor)
+        dists.append(d)
+        ids.append(idx)
+        left = sum(sizes[i + 1:])
+        if left and not bool((idx[:, -1] >= 0).any()):
+            dists.append(torch.full((nq, left), fill, dtype=d.dtype,
+                                    device=device))
+            ids.append(torch.full((nq, left), -1, dtype=idx.dtype,
+                                  device=device))
+            break
+    return torch.cat(dists, 1), torch.cat(ids, 1)

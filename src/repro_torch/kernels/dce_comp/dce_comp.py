@@ -4,7 +4,8 @@ The kernels (`csrc/dce_comp.cu`) replace both Pallas TPU kernels of
 `repro/kernels/dce_comp/dce_comp.py` and their consumers:
 
   batched_z_matrix — the Z tiles, stored (`batched_z_matrix` directly,
-      `z_matrix` as its B = 1 case);
+      `z_matrix` as its B = 1 case), with the column tiles split over
+      more blocks where the rows alone leave SMs idle (`z_plan`);
   refine_topk — the same main loop fused with the candidate gather, the
       win count and the top-k by wins (`search_engine.refine_candidates`
       with `ops.batched_top_k_by_wins`): two launches, a Z + win count
@@ -23,7 +24,7 @@ from ..common import on_cpu
 from .ref import batched_z_matrix as plain_batched_z_matrix
 from .ref import refine_topk as plain_refine_topk
 
-__all__ = ["batched_z_matrix", "z_matrix", "refine_topk",
+__all__ = ["batched_z_matrix", "z_matrix", "refine_topk", "z_plan",
            "plain_batched_z_matrix", "plain_z_matrix", "plain_refine_topk",
            "launches"]
 
@@ -34,13 +35,32 @@ __all__ = ["batched_z_matrix", "z_matrix", "refine_topk",
 launches = {"batched_z_matrix": 0, "refine_topk": 0}
 
 _MAX_BATCH = 65535          # one grid y-slice per query
-_Z_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
+_Z_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 6 + [_build.PTR]
+# Mirrors csrc/dce_comp.cu: row and column thread groups, columns of a
+# j-tile, the largest rows a thread.
+_GROUPS, _TJ, _MAX_RI = 16, 80, 5
+_SMS = 132                  # H100 SXM streaming multiprocessors
 _REFINE_ARGTYPES = ([_build.PTR, _build.LONG] + [_build.PTR] * 5
                     + [_build.INT] * 5 + [_build.PTR])
 
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def z_plan(B: int, n: int, sms: int = _SMS):
+    """The Z entry's block plan: (RI, splits).  The ceil(n / 80) j-tiles
+    are cut into `splits` ranges over a third grid dimension, as many as
+    still let B x ceil(n / 16 RI) x splits blocks fit the SMs once, with
+    the smallest RI (rows a thread, 1..5) that does; where even one range
+    does not fit, RI 5 and no split.  At n 512, B 1: RI 2 and 7 ranges, 112
+    blocks (RI 1 and no split, the refine's rule, gives 32): each block
+    walks all of D for its tile, so fewer, fuller blocks finish sooner."""
+    for splits in range(-(-n // _TJ), 0, -1):
+        for ri in range(1, _MAX_RI + 1):
+            if B * -(-n // (_GROUPS * ri)) * splits <= sms:
+                return ri, splits
+    return _MAX_RI, 1
 
 
 def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -66,8 +86,12 @@ def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     if B > _MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {_MAX_BATCH}")
     Z = torch.empty((B, n, n), dtype=torch.float32, device=C.device)
+    if B == 0 or n == 0:
+        return Z
+    ri, splits = z_plan(B, n, torch.cuda.get_device_properties(
+        C.device).multi_processor_count)
     fn = _build.function("repro_dce_batched_z", _Z_ARGTYPES)
-    err = fn(C.data_ptr(), T.data_ptr(), Z.data_ptr(), B, n, D,
+    err = fn(C.data_ptr(), T.data_ptr(), Z.data_ptr(), B, n, D, ri, splits,
              C.device.index, _stream(C.device))
     _build.check(err, "dce_comp.batched_z_matrix")
     launches["batched_z_matrix"] += 1

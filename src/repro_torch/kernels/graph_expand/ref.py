@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the graph_expand kernel: the layer-0 beam
-search of the batched graph walk, with its edge scoring (exact f32, or
-the int8 / PQ ADC surrogates).  `graph.traverse` builds the full walk on
-it (see its docstring for the tie rules that keep the ids equal to the
-JAX walk's)."""
+"""Plain PyTorch version of the graph_expand kernel's layer-0 entry
+(`expand_layer0`): the layer-0 beam search of the batched graph walk,
+with its edge scoring (exact f32, or the int8 / PQ ADC surrogates).
+`graph.traverse` builds the full walk on it, the plain version of the
+kernel's `graph_walk` entry (see its docstring for the tie rules that
+keep the ids equal to the JAX walk's)."""
 
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def beam_layer0(neigh0, ok, db, qd, ep, ep_d, ef: int, *, kp: int,
                 oblivious: bool = False, hops=None, edges=None):
     """Phase 2: lockstep best-first beam search over the layer-0 rows,
     starting each query at its descent endpoint ep/ep_d.  The plain
-    version of the graph_expand kernel.
+    version of the graph_expand kernel's `expand_layer0` entry.
 
     Returns (cand (nq, kp) int32 with -1 fill, cand_d (nq, kp) f32
     (+inf fill), visited (nq, R) bool scan trace, hops (nq,) int32,

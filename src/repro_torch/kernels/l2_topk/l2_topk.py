@@ -7,7 +7,8 @@ loop of its wrapper `repro/kernels/l2_topk/ops.py :: knn`:
   pairwise_sq_dists — the distance tiles, stored: (nq, n);
   knn — the same tiles fused with a per-query running top-k in shared
       memory: one call scans the whole database (two launches, a scan
-      and a per-query merge, counted as one in `launches`).
+      and a per-query merge, counted as one in `launches`); a k above
+      MAX_KP runs in passes of at most MAX_KP, each counted.
 
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
 they run the plain versions beside them, `plain_pairwise_sq_dists` and
@@ -21,7 +22,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import on_cpu
+from ..common import floor_passes, on_cpu
 from .ref import pairwise_sq_dists as plain_pairwise_sq_dists
 from .ref import scan_knn as plain_knn
 
@@ -32,14 +33,14 @@ __all__ = ["pairwise_sq_dists", "knn", "plain_pairwise_sq_dists",
 # as one launch); a caller auditing a run resets the counts to 0.
 launches = {"pairwise_sq_dists": 0, "knn": 0}
 
-MAX_KP = 1024                   # the fused scan's largest top-k
+MAX_KP = 1024                   # the fused scan's largest top-k a pass
 # Mirrors csrc/l2_topk.cu: rows of a block tile, which set how the rows
 # are cut into chunks.
 _ROWS = 512
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 
 _TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
-_KNN_ARGTYPES = [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR]
+_KNN_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
 
 
 def _check_operands(Q: torch.Tensor, X: torch.Tensor, what: str) -> None:
@@ -78,12 +79,12 @@ def pairwise_sq_dists(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
 
 def _plan(nq: int, n: int, k: int, dev):
-    """Check k and the shared memory a block needs; cut the rows into G
-    chunks of a multiple of _ROWS rows, one block per SM and query
+    """Check a pass's k and the shared memory a block needs; cut the rows
+    into G chunks of a multiple of _ROWS rows, one block per SM and query
     group.  Returns (chunk_rows, G)."""
     if k > MAX_KP:
         raise ValueError(f"k={k} exceeds the fused l2 scan's limit of "
-                         f"{MAX_KP}")
+                         f"{MAX_KP} a pass")
     smem_fn = _build.function("repro_l2_knn_smem", [_build.INT])
     smem_fn.restype = ctypes.c_longlong
     need = smem_fn(k)
@@ -101,14 +102,15 @@ def _plan(nq: int, n: int, k: int, dev):
 
 
 def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
-    """Exact k-NN of each query against X, in one scan.
+    """Exact k-NN of each query against X, in one scan (a pass of at most
+    MAX_KP each for a larger k: `common.floor_passes`).
 
     Q: (nq, d), X: (n, d)  ->  (dists (nq, k) float32 ascending, ids
     (nq, k) int64), ties to the lowest id; k = min(k, n).  Distances are
     ||q||^2 - 2 q.x + ||x||^2 in true fp32.  CUDA tensors must be float32
-    and contiguous, and k <= MAX_KP; the kernels run on the current
-    stream without synchronizing.  `chunk` is the plain version's block
-    of rows (CPU tensors only)."""
+    and contiguous; the kernels run on the current stream without
+    synchronizing.  `chunk` is the plain version's block of rows (CPU
+    tensors only)."""
     if on_cpu(Q, X):
         return plain_knn(Q, X, k, chunk=chunk)
     _check_operands(Q, X, "knn")
@@ -116,16 +118,23 @@ def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
     n = X.shape[0]
     k = min(int(k), n)
     dev = Q.device
-    out_d = torch.empty((nq, max(k, 0)), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, max(k, 0)), dtype=torch.int64, device=dev)
     if k <= 0 or nq == 0:
+        return (torch.empty((nq, max(k, 0)), dtype=torch.float32, device=dev),
+                torch.empty((nq, max(k, 0)), dtype=torch.int64, device=dev))
+
+    def one_pass(kp, floor_in, floor_out):
+        out_d = torch.empty((nq, kp), dtype=torch.float32, device=dev)
+        out_i = torch.empty((nq, kp), dtype=torch.int64, device=dev)
+        chunk_rows, G = _plan(nq, n, kp, dev)
+        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+        fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
+        err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(),
+                 out_d.data_ptr(), out_i.data_ptr(),
+                 None if floor_in is None else floor_in.data_ptr(),
+                 None if floor_out is None else floor_out.data_ptr(), nq, n,
+                 d, kp, chunk_rows, G, dev.index, _stream(dev))
+        _build.check(err, "l2_topk.knn")
+        launches["knn"] += 1
         return out_d, out_i
-    chunk_rows, G = _plan(nq, n, k, dev)
-    part = torch.empty((nq, G, k), dtype=torch.int64, device=dev)
-    fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
-    err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(), out_d.data_ptr(),
-             out_i.data_ptr(), nq, n, d, k, chunk_rows, G, dev.index,
-             _stream(dev))
-    _build.check(err, "l2_topk.knn")
-    launches["knn"] += 1
-    return out_d, out_i
+
+    return floor_passes(k, MAX_KP, nq, one_pass, float("inf"), dev)

@@ -14,7 +14,8 @@ Counterpart of `repro.serving.search_engine`:
                of the ciphertexts; the flat kind runs the adc_topk CUDA
                kernels (scan and top-k' fused, one call per batch);
              * `repro_torch.graph.GraphFilter` — the batched HNSW walk,
-               its layer-0 beam search in the graph_expand CUDA kernel;
+               its descent and layer-0 beam search in one launch of the
+               graph_expand CUDA kernel;
              * HNSWGraphFilter — the per-query host walk, kept as the
                graph filter's parity oracle.
   refine:  one batched DCE tournament over the candidate sets through the

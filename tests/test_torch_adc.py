@@ -32,7 +32,7 @@ from repro.kernels.adc_topk import ops as j_adc_ops
 from repro.kernels.adc_topk import ref as j_adc_ref
 from repro.serving import search_engine as jse
 from repro_torch.core import adc, ivf, ppanns
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, common
 from repro_torch.kernels.adc_topk import adc_topk
 from repro_torch.kernels.adc_topk import ops as adc_ops
 from repro_torch.kernels.adc_topk import ref as adc_ref
@@ -532,11 +532,12 @@ def _merge_runs(lists: torch.Tensor, kp: int):
 
 
 def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int, qb: int,
-             chunk_rows: int, kind: str, big):
+             chunk_rows: int, kind: str, big, floor=None):
     """Both stages of K4 (kind "sq") or K5 ("pq") over a (nq, n)
     distance matrix: blocks of qb queries x chunks of chunk_rows rows
     walked in the kernel's tiles (masked rows and sentinel distances never
-    offered), each chunk's partial the first kp keys of its states; then
+    offered, nor, with `floor` (nq,) keys, the keys up to the query's
+    floor), each chunk's partial the first kp keys of its states; then
     the per-query merge.  -> (dists, ids, the blocks' segments)."""
     tile, warps, is_float = TILE[kind], WARPS[kind], kind == "pq"
     nq, n = d_full.shape
@@ -552,11 +553,13 @@ def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int, qb: int,
             for t0 in range(r0, r1, tile):
                 t1 = min(r1, t0 + tile)
                 keep = ok[t0:t1] != 0
-                tiles.append([_keys(d_full[q, t0:t1][keep & (d_full[q, t0:t1]
-                                                              < big)],
-                                    ids[t0:t1][keep & (d_full[q, t0:t1]
-                                                       < big)], is_float)
-                              for q in qs])
+                keys = [_keys(d_full[q, t0:t1][keep & (d_full[q, t0:t1]
+                                                       < big)],
+                              ids[t0:t1][keep & (d_full[q, t0:t1] < big)],
+                              is_float) for q in qs]
+                if floor is not None:
+                    keys = [k[k > floor[q]] for k, q in zip(keys, qs)]
+                tiles.append(keys)
             segs = _scan_block(tiles, kp, warps)
             segments += segs
             for q, s in zip(qs, segs):
@@ -656,6 +659,53 @@ def test_pq_kernel_blocking_emulated_equals_oracle(nq, n, m, kp, valid, dup,
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     _same(got_d.numpy(), want_d)
     assert all(s.buf.numel() == 0 for s in segs)
+
+
+def _last_keys(d, ids, is_float):
+    """What a pass's merge leaves in floor_out: each query's last key,
+    EMPTY where its valid rows ran out."""
+    return torch.where(ids[:, -1] < 0, EMPTY,
+                       _keys(d[:, -1], ids[:, -1].clamp(min=0), is_float))
+
+
+@pytest.mark.parametrize("kind,nq,n,width,valid", [
+    ("sq", 3, 2500, 16, 1.0),
+    ("sq", 2, 2000, 17, 0.6),        # 1200 valid rows: pass 2 runs out
+    ("pq", 3, 2500, 8, 1.0),
+    ("pq", 2, 3000, 4, 0.2),         # 600 valid: pass 1 runs out, stop
+])
+def test_adc_floor_passes_emulated_equal_oracle(kind, nq, n, width, valid):
+    """kp 1600 > MAX_KP: `common.floor_passes` over the emulated kernel,
+    each pass offering only the keys after its query's floor key, equals
+    the oracle's first 1600 slots, exhausted slots included."""
+    kp = 1600
+    is_float = kind == "pq"
+    ok = np.random.default_rng(n).random(n) < valid
+    if is_float:
+        lut, codes_t = _pq_case(nq, n, width, seed=n, dup=300)
+        full, big = j_adc_ref.pq_dists(lut, codes_t), float("inf")
+    else:
+        q8, c8, cn = _sq_case(nq, n, width, seed=n, dup=300)
+        full, big = j_adc_ref.sq_dists(q8, c8, cn), INT_BIG
+    full = np.asarray(full)
+    sizes, calls = common.pass_sizes(kp, adc_topk.MAX_KP), []
+
+    def one_pass(p, floor_in, floor_out):
+        calls.append(p)
+        qb = (_pq_queries_per_block(p, width) if is_float
+              else adc_topk.sq_queries_per_block(p))
+        d, i, _ = _emulate(_t(full), _t(ok), p, qb, 1024, kind, big,
+                           floor=floor_in)
+        floor_out.copy_(_last_keys(d, i, is_float))
+        return d, i
+
+    got_d, got_i = common.floor_passes(kp, adc_topk.MAX_KP, nq, one_pass,
+                                       big, "cpu")
+    want_d, want_i = _oracle(full, ok, kp, big)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_d.numpy(), want_d)
+    assert sizes == [800, 800]
+    assert calls == (sizes[:1] if ok.sum() < sizes[0] else sizes)
 
 
 def _refill_case(kind, n):
@@ -792,6 +842,39 @@ def test_engine_ids_and_stats_equal_jax(corpus, kw):
     if teng.backend.name.startswith("adc-flat"):
         code = teng.backend.codebook.code_bytes_per_vector()
         assert gst.filter_bytes_scanned == ds.n * code
+
+
+@pytest.fixture(scope="module")
+def corpus_2k():
+    ds = synth.make_dataset("deep1m", n=2000, n_queries=4, k_gt=30, seed=22,
+                            d=32)
+    beta = jdcpe.suggest_beta(ds.base, fraction=0.03)
+    owner = ppanns.DataOwner(d=ds.d, sap_beta=beta, seed=22)
+    db = owner.encrypt_database(ds.base, build_index=False)
+    user = ppanns.User(owner.share_keys())
+    qs, ts = zip(*(user.encrypt_query(q) for q in ds.queries))
+    return ds, db, np.stack(qs), np.stack(ts)
+
+
+@pytest.mark.parametrize("kw,k", [({}, 200),
+                                  (dict(quantization="int8"), 100),
+                                  (dict(quantization="pq8"), 50)],
+                         ids=["flat-k200", "int8-k100", "pq8-k50"])
+def test_engine_at_k_prime_1600_equals_jax(corpus_2k, kw, k):
+    """ratio_k 8 at these k gives 1600 candidates (k' 1600 flat; 800 x 2
+    and 400 x 4 oversampled for int8 and pq8), above the fused kernels'
+    1024 a pass: the port's engine returns the JAX engine's ids and
+    SearchStats."""
+    ds, db, Q, T = corpus_2k
+    jeng = jse.SecureSearchEngine(db.C_sap, db.C_dce, backend="flat", **kw)
+    teng = se.SecureSearchEngine(db.C_sap, db.C_dce, backend="flat",
+                                 device=CPU, **kw)
+    want, wst = jeng.search_batch(Q, T, k, ratio_k=8)
+    got, gst = teng.search_batch(Q, T, k, ratio_k=8)
+    np.testing.assert_array_equal(got, want)
+    for f in COUNTS:
+        assert getattr(gst, f) == getattr(wst, f), f
+    assert gst.refine_comparisons == Q.shape[0] * 1600 * 1599
 
 
 def test_adc_filter_codebook_and_oversampling_equal_jax(corpus):

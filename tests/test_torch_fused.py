@@ -21,7 +21,7 @@ from repro.core import dce as jdce
 from repro.kernels.dce_comp import ops as j_dce_ops
 from repro.kernels.l2_topk import ops as j_l2_ops
 from repro.serving import search_engine as jse
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, common
 from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.dce_comp import ref as t_dce_ref
 from repro_torch.kernels.l2_topk import l2_topk
@@ -58,9 +58,12 @@ def _t(x):
 # with a flush after each run).
 # ---------------------------------------------------------------------------
 
-def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
-    """The fused scan's selection over a (nq, n) float32 distance matrix:
-    -> (dists (nq, kp), ids (nq, kp)) decoded from the merged keys."""
+def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int,
+                 floor=None):
+    """The fused scan's selection over a (nq, n) float32 distance matrix,
+    with `floor` (nq,) keys offering only the keys after the query's
+    floor: -> (dists (nq, kp), ids (nq, kp)) decoded from the merged
+    keys."""
     nq, n = d_full.shape
     kp = min(kp, n)
     ids = torch.arange(n, dtype=torch.int64)
@@ -73,8 +76,10 @@ def _emulate_knn(d_full: torch.Tensor, kp: int, chunk_rows: int):
             sel = _Select(kp, S1)
             for t0 in range(r0, r1, ROWS):
                 t1 = min(r1, t0 + ROWS)
-                sel.offer_until_placed(_keys(d_full[q, t0:t1], ids[t0:t1],
-                                             True))
+                keys = _keys(d_full[q, t0:t1], ids[t0:t1], True)
+                if floor is not None:
+                    keys = keys[keys > floor[q]]
+                sel.offer_until_placed(keys)
             sel.flush()
             parts.append(sel.state[:kp])
         lists = torch.stack(parts)                       # (G, kp) sorted
@@ -107,6 +112,37 @@ def test_knn_kernel_blocking_emulated_equals_jax(nq, n, d, k, chunk_rows,
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(got_d.numpy(), np.asarray(jd),
                                rtol=L2_RTOL, atol=0)
+
+
+def test_knn_floor_passes_emulated_equal_jax():
+    """k' 1600 > MAX_KP: two passes of 800 through `common.floor_passes`,
+    the second offering only the keys after each query's last key of the
+    first (which the merge leaves in floor_out): the joined lists equal
+    the JAX package's knn at k' 1600, ties (duplicated rows) included."""
+    nq, n, d, k = 3, 2500, 16, 1600
+    rng = np.random.default_rng(k)
+    X = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    X[n - 400:] = X[:400]
+    Q = rng.integers(-3, 4, size=(nq, d)).astype(np.float32)
+    jd, ji = j_l2_ops.knn(jnp.asarray(Q), jnp.asarray(X), k, interpret=True)
+    full = l2_topk.plain_pairwise_sq_dists(_t(Q), _t(X))
+    calls = []
+
+    def one_pass(kp, floor_in, floor_out):
+        calls.append((kp, floor_in is None))
+        got = _emulate_knn(full, kp, 1024, floor=floor_in)
+        floor_out.copy_(_keys(got[0][:, -1], got[1][:, -1], True))
+        return got
+
+    got_d, got_i = common.floor_passes(k, l2_topk.MAX_KP, nq, one_pass,
+                                       float("inf"), "cpu")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(jd),
+                               rtol=L2_RTOL, atol=0)
+    assert calls == [(800, True), (800, False)]
+    # the wrapper's plain version (CPU tensors) gives the same ids
+    _, plain_i = l2_topk.knn(_t(Q), _t(X), k)
+    np.testing.assert_array_equal(plain_i.numpy(), np.asarray(ji))
 
 
 @pytest.mark.parametrize("n,d,k", [(2000, 128, 80), (700, 33, 40)])

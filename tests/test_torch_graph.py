@@ -225,91 +225,169 @@ def test_adc_scoring_names_its_slice(setup):
 # The kernel's rules, emulated per query on the CPU.
 # ---------------------------------------------------------------------------
 
-def _emulate_kernel(neigh0, ok, D, ep, ep_d, ef, ef_cap, max_hops):
-    """The CUDA kernel's per-query loop (csrc/graph_expand.cu) in numpy:
-    first-slot argmin, the break rule against slot ef-1, all visited bits
-    read before any is set (packed words), the rank merge into a second
-    buffer with the slots >= ef written inert.  D (nq, R) holds the
-    exact edge distances."""
+def _emulate_kernel(neigh0, neigh_up, ok, D, entry, ef, ef_cap, max_hops, *,
+                    pool=True, svis=True, ep=None, ep_d=None):
+    """The CUDA kernel's per-query program (csrc/graph_expand.cu) in numpy.
+
+    graph_walk (ep None): the start at `entry`, the greedy descent of the
+    upper layers (first minimum, strict improvement, GREEDY_BOUND steps,
+    hops and valid edges counted, no visited bit), then layer 0;
+    expand_layer0: layer 0 from ep / ep_d.  Layer 0 keeps a beam of ef
+    slots: the first unexpanded slot (from the lowest slot that can hold
+    one) is selected; the break rule against slot ef-1; the selected
+    entry's neighbour row from its pool row (`pool`: the adjacency copied
+    when it was scored, into the staging row it held) or from neigh0;
+    visited bits all read before any is set, from the on-chip bitmap
+    before the copies (`svis`) or with them (the output words); the
+    merge by ranks: fresh neighbour m to slot lb_m + rank_m (lb_m by a
+    binary search of the beam), beam entry s to s + #{fresh m : lb_m <=
+    s}; the pool rows of the entries pushed out and of the neighbours
+    not kept staged again.  D (nq, R) holds the exact edge distances."""
     nq, R = D.shape
     M0 = neigh0.shape[1]
     inf = np.float32(np.inf)
-    out_i = np.empty((nq, ef_cap), np.int32)
-    out_d = np.empty((nq, ef_cap), np.float32)
+    out_i = np.full((nq, ef_cap), -1, np.int32)
+    out_d = np.full((nq, ef_cap), inf, np.float32)
     words = np.zeros((nq, (R + 31) // 32), np.uint32)
     hops = np.zeros(nq, np.int32)
     edges = np.zeros(nq, np.int32)
     for q in range(nq):
         vis = words[q]
-        bd = np.full(ef_cap, inf, np.float32)
-        bi = np.full(ef_cap, -1, np.int32)
-        bx = np.ones(ef_cap, bool)
-        e = int(ep[q])
-        if e >= 0:
-            bd[0], bi[0], bx[0] = ep_d[q], e, False
-            vis[e >> 5] |= np.uint32(1 << (e & 31))
-        for _ in range(max_hops if e >= 0 else 0):
-            du = np.where(bx, inf, bd)
-            j = min(range(ef_cap), key=lambda s: (du[s], s))
-            if np.isinf(du[j]) or du[j] > bd[ef - 1]:
-                break
-            nb = neigh0[max(int(bi[j]), 0)]
-            safe = np.maximum(nb, 0)
-            seen = (vis[safe >> 5] >> (safe & 31).astype(np.uint32)) & 1
-            fr = (nb >= 0) & ok[safe] & (seen == 0)
-            nd = D[q, safe]
-            nbd = np.full(ef_cap, np.nan, np.float32)
-            nbi = np.full(ef_cap, -2, np.int32)
-            nbx = np.zeros(ef_cap, bool)
 
-            def put(p, v, i, x):
-                if p < ef:
-                    nbd[p], nbi[p], nbx[p] = v, i, x
-                elif p < ef_cap:
-                    nbd[p], nbi[p], nbx[p] = inf, -1, True
+        def seen(ids):
+            s = np.maximum(ids, 0)
+            return ((vis[s >> 5] >> (s & 31).astype(np.uint32)) & 1) == 1
 
-            for s in range(ef_cap):
-                put(s + int((fr & (nd < bd[s])).sum()), bd[s], bi[s],
-                    bx[s] or s == j)
-            for m in range(M0):
-                if not fr[m]:
-                    continue
-                vis[nb[m] >> 5] |= np.uint32(1 << (int(nb[m]) & 31))
-                earlier = fr & ((nd < nd[m]) | ((nd == nd[m])
-                                                & (np.arange(M0) < m)))
-                put(int((bd <= nd[m]).sum() + earlier.sum()), nd[m], nb[m],
-                    False)
-            assert (nbi != -2).all()          # a permutation: all written
-            bd, bi, bx = nbd, nbi, nbx
-            hops[q] += 1
-            edges[q] += int(fr.sum())
-        out_i[q], out_d[q] = bi, bd
+        def mark(i):
+            vis[i >> 5] |= np.uint32(1 << (int(i) & 31))
+
+        h = e = 0
+        if ep is not None:
+            cur, cur_d = int(ep[q]), np.float32(ep_d[q])
+        else:
+            cur = entry
+            cur_d = D[q, entry] if entry >= 0 and ok[entry] else inf
+            if np.isinf(cur_d):
+                cur = -1
+            for li in reversed(range(neigh_up.shape[0])):
+                for _ in range(traverse.GREEDY_BOUND if cur >= 0 else 0):
+                    ids = neigh_up[li, cur]
+                    valid = (ids >= 0) & ok[np.maximum(ids, 0)]
+                    d = np.where(valid, D[q, np.maximum(ids, 0)], inf)
+                    m = int(np.argmin(d))                 # first minimum
+                    h += 1
+                    e += int(valid.sum())
+                    if not d[m] < cur_d:
+                        break
+                    cur, cur_d = int(ids[m]), d[m]
+        if cur >= 0:
+            bd = np.full(ef, inf, np.float32)
+            bi = np.full(ef, -1, np.int32)
+            bx = np.ones(ef, bool)
+            bd[0], bi[0], bx[0] = cur_d, cur, False
+            hd = np.arange(ef)                   # pool rows of the slots
+            stage = np.arange(ef, ef + M0)       # and the staging rows
+            rows = {0: neigh0[cur].copy()}
+            mark(cur)
+            start = 0
+            for _ in range(max_hops):
+                unexp = [s for s in range(start, ef) if not bx[s]]
+                if not unexp or np.isinf(bd[unexp[0]]) \
+                        or bd[unexp[0]] > bd[ef - 1]:
+                    break
+                j = unexp[0]
+                assert (rows[hd[j]] == neigh0[bi[j]]).all()
+                ids = rows[hd[j]] if pool else neigh0[bi[j]]
+                cand = ids >= 0
+                if svis:
+                    cand &= ~seen(ids)
+                for m in np.flatnonzero(cand):   # copies with the rows
+                    rows[stage[m]] = neigh0[ids[m]].copy()
+                fresh = cand & ok[np.maximum(ids, 0)]
+                if not svis:
+                    fresh &= ~seen(ids)
+                nd = D[q, np.maximum(ids, 0)]
+                nf = int(fresh.sum())
+                lb, slot = {}, {}
+                for m in np.flatnonzero(fresh):
+                    lo, hi = 0, ef                # #{s < ef : bd[s] <= v}
+                    while lo < hi:
+                        mid = (lo + hi) // 2
+                        lo, hi = (mid + 1, hi) if bd[mid] <= nd[m] \
+                            else (lo, mid)
+                    rank = sum(fresh[k] and (nd[k] < nd[m] or (
+                        nd[k] == nd[m] and k < m)) for k in range(M0))
+                    lb[m], slot[m] = lo, lo + rank
+                nbd, nbi = np.full(ef, np.nan, np.float32), bi.copy()
+                nbx, nhd = bx.copy(), np.full(ef, -1)
+                nstage = np.full(M0, -1)
+                for r, m in enumerate(np.flatnonzero(~fresh)):
+                    nstage[nf + r] = stage[m]
+
+                def put(p, v, i, x, h):
+                    if p < ef:
+                        assert np.isnan(nbd[p])   # each slot written once
+                        nbd[p], nbi[p], nbx[p], nhd[p] = v, i, x, h
+                    else:
+                        nstage[p - ef] = h
+
+                for m, p in slot.items():         # fresh m: lb_m + rank_m
+                    put(p, nd[m], ids[m], False, stage[m])
+                    mark(ids[m])
+                for s in range(ef):               # s + #{m : lb_m <= s}
+                    put(s + sum(v <= s for v in lb.values()), bd[s], bi[s],
+                        bx[s] or s == j, hd[s])
+                assert sorted([*nhd, *nstage]) == list(range(ef + M0))
+                bd, bi, bx, hd, stage = nbd, nbi, nbx, nhd, nstage
+                start = min(j, min(slot.values(), default=ef))
+                h += 1
+                e += nf
+            out_i[q, :ef], out_d[q, :ef] = bi, bd
+        hops[q], edges[q] = h, e
     return out_i, out_d, words, hops, edges
 
 
-@pytest.mark.parametrize("ef", [48, 64])
-def test_kernel_rules_emulated_equal_beam_layer0(ef):
+def _integer_graph(seed, R=256, M0=8, M=4, LU=5, empty_top=3, d=8, nq=6):
     """Integer coordinates (every fp32 sum exact, in any order) and
     duplicated rows and ids, so equal distances occur on every hop: the
-    tie rules, not rounding, decide the beam."""
-    rng = np.random.default_rng(ef)
-    R, M0, d, nq, ef_cap = 256, 8, 8, 6, 64
+    tie rules, not rounding, decide the beam.  Upper layers: the top
+    `empty_top` of LU padded with -1 rows only (an empty padded layer),
+    the others with neighbour rows on a shrinking set of nodes."""
+    rng = np.random.default_rng(seed)
     C = rng.integers(-3, 4, size=(R, d)).astype(np.float32)
     C[R // 2:] = C[: R // 2]                     # every row twice
     neigh0 = rng.integers(0, R, size=(R, M0)).astype(np.int32)
     neigh0[:, 1] = neigh0[:, 0]                  # a duplicated id per row
     neigh0[rng.random((R, M0)) < 0.15] = -1
     ok = rng.random(R) > 0.05
+    neigh_up = np.full((LU, R, M), -1, np.int32)
+    for li in range(LU - empty_top):
+        nodes = rng.choice(R, size=R // (4 << li), replace=False)
+        rows = rng.choice(nodes, size=(len(nodes), M))
+        rows[rng.random(rows.shape) < 0.2] = -1
+        neigh_up[li, nodes] = rows
     Q = rng.integers(-3, 4, size=(nq, d)).astype(np.float32)
     D = ((C[None] - Q[:, None]) ** 2).sum(-1)
+    entry = int(np.flatnonzero(ok & (neigh_up[0, :, 0] >= 0))[0])
+    return neigh0, neigh_up, ok, C, Q, D, entry
+
+
+@pytest.mark.parametrize("ef", [48, 64])
+def test_kernel_rules_emulated_equal_beam_layer0(ef):
+    """The layer-0 entry (expand_layer0) from given endpoints, with an
+    empty graph's query: the emulated kernel equals the port's and the
+    JAX walk's layer 0 bit for bit."""
+    rng = np.random.default_rng(ef)
+    neigh0, _, ok, C, Q, D, _ = _integer_graph(ef)
+    nq, R = D.shape
     ep = rng.integers(0, R, size=nq).astype(np.int64)
     ep[2] = -1                                   # an empty graph's query
     ep_d = np.where(ep >= 0, D[np.arange(nq), np.maximum(ep, 0)], np.inf)
     ep_d = ep_d.astype(np.float32)
-    args = dict(ef=ef, ef_cap=ef_cap, max_hops=4 * ef_cap)
+    args = dict(ef=ef, ef_cap=64, max_hops=256)
 
     want_i, want_d, want_w, want_h, want_e = _emulate_kernel(
-        neigh0, ok, D, ep, ep_d, **args)
+        neigh0, None, ok, D, -1, ep=ep, ep_d=ep_d, **args)
     t = [torch.from_numpy(a) for a in (neigh0, ok, C, Q, ep, ep_d)]
     got_i, got_d, got_v, got_h, got_e = graph_expand.expand_layer0(*t, **args)
     np.testing.assert_array_equal(got_i.numpy(), want_i)
@@ -324,9 +402,83 @@ def test_kernel_rules_emulated_equal_beam_layer0(ef):
     j = jtraverse.beam_layer0(
         jnp.asarray(neigh0), jnp.asarray(ok), (jnp.asarray(C),),
         jnp.asarray(Q), jnp.asarray(ep, jnp.int32), jnp.asarray(ep_d),
-        jnp.int32(ef), kp=ef_cap, ef_cap=ef_cap, max_hops=4 * ef_cap)
+        jnp.int32(ef), kp=64, ef_cap=64, max_hops=256)
     np.testing.assert_array_equal(np.asarray(j[0]), want_i)
     np.testing.assert_array_equal(np.asarray(j[2]), vis.numpy())
+
+
+@pytest.mark.parametrize("pool,svis", [(True, True), (False, False)])
+@pytest.mark.parametrize("ef,ef_cap", [(48, 64), (64, 64), (48, 2048),
+                                       (64, 2048)])
+def test_walk_kernel_rules_emulated_equal_traverse(ef, ef_cap, pool, svis):
+    """The fused walk (graph_walk): the start, the descent through 3 empty
+    padded layers and 2 real ones, and layer 0, as the kernel runs them
+    (with the adjacency pool and the on-chip bitmap, or neither), equal
+    the port's traverse and the JAX traverse (XLA) bit for bit: ids,
+    distances, visited, hops and edges."""
+    neigh0, neigh_up, ok, C, Q, D, entry = _integer_graph(ef + ef_cap)
+    R = neigh0.shape[0]
+    max_hops = 4 * ef_cap
+    want = _emulate_kernel(neigh0, neigh_up, ok, D, entry, ef, ef_cap,
+                           max_hops, pool=pool, svis=svis)
+    vis = graph_expand.unpack_visited(
+        torch.from_numpy(want[2].view(np.int32)), R).numpy()
+    want = (want[0], want[1], vis, want[3], want[4])
+    assert want[3].min() > 5 and want[4].min() > 0
+    kw = dict(kp=ef_cap, ef_cap=ef_cap, max_hops=max_hops, quant="f32",
+              oblivious=False)
+    arrs = (neigh0, neigh_up, ok, C, Q)
+    for got in (_torch_walk(traverse.traverse, arrs, entry, ef, **kw),
+                _jax_walk(arrs, entry, ef, **kw)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    t = [torch.from_numpy(a) for a in arrs]
+    got = graph_expand.graph_walk(*t, entry, ef, ef_cap=ef_cap,
+                                  max_hops=max_hops)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_walk_kernel_rules_emulated_on_an_empty_graph_and_a_bad_entry():
+    """entry -1 (an empty graph), and an entry whose row is not ok: every
+    query starts at ep = -1, with 0 hops and an empty beam."""
+    neigh0, neigh_up, ok, C, Q, D, _ = _integer_graph(3)
+    bad = int(np.flatnonzero(~ok)[0])
+    kw = dict(kp=64, ef_cap=64, max_hops=256, quant="f32", oblivious=False)
+    for entry in (-1, bad):
+        want = _emulate_kernel(neigh0, neigh_up, ok, D, entry, 48, 64, 256)
+        assert (want[0] == -1).all() and (want[3] == 0).all()
+        got = _jax_walk((neigh0, neigh_up, ok, C, Q), entry, 48, **kw)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[3], want[3])
+        assert not got[2].any() and not want[2].any()
+
+
+def test_walk_plan_and_shared_memory():
+    """The kernel's variant by shape (walk_plan): the bitmap on chip up to
+    R = 2^20, the pool where it fits, groups of at most 32 rows, always
+    within the card's per-block limit."""
+    plan = graph_expand.walk_plan
+    smem = graph_expand.walk_smem
+    cases = {(2 ** 17, 16, 8, 128, 96): (16, True, True),
+             (2 ** 20, 32, 16, 128, 96): (32, True, True),
+             (2 ** 17, 32, 16, 960, 96): (32, True, True),
+             (2 ** 21, 16, 8, 128, 96): (16, True, False),
+             (2 ** 17, 16, 8, 128, 2048): (16, True, True),
+             (2 ** 17, 32, 16, 128, 2048): (32, False, True),
+             (2 ** 20, 32, 16, 960, 96): (32, True, False),
+             (2 ** 17, 64, 16, 128, 96): (32, True, True)}
+    for (R, M0, M, d, ef), want in cases.items():
+        G, pool, svis = plan(R, M0, M, d, ef)
+        assert (G, pool, svis) == want, (R, M0, M, d, ef)
+        assert smem(ef, M0, M, d, G, pool, svis, R) <= 232448
+    # the bitmap's words and the pool's rows are what they cost
+    base = smem(96, 16, 8, 128, 16, False, False, 2 ** 17)
+    assert smem(96, 16, 8, 128, 16, False, True, 2 ** 17) == base + 2 ** 14
+    assert smem(96, 16, 8, 128, 16, True, False, 2 ** 17) == \
+        base + (96 + 16) * 16 * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(2 ** 17, 16, 8, 60000, 96)
 
 
 def test_unpack_visited_bit_order():

@@ -99,6 +99,10 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
     beam_i, *_ = graph_expand.expand_layer0(*_graph_inputs("cpu", 2, 64, 4, 3),
                                             ef=4, ef_cap=32, max_hops=16)
     assert beam_i.shape == (2, 32)
+    n0, up, ok, C, Qg, entry = _walk_inputs("cpu", 2, 64, 4, 2, 3, 3)
+    beam_i, *_ = graph_expand.graph_walk(n0, up, ok, C, Qg, entry, 4,
+                                         ef_cap=32, max_hops=16)
+    assert beam_i.shape == (2, 32)
     adc_before = dict(adc_topk.launches)
     d, i = adc_topk.sq_adc_topk(*_sq_inputs("cpu", 2, 50, 9), 7)
     assert d.dtype == torch.int32 and i.shape == (2, 7)
@@ -113,7 +117,8 @@ def _launch_counts() -> dict:
     return {**{f"l2_topk.{k}": v for k, v in l2_topk.launches.items()},
             **{f"dce_comp.{k}": v for k, v in dce_comp.launches.items()},
             **{f"adc_topk.{k}": v for k, v in adc_topk.launches.items()},
-            "graph_expand": graph_expand.launches}
+            **{f"graph_expand.{k}": v
+               for k, v in graph_expand.launches.items()}}
 
 
 def test_mixed_devices_refused():
@@ -165,6 +170,28 @@ def _graph_inputs(device, nq, R, M0, d, seed=0, ep_missing=True):
             for a in (neigh0, ok, C, Q, ep, ep_d)]
 
 
+def _walk_inputs(device, nq, R, M0, M, LU, d, seed=0, empty_top=2,
+                 entry=None):
+    """`_graph_inputs`' layer 0 under LU upper layers: the top `empty_top`
+    of them -1 rows only (empty padded layers), the others rows of M ids
+    (some -1) on a shrinking set of nodes; the entry is an ok node of
+    layer 0's upper neighbour set (or `entry`)."""
+    neigh0, ok, C, Q, _, _ = _graph_inputs("cpu", nq, R, M0, d, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    up = np.full((LU, R, M), -1, np.int32)
+    for li in range(LU - empty_top):
+        nodes = rng.choice(R, size=max(2, R // (4 << li)), replace=False)
+        rows = rng.choice(nodes, size=(len(nodes), M)).astype(np.int32)
+        rows[rng.random(rows.shape) < 0.2] = -1
+        up[li, nodes] = rows
+    if entry is None:
+        okn = ok.numpy()
+        entry = int(np.flatnonzero(okn & (up[0, :, 0] >= 0))[0]) if LU \
+            else int(np.flatnonzero(okn)[0])
+    return [t.to(device) for t in (neigh0, torch.as_tensor(up), ok, C, Q)] \
+        + [entry]
+
+
 def _sq_inputs(device, nq, n, d, seed=0, valid=1.0, dup=0, far=False):
     """Random int8 codes with their norms; `dup` rows repeated further
     down (exact ties between distinct ids); a `valid` share of ok rows;
@@ -206,7 +233,10 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     monkeypatch.setattr(l2_topk, "plain_pairwise_sq_dists", refuse)
     monkeypatch.setattr(dce_comp, "plain_batched_z_matrix", refuse)
     monkeypatch.setattr(graph_expand, "plain_expand_layer0", refuse)
+    monkeypatch.setattr(graph_expand, "plain_graph_walk", refuse)
     monkeypatch.setattr(graph_expand._ref, "beam_layer0", refuse)
+    monkeypatch.setattr(graph_expand._traverse, "traverse", refuse)
+    monkeypatch.setattr(graph_expand._traverse, "upper_entry", refuse)
     for name in ("plain_sq_adc_topk", "plain_pq_adc_topk"):
         monkeypatch.setattr(adc_topk, name, refuse)
     for name in ("sq_adc_topk", "pq_adc_topk", "sq_dists", "pq_dists"):
@@ -226,6 +256,9 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
                          None, 4)
     graph_expand.expand_layer0(*_graph_inputs("cuda", 3, 64, 4, 8), ef=8,
                                ef_cap=32, max_hops=64)
+    n0, up, ok, C, Qg, entry = _walk_inputs("cuda", 3, 64, 4, 2, 3, 8)
+    graph_expand.graph_walk(n0, up, ok, C, Qg, entry, 8, ef_cap=32,
+                            max_hops=64)
     adc_topk.sq_adc_topk(*_sq_inputs("cuda", 3, 300, 17), 20)
     adc_topk.pq_adc_topk(*_pq_inputs("cuda", 3, 300, 4), 20)
     torch.cuda.synchronize()
@@ -246,7 +279,8 @@ def test_l2_kernel_matches_plain_on_the_card(nq, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,d", [(1, 5, 4), (3, 80, 128), (2, 33, 17)])
+@pytest.mark.parametrize("B,n,d", [(1, 5, 4), (3, 80, 128), (2, 33, 17),
+                                   (1, 512, 128), (32, 160, 64)])
 def test_z_kernel_matches_plain_on_the_card(B, n, d):
     _needs_card()
     key = dce.keygen(d, seed=d)
@@ -259,6 +293,18 @@ def test_z_kernel_matches_plain_on_the_card(B, n, d):
     got = dce_comp.batched_z_matrix(C, T)
     want = dce_comp.plain_batched_z_matrix(C, T)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    # each set alone (z_matrix, its j-tiles split over more blocks where
+    # the rows leave SMs idle) is bit-equal to the batched call: every
+    # element is the same two fp32 chains in ascending depth
+    for b in range(B):
+        assert torch.equal(dce_comp.z_matrix(C[b].contiguous(),
+                                             T[b].contiguous()), got[b])
+    # and on small integers (every sum exact), bit-equal to the plain one
+    g = torch.Generator(device="cuda").manual_seed(n)
+    Ci = torch.randint(-8, 9, C.shape, generator=g, device="cuda").float()
+    Ti = torch.randint(-3, 4, T.shape, generator=g, device="cuda").float()
+    assert torch.equal(dce_comp.batched_z_matrix(Ci, Ti),
+                       dce_comp.plain_batched_z_matrix(Ci, Ti))
 
 
 @pytest.mark.cuda
@@ -281,6 +327,32 @@ def test_graph_expand_kernel_matches_plain_on_the_card(nq, R, M0, d, ef,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,R,M0,M,LU,d,ef,ef_cap,entry", [
+    (5, 300, 7, 3, 4, 13, 20, 32, None),     # ragged M0 and d
+    (32, 4096, 16, 8, 8, 128, 96, 128, None),  # the graph path's widths
+    (3, 1000, 32, 16, 4, 960, 64, 64, None),   # GIST width
+    (4, 3000, 16, 8, 4, 64, 1600, 2048, None),  # k' 1600: ef_cap 2048
+    (3, 2000, 33, 5, 3, 16, 40, 64, None),   # M0 > 32: two row groups
+    (3, 500, 8, 4, 0, 16, 30, 32, None),     # no upper layer
+    (2, 300, 8, 4, 4, 16, 30, 32, -1)])      # an empty graph
+def test_graph_walk_kernel_matches_plain_on_the_card(nq, R, M0, M, LU, d,
+                                                     ef, ef_cap, entry):
+    """The fused walk (descent through 2 empty padded layers and the
+    others, then layer 0) on integer-valued rows: ids, distances, visited,
+    hops and edges equal the torch walk's exactly."""
+    _needs_card()
+    n0, up, ok, C, Q, e = _walk_inputs("cuda", nq, R, M0, M, LU, d, seed=R,
+                                       empty_top=min(2, LU), entry=entry)
+    kw = dict(ef_cap=ef_cap, max_hops=4 * ef_cap)
+    got = graph_expand.graph_walk(n0, up, ok, C, Q, e, ef, **kw)
+    want = graph_expand.plain_graph_walk(n0, up, ok, C, Q, e, ef, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if e >= 0:
+        assert int(got[3].min()) > LU
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nq,n,d,kp,valid,dup", [
     (1, 1, 4, 1, 1.0, 0),            # one row
     (5, 1000, 17, 30, 0.9, 0),       # ragged d, an ok mask
@@ -291,7 +363,10 @@ def test_graph_expand_kernel_matches_plain_on_the_card(nq, R, M0, d, ef,
     (1, 5000, 128, 160, 1.0, 0),     # one query in a group of 32
     (33, 20000, 960, 300, 0.95, 200),    # d 960, 16 queries a block
     (2, 3000, 17, 1024, 1.0, 100),   # kp 1024 over byte-loaded rows
-    (3, 40000, 1, 64, 1.0, 0)])      # d 1: one byte of a 64-byte slice
+    (3, 40000, 1, 64, 1.0, 0),       # d 1: one byte of a 64-byte slice
+    (3, 3000, 16, 1025, 1.0, 200),   # MAX_KP + 1: passes of 513 and 512
+    (17, 2600, 128, 1600, 0.9, 100),  # kp 1600: two passes of 800
+    (2, 3000, 16, 1600, 0.3, 0)])    # ~900 valid: the second pass runs out
 def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
     """Integer surrogates: ids and int32 distances exactly equal."""
     _needs_card()
@@ -318,7 +393,8 @@ def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
     (1, 5000, 16, 320, 1.0, 0),      # one query in a group of 8
     (5, 3000, 32, 100, 1.0, 0),      # m 32: 4 queries a block
     (3, 2000, 64, 1024, 0.9, 100),   # m 64, kp 1024: 2 queries a block
-    (2, 1001, 200, 20, 1.0, 0)])     # m 200: 1 query a block, n % 4 != 0
+    (2, 1001, 200, 20, 1.0, 0),      # m 200: 1 query a block, n % 4 != 0
+    (9, 2500, 16, 1600, 0.95, 200)])  # kp 1600: two passes of 800
 def test_pq_adc_kernel_matches_plain_on_the_card(nq, n, m, kp, valid, dup):
     """Sums in ascending subspace order on both sides: ids and float32
     distances bit-equal."""
@@ -340,7 +416,9 @@ def test_pq_adc_kernel_matches_plain_on_the_card(nq, n, m, kp, valid, dup):
     (32, 70001, 128, 80, 3000),      # many chunks, ragged n, ties
     (3, 3000, 960, 50, 0),           # GIST width
     (9, 4000, 64, 1024, 0),          # k 1024: 8 queries a block
-    (40, 300, 16, 300, 100)])        # k = n: every row selected
+    (40, 300, 16, 300, 100),         # k = n: every row selected
+    (3, 3000, 16, 1025, 300),        # MAX_KP + 1: passes of 513 and 512
+    (9, 2500, 64, 1600, 200)])       # k' 1600: two passes of 800
 def test_knn_kernel_matches_plain_on_the_card(nq, n, d, k, dup):
     """Integer-valued rows and queries: every distance is exact in any
     summation order, so the fused scan must equal the plain chunked merge
@@ -428,8 +506,6 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         l2_topk.pairwise_sq_dists(Q, torch.randn(8, 4, device="cuda").T)
     X = torch.randn(2000, 8, device="cuda")
-    with pytest.raises(ValueError, match="limit"):
-        l2_topk.knn(Q, X, l2_topk.MAX_KP + 1)
     with pytest.raises(TypeError):
         l2_topk.knn(Q.double(), X.double(), 5)
     with pytest.raises(ValueError, match="mixed devices"):
@@ -453,9 +529,17 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         graph_expand.expand_layer0(n0, ok, C, Qg, ep, ep_d, ef=33,
                                    ef_cap=32, max_hops=8)
+    n0, up, ok, C, Qg, entry = _walk_inputs("cuda", 2, 64, 4, 2, 3, 8)
+    with pytest.raises(ValueError):
+        graph_expand.graph_walk(n0, up.long(), ok, C, Qg, entry, 4,
+                                ef_cap=32, max_hops=8)
+    with pytest.raises(TypeError):
+        graph_expand.graph_walk(n0, up, ok, C.double(), Qg, entry, 4,
+                                ef_cap=32, max_hops=8)
+    with pytest.raises(ValueError, match="mixed devices"):
+        graph_expand.graph_walk(n0, up.cpu(), ok, C, Qg, entry, 4,
+                                ef_cap=32, max_hops=8)
     q8, c8, cn, ok = _sq_inputs("cuda", 2, 2000, 16)
-    with pytest.raises(ValueError, match="limit"):
-        adc_topk.sq_adc_topk(q8, c8, cn, ok, adc_topk.MAX_KP + 1)
     with pytest.raises(TypeError):
         adc_topk.sq_adc_topk(q8.int(), c8, cn, ok, 5)
     lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 256)

@@ -61,6 +61,21 @@ def test_pad_helpers_match_reference():
     assert common.padded_size(130, 128) == jcommon.padded_size(130, 128)
 
 
+@pytest.mark.parametrize("k,most,want", [
+    (1025, 1024, [513, 512]), (1600, 1024, [800, 800]),
+    (2049, 1024, [683, 683, 683]), (3000, 1024, [1000, 1000, 1000]),
+    (7, 3, [3, 2, 2])])
+def test_pass_sizes_cover_k_in_near_equal_passes(k, most, want):
+    """The fused top-k kernels' passes above MAX_KP: sum k, at most
+    `most` each, and above `most` every pass takes at least most / 2 (so
+    every pass of K1 and K4 takes their kernels' 8- and 16-query
+    variants, which have floor-key versions)."""
+    got = common.pass_sizes(k, most)
+    assert got == want and sum(got) == k and max(got) <= most
+    assert all(p >= most // 2 for k2 in range(most + 1, 5 * most, 97)
+               for p in common.pass_sizes(k2, most))
+
+
 def test_build_name_covers_shared_headers(tmp_path, monkeypatch):
     """The library is named by a hash of the sources and of the headers
     they include: editing only a .cuh must name (and so build) a new
@@ -185,6 +200,48 @@ def test_z_matrix_matches_jax(n, d):
         t_dce_ref.win_counts(_t(C[0]), _t(T[0])).numpy(),
         np.asarray(j_dce_ref.win_counts(jnp.asarray(C[0]),
                                         jnp.asarray(T[0]))))
+
+
+@pytest.mark.parametrize("B,n,want", [
+    (1, 512, (2, 7)),        # z_matrix at n 512: 16 row tiles x 7 = 112
+    (32, 80, (2, 1)),        # one j-tile: nothing to split
+    (32, 160, (5, 2)),       # 32 x 2 x 2 = 128 blocks
+    (32, 320, (5, 1)),       # 4 j-tiles do not fit in 2 ranges: no split
+    (3, 600, (5, 5)),
+    (64, 80, (3, 1))])
+def test_z_column_split_emulated_equals_plain(B, n, want):
+    """K3's block plan (`z_plan`: the most j-tile ranges over a third
+    grid dimension, with the fewest rows a thread, that fit the SMs once)
+    and the split kernel's blocks emulated: every Z element is written by
+    exactly one block, whole (both fp32 chains over the full depth), so on
+    integer-valued ciphertexts the stitched Z equals the plain version
+    and the JAX reference bit for bit."""
+    ri, splits = dce_comp.z_plan(B, n, 132)
+    assert (ri, splits) == want
+    rng = np.random.default_rng(n)
+    D = 24
+    C = rng.integers(-4, 5, size=(B, n, 4, D)).astype(np.float32)
+    T = rng.integers(-3, 4, size=(B, D)).astype(np.float32)
+    TI, njt = 16 * ri, -(-n // 80)
+    per = -(-njt // splits)
+    Z = np.full((B, n, n), np.nan, np.float32)
+    for b in range(B):
+        L1, L2 = C[b, :, 0] * T[b], C[b, :, 1] * T[b]
+        for i0 in range(0, n, TI):
+            for z in range(-(-njt // per)):
+                for jt in range(z * per, min(njt, (z + 1) * per)):
+                    rows, cols = slice(i0, i0 + TI), slice(80 * jt,
+                                                           80 * jt + 80)
+                    assert np.isnan(Z[b, rows, cols]).all()
+                    Z[b, rows, cols] = (L1[rows] @ C[b, cols, 2].T
+                                        - L2[rows] @ C[b, cols, 3].T)
+    want_z = t_dce_ref.batched_z_matrix(_t(C), _t(T)).numpy()
+    np.testing.assert_array_equal(Z, want_z)
+    np.testing.assert_array_equal(
+        Z, np.asarray(j_dce_ref.batched_z_matrix(jnp.asarray(C),
+                                                 jnp.asarray(T))))
+    blocks = B * -(-n // TI) * -(-njt // per)
+    assert blocks <= 132 or (ri, splits) == (5, 1)
 
 
 @pytest.mark.parametrize("dup", [False, True])
