@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit, no final line):
    Then the graph path's corpus is made and encrypted on the card, and
    the owner's HNSW build over it (host numpy, minutes at 100k rows)
    starts in a worker process, so it runs while phases 2 to 4 use the
-   card.
+   card; 1,000 more rows of the same mixture are encrypted with the same
+   keys for phase 6's graph inserts.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them, with times (CUDA events), bounds
    and a library yardstick where one PyTorch call computes the same
@@ -84,6 +85,37 @@ Phases, each of which fails the run (non-zero exit, no final line):
    (`HNSWGraphFilter`) on the first 64 queries.  `graph_breakdown`
    times the fused walk against the parent's torch descent and the
    layer-0 entry alone, and the scan trace's download.
+
+6. The serving runtime (`serving/runtime`), run after phase 4 and
+   before phase 5, on phase 3's ciphertexts and queries and phase 1's
+   graph corpus and HNSW (nothing re-encrypted, no HNSW rebuilt), every
+   collection keyless on the card and each freed before the next:
+   (a) a flat collection under the flush micro-batcher (max_batch 32,
+       2 ms): `load_snapshot` of rows 0..n-10,001, `warmup`, then 8 client
+       threads submitting 128 queries each; their ids must equal the
+       collection's direct `search_batch` in 100% of slots;
+   (f) one more flush pass under `profile_kernels()`: calls and
+       CUDA-event ms by kernel beside phase 2's device ms (report only);
+   (b) live ingestion on (a): the 10,000 held-out rows in 10 bursts of
+       1,000, a batch after each (two K1 calls a batch while the delta is
+       non-empty), all queries (ids >= 99.9% equal to the same
+       collection's with the kernels swapped for their plain versions),
+       `compact()` (ids >= 99.9% equal to phase 3's flat ids), 1,000
+       deletes (some of them ids of those answers: none may come back;
+       plain ids again), and no kernel rebuild after warmup;
+   (c) the same rows and operations under the continuous slot loop, each
+       search through client threads: ids equal to (a)/(b)'s in 100% of
+       slots at every checkpoint;
+   (d) an int8 collection over the 1M rows with (b)'s deletes (K4 with
+       the `ok` stream), and a pq8 collection over the graph corpus (K5),
+       each against its plain run;
+   (e) a graph collection over the graph corpus (`graph_arrays` = the
+       HNSW's `to_arrays()`): 1% of its rows deleted, then the 1,000
+       rows phase 1 held out inserted; ids against the plain torch walk
+       after each, and no deleted id returned.
+   One `runtime_path` line each; their launches join the `kernels` line
+   as `launches_by_path` runtime_flat, runtime_flat_continuous,
+   runtime_int8, runtime_pq8 and runtime_graph.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -235,6 +267,18 @@ def reset_launches() -> None:
     for counts in _launch_counters().values():
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def untallied():
+    """Launches inside the block (timing a kernel alone) leave the
+    counts as they were."""
+    saved = {mod: dict(c) for mod, c in _launch_counters().items()}
+    try:
+        yield
+    finally:
+        for mod, counts in _launch_counters().items():
+            counts.update(saved[mod])
 
 
 # --------------------------------------------------------------- phase 2
@@ -1092,7 +1136,7 @@ def main_path(n: int, n_queries: int) -> dict:
     on_k1600 = k1600_path(eng, Q, T, 200, "flat_k1600")
     # the ADC paths search the same ciphertexts and queries
     return launches, on_k1600, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce,
-                                "Q": Q, "T": T}
+                                "Q": Q, "T": T, "ids": ids}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1283,6 +1327,11 @@ def graph_setup(n: int, n_queries: int, pool) -> dict:
     build = pool.apply_async(build_hnsw, (C_sap, GRAPH_M,
                                           GRAPH_EF_CONSTRUCTION,
                                           OWNER_SEED + 3))
+    # 1,000 rows more from the same mixture (same seed: the same cluster
+    # centres), encrypted with the same keys: the graph runtime's inserts
+    extra = synth.make_dataset("sift1m", n=n + 1000, n_queries=1,
+                               k_gt=1).base[n:]
+    extra_sap, extra_dce = owner.encrypt_vectors(extra)
     user = ppanns.User(owner.share_keys())
     Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
     log(json.dumps({"phase": "graph_setup", "n": ds.n, "d": ds.d,
@@ -1290,7 +1339,19 @@ def graph_setup(n: int, n_queries: int, pool) -> dict:
                     "encrypt_vectors_s": t_enc, "hnsw_M": GRAPH_M,
                     "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION}))
     return {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q, "T": T,
+            "extra_sap": extra_sap, "extra_dce": extra_dce,
             "build": build, "t_data": t_data, "t_enc": t_enc}
+
+
+def graph_index(g: dict):
+    """The owner's HNSW from the worker, waited for by its first user
+    (phase 6's graph collection): -> (index, build seconds); the seconds
+    waited go to g["t_wait"]."""
+    if "index" not in g:
+        t0 = time.perf_counter()
+        g["index"], g["build_s"] = g["build"].get()
+        g["t_wait"] = time.perf_counter() - t0
+    return g["index"], g["build_s"]
 
 
 @contextlib.contextmanager
@@ -1417,13 +1478,12 @@ def graph_path(g: dict) -> dict:
     from repro_torch.serving.search_engine import (HNSWGraphFilter,
                                                    SecureSearchEngine)
     ds, Q, T = g["ds"], g["Q"], g["T"]
-    t0 = time.perf_counter()
-    index, build_s = g["build"].get()
-    t_wait = time.perf_counter() - t0
+    index, build_s = graph_index(g)
+    t_wait = g["t_wait"]
     log(json.dumps({"phase": "graph_build", "n": index.size,
                     "hnsw_M": GRAPH_M,
                     "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION,
-                    "build_s": build_s, "waited_after_flat_path_s": t_wait,
+                    "build_s": build_s, "waited_for_build_s": t_wait,
                     "layers": len(index.links)}))
 
     torch.cuda.reset_peak_memory_stats()
@@ -1504,7 +1564,7 @@ def graph_path(g: dict) -> dict:
         "build_s": build_s,
         "wall_s": {"dataset": g["t_data"], "encrypt_vectors": g["t_enc"],
                    "hnsw_build": build_s,
-                   "waited_for_build_after_flat_path": t_wait,
+                   "waited_for_build": t_wait,
                    "first_batch_with_csr_and_upload": t_warm,
                    "kernel_run": t_run, "plain_run": t_plain,
                    "host_walk_oracle": t_oracle},
@@ -1523,6 +1583,462 @@ def graph_path(g: dict) -> dict:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
     return launches
+
+
+# --------------------------------------------------------------- phase 6
+
+RT_THREADS = 8                  # client threads of the scheduler passes
+RT_WINDOW = 32                  # requests a client keeps in flight
+RT_BURSTS = 10                  # insert bursts of the live-ingestion run
+RT_DELETES = 1000               # rows deleted on the flat and int8 runs
+
+
+def drive_clients(col, Q, T, n_threads: int = RT_THREADS,
+                  window: int = RT_WINDOW):
+    """`n_threads` client threads, each submitting its share of the
+    queries through the collection's scheduler in windows of `window`
+    requests and waiting for each window.  -> (ids (nq, K) in query
+    order, the engine calls' latencies, wall seconds).  A client's
+    failure is raised here."""
+    import threading
+    nq = Q.shape[0]
+    ids = np.full((nq, K), -2, np.int64)
+    calls, errors = {}, []
+    share = -(-nq // n_threads)
+
+    def client(lo, hi):
+        try:
+            for s in range(lo, hi, window):
+                futs = [(i, col.submit(Q[i], T[i], K, ratio_k=RATIO_K,
+                                       ef_search=EF_SEARCH,
+                                       want_stats=True))
+                        for i in range(s, min(s + window, hi))]
+                for i, fut in futs:
+                    row, st = fut.result(timeout=300)
+                    ids[i] = row
+                    calls[id(st)] = st      # held: ids stay unique
+        except BaseException as exc:         # re-raised by the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client,
+                                args=(t * share, min(nq, (t + 1) * share)))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads) or (ids == -2).any():
+        raise AssertionError("a client thread did not finish")
+    return ids, [st.latency_s for st in calls.values()], wall
+
+
+def against_plain(col, Q, T, ids, what: str) -> dict:
+    """The same queries through the same collection with the kernels
+    swapped for their plain versions: ids must agree in >= 99.9% of
+    slots, and no kernel may launch."""
+    before = kernel_launches()
+    with plain_kernels():
+        plain, _ = run_batches(col, Q, T)
+    if kernel_launches() != before:
+        raise AssertionError(f"{what}: a kernel launched during the plain "
+                             f"run")
+    agree = float((ids == plain).mean())
+    if agree < MIN_ID_AGREEMENT:
+        raise AssertionError(f"{what}: kernel and plain ids agree in "
+                             f"{agree} of slots")
+    return {"id_agreement_plain": agree,
+            "ids_equal_plain": bool((ids == plain).all())}
+
+
+def deleted_returned(ids, gone) -> int:
+    return int(np.isin(ids, gone).sum())
+
+
+def backend_device_bytes(b) -> int:
+    """Bytes of the device tensors a runtime backend holds (the refine
+    array included)."""
+    held = [b._C_main, b._C_all, b._C_delta, b._C_dce_dev, b._adc_c8,
+            b._adc_cn, b._adc_codes_t, b._adc_ok, b._g_neigh0,
+            b._g_neigh_up, b._g_ok]
+    return sum(int(t.nbytes) for t in held if t is not None)
+
+
+def rt_common(col, lat, wall: float, launches: dict, n_calls: int,
+              audit: int) -> dict:
+    """The fields every runtime_path line carries."""
+    import torch
+    from repro_torch.serving.runtime import jit_cache_size
+    snap = col.stats()
+    served = snap["n_requests"] > 0
+    return {
+        "rows": col.store.n_total, "rows_alive": col.store.n_alive,
+        "device_resident_bytes": backend_device_bytes(col._backend),
+        "device_allocated_bytes": torch.cuda.memory_allocated(),
+        "engine_calls": n_calls,
+        "engine_batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "engine_batch_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "launches": launches,
+        "launches_per_batch": {k: v / n_calls for k, v in launches.items()
+                               if v},
+        "recompiles": jit_cache_size() - audit,
+        "wall_s": wall,
+        # sojourn exists only for requests a scheduler served; the ADC
+        # and graph runs call the engine directly
+        "sojourn_p50_ms": snap["p50_latency_s"] * 1e3 if served else None,
+        "sojourn_p99_ms": snap["p99_latency_s"] * 1e3 if served else None,
+        "telemetry": {k: snap[k] for k in (
+            "qps", "n_requests", "n_batches", "n_steps", "batch_occupancy",
+            "slot_occupancy", "n_inserts", "n_deletes", "n_compactions")},
+    }
+
+
+def delta_knn_cost(b, Q) -> dict:
+    """Device time of the flat backend's two K1 calls of one batch: the
+    main region and the sentinel-padded delta bucket (CUDA events; not
+    counted as the path's launches)."""
+    import torch
+    from repro_torch.kernels.l2_topk import ops as l2_ops
+    kp = K * RATIO_K
+    Qd = torch.from_numpy(np.asarray(Q[:BATCH], np.float32)).to(
+        b._C_main.device)
+    bucket = int(b._C_delta.shape[0])
+    n_main = int(b._C_main.shape[0])
+    with untallied():
+        delta_ms = device_ms(lambda: l2_ops.knn(
+            Qd, b._C_delta, min(kp, bucket), chunk=bucket))
+        main_ms = device_ms(lambda: l2_ops.knn(Qd, b._C_main, kp,
+                                               chunk=min(4096, n_main)))
+    return {"delta_rows": b._delta_n, "delta_bucket": bucket,
+            "main_rows": n_main, "knn_delta_device_ms": delta_ms,
+            "knn_main_device_ms": main_ms}
+
+
+def runtime_flat(ctx: dict, scheduler: str, ref: dict | None,
+                 phase2_ms: dict) -> tuple[dict, dict]:
+    """(a)-(b), or (c) with `ref` the flush run's checkpoints: a keyless
+    flat collection over phase 3's first 990,000 rows, client threads
+    through the scheduler, then live ingestion: 10 bursts of 1,000 of the
+    held-out rows (a batch after each: two K1 calls while the delta is
+    non-empty), compaction to phase 3's 1M rows, and 1,000 deletes.
+    -> (checkpoint ids, launches)."""
+    import torch
+    from repro_torch.obs import profile_kernels
+    from repro_torch.serving.runtime import (CollectionManager,
+                                             jit_cache_size)
+    Q, T, C_sap, C_dce = ctx["Q"], ctx["T"], ctx["C_sap"], ctx["C_dce"]
+    n = C_sap.shape[0]
+    n0 = n - RT_BURSTS * 1000
+    flush = scheduler == "flush"
+    path = "flat_flush" if flush else "flat_continuous"
+    t_start = time.perf_counter()
+    mgr = CollectionManager()                          # device: the card
+    col = mgr.create_collection(
+        "t0", "sift", C_sap.shape[1], backend="flat", keyless=True,
+        max_batch=BATCH, max_wait_ms=2, compact_every=1_000_000,
+        scheduler=scheduler)
+    t0 = time.perf_counter()
+    col.load_snapshot(C_sap[:n0], C_dce[:n0])
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    col.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+    t_warm = time.perf_counter() - t0
+    audit = jit_cache_size()
+    cp, lat, checks = {}, [], {}
+
+    # (a) / (c): client threads through the scheduler
+    reset_launches()
+    ids, calls, wall = drive_clients(col, Q, T)
+    lat += calls
+    n_calls = len(calls)
+    cp["clients"] = ids
+    snap = col.stats()
+    rec_a = {"phase": "runtime_path", "path": path, "scheduler": scheduler,
+             "step": "clients", "threads": RT_THREADS,
+             "window": RT_WINDOW, "queries": Q.shape[0],
+             "qps_wall": Q.shape[0] / wall,
+             "qps_telemetry": snap["qps"],
+             "load_snapshot_s": t_load, "warmup_s": t_warm}
+    direct, lat_d = run_batches(col, Q, T)       # the direct engine path
+    lat += lat_d
+    n_calls += Q.shape[0] // BATCH
+    rec_a["id_agreement_direct"] = float((ids == direct).mean())
+    if ref is not None:
+        rec_a["id_agreement_flush"] = float((ids == ref["clients"]).mean())
+    rec_a.update(rt_common(col, lat, time.perf_counter() - t_start,
+                           kernel_launches(), n_calls, audit))
+    log(json.dumps(rec_a))
+    if (ids != direct).any() or (ref is not None
+                                 and (ids != ref["clients"]).any()):
+        raise AssertionError(f"{path}: scheduler ids differ from the "
+                             f"direct engine's or the flush run's")
+
+    if flush:
+        # (f) one flush pass under the kernel profiler
+        with profile_kernels() as prof:
+            _, calls_f, _ = drive_clients(col, Q, T)
+        lat += calls_f
+        n_calls += len(calls_f)
+        prof_line = {"phase": "runtime_profile", "path": path,
+                     "engine_calls": len(calls_f), "kernels": {}}
+        for name, s in sorted(prof.summary().items()):
+            prof_line["kernels"][name] = {
+                "calls": s["calls"],
+                "cuda_event_ms_per_call": s["total_s"] * 1e3 / s["calls"],
+                "bytes_per_call": s["total_bytes"] / s["calls"],
+                "phase2_device_ms": phase2_ms.get(name)}
+        log(json.dumps(prof_line))
+
+    # (b) live ingestion
+    gen_check, lat_b = [], []
+    served = [0, 0.0]               # queries searched in (b), seconds
+    for b in range(RT_BURSTS):
+        lo = n0 + 1000 * b
+        col.insert_encrypted(C_sap[lo:lo + 1000], C_dce[lo:lo + 1000])
+        s = (BATCH * b) % Q.shape[0]
+        k1 = kernel_launches()["l2_topk.knn"]
+        t0 = time.perf_counter()
+        if flush:
+            out, lat_d = run_batches(col, Q[s:s + BATCH], T[s:s + BATCH])
+            lat_b += lat_d
+            n_calls += 1
+        else:
+            out, calls, _ = drive_clients(col, Q[s:s + BATCH],
+                                          T[s:s + BATCH], window=4)
+            lat_b += calls
+            n_calls += len(calls)
+        served[0] += BATCH
+        served[1] += time.perf_counter() - t0
+        gen_check.append(kernel_launches()["l2_topk.knn"] - k1)
+        cp[f"burst{b}"] = out
+    if flush and gen_check != [2] * RT_BURSTS:
+        raise AssertionError(f"K1 calls a batch with a live delta: "
+                             f"{gen_check} (two expected: main and delta)")
+    def search():
+        """All queries: direct batches (flush run) or client threads
+        through the slot loop (continuous run); -> (ids, engine calls)."""
+        t0 = time.perf_counter()
+        if flush:
+            out, calls = run_batches(col, Q, T)
+            lat_b.extend(calls)
+        else:
+            out, calls, _ = drive_clients(col, Q, T)
+            lat_b.extend(calls)
+        served[0] += Q.shape[0]
+        served[1] += time.perf_counter() - t0
+        return out, len(calls)
+
+    cp["bursts_done"], c = search()
+    n_calls += c
+    if flush:
+        checks["bursts_done"] = against_plain(col, Q, T, cp["bursts_done"],
+                                              f"{path} after the bursts")
+        delta_cost = delta_knn_cost(col._backend, Q)
+        delta_cost["batch_p50_ms_with_delta"] = float(
+            np.percentile(lat_b[-c:], 50)) * 1e3
+    col.compact()
+    cp["compacted"], c = search()
+    n_calls += c
+    if flush:
+        delta_cost["batch_p50_ms_compacted"] = float(
+            np.percentile(lat_b[-c:], 50)) * 1e3
+    phase3 = ctx["ids"]
+    checks["compacted"] = {
+        "id_agreement_phase3": float((cp["compacted"] == phase3).mean()),
+        "ids_equal_phase3": bool((cp["compacted"] == phase3).all())}
+    if checks["compacted"]["id_agreement_phase3"] < MIN_ID_AGREEMENT:
+        raise AssertionError(f"{path}: compacted ids against phase 3's: "
+                             f"{checks['compacted']}")
+    if ref is None:
+        rng = np.random.default_rng(OWNER_SEED + 11)
+        seen = np.unique(cp["compacted"])
+        seen = seen[seen >= 0]
+        hit = rng.choice(seen, size=min(300, seen.size), replace=False)
+        rest = np.setdiff1d(np.arange(n), hit)
+        gone = np.concatenate([hit, rng.choice(rest, RT_DELETES - hit.size,
+                                               replace=False)])
+    else:
+        gone = ref["gone"]
+    cp["gone"] = gone
+    col.delete(gone)
+    cp["deleted"], c = search()
+    n_calls += c
+    launches = kernel_launches()
+    if flush:
+        checks["deleted"] = against_plain(col, Q, T, cp["deleted"],
+                                          f"{path} after the deletes")
+    n_back = deleted_returned(cp["deleted"], gone)
+    checks["deleted"] = dict(checks.get("deleted", {}),
+                             deleted_ids_returned=n_back,
+                             deleted_ids_in_compacted_answers=int(
+                                 np.isin(gone, cp["compacted"]).sum()))
+    if ref is not None:
+        for key in ("bursts_done", "compacted", "deleted",
+                    *(f"burst{b}" for b in range(RT_BURSTS))):
+            agree = float((cp[key] == ref[key]).mean())
+            checks.setdefault("continuous_vs_flush", {})[key] = agree
+            if agree < 1.0:
+                raise AssertionError(f"continuous ids differ from flush at "
+                                     f"{key}: {agree}")
+    rec_b = {"phase": "runtime_path", "path": path,
+             "scheduler": scheduler, "step": "clients+ingest",
+             "bursts": RT_BURSTS, "burst_rows": 1000,
+             "deletes": len(gone), "checks": checks,
+             "k1_calls_per_burst_batch": gen_check,
+             "deleted_ids_returned": n_back,
+             "qps_ingest_searches": served[0] / served[1],
+             "delta_cost": delta_cost if flush else None,
+             **rt_common(col, lat + lat_b, time.perf_counter() - t_start,
+                         launches, n_calls, audit)}
+    log(json.dumps(rec_b))
+    if n_back or rec_b["recompiles"]:
+        raise AssertionError(f"{path}: {n_back} deleted ids returned, "
+                             f"{rec_b['recompiles']} kernel rebuilds")
+    mgr.drop_collection("t0", "sift")
+    del col, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cp, launches
+
+
+def runtime_adc(ctx: dict, quantization: str, gone=None) -> dict:
+    """(d): a keyless ADC collection (`quantization` int8 over phase 3's
+    1M rows with the flat run's deletes, or pq8 over the graph corpus),
+    its queries directly in batches of 32, against its plain run."""
+    import torch
+    from repro_torch.serving.runtime import Collection, jit_cache_size
+    Q, T, C_sap, C_dce = ctx["Q"], ctx["T"], ctx["C_sap"], ctx["C_dce"]
+    path = f"adc_{quantization}"
+    t_start = time.perf_counter()
+    col = Collection("t0", path, C_sap.shape[1], backend="flat",
+                     quantization=quantization, keyless=True,
+                     max_batch=BATCH, compact_every=1_000_000)
+    try:
+        col.load_snapshot(C_sap, C_dce)
+        t0 = time.perf_counter()
+        col.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        t_warm = time.perf_counter() - t0        # the codebook: at attach
+        audit = jit_cache_size()
+        if gone is not None:                     # the ok stream, in place
+            col.delete(gone)
+        reset_launches()
+        ids, lat = run_batches(col, Q, T)
+        launches = kernel_launches()
+        checks = against_plain(col, Q, T, ids, path)
+        n_back = deleted_returned(ids, gone) if gone is not None else 0
+        kern = ("adc_topk.sq_adc_topk" if quantization == "int8"
+                else "adc_topk.pq_adc_topk")
+        nb = len(lat)
+        rec = {"phase": "runtime_path", "path": path, "queries": Q.shape[0],
+               "qps": Q.shape[0] / sum(lat),
+               "warmup_with_codebook_s": t_warm,
+               "deletes": 0 if gone is None else len(gone),
+               "deleted_ids_returned": n_back, "checks": checks,
+               **rt_common(col, lat, time.perf_counter() - t_start,
+                           launches, nb, audit)}
+        log(json.dumps(rec))
+        if (n_back or rec["recompiles"] or launches[kern] != nb
+                or launches["dce_comp.refine_topk"] != nb):
+            raise AssertionError(f"{path}: {rec}")
+    finally:
+        col.close()
+    del col
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def runtime_graph(g: dict) -> dict:
+    """(e): a keyless graph collection over phase 1's corpus and HNSW
+    (`load_snapshot(graph_arrays=...)`), 1% of its rows deleted (K6 walks
+    past rows with ok = 0), then the 1,000 rows phase 1 held out inserted
+    (host HNSW inserts, CSR rows refreshed); all queries against the
+    plain torch walk."""
+    import torch
+    from repro_torch.serving.runtime import Collection, jit_cache_size
+    Q, T, C_sap, C_dce = g["Q"], g["T"], g["C_sap"], g["C_dce"]
+    index, _ = graph_index(g)
+    n = C_sap.shape[0]
+    t_start = time.perf_counter()
+    col = Collection("t0", "graph", C_sap.shape[1], backend="graph",
+                     keyless=True, max_batch=BATCH, compact_every=1_000_000,
+                     hnsw_M=GRAPH_M, hnsw_ef_construction=GRAPH_EF_CONSTRUCTION)
+    try:
+        t0 = time.perf_counter()
+        col.load_snapshot(C_sap, C_dce, graph_arrays=index.to_arrays())
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        col.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)   # CSR mirror
+        t_warm = time.perf_counter() - t0
+        audit = jit_cache_size()
+        gone = np.random.default_rng(OWNER_SEED + 13).choice(
+            n, n // 100, replace=False)
+        t0 = time.perf_counter()
+        col.delete(gone)                     # ok = 0 rows, repaired rows
+        t_delete = time.perf_counter() - t0
+        reset_launches()
+        ids_d, lat = run_batches(col, Q, T)
+        launches = kernel_launches()
+        checks = {"deleted": against_plain(col, Q, T, ids_d,
+                                           "graph after the deletes")}
+        t0 = time.perf_counter()
+        col.insert_encrypted(g["extra_sap"], g["extra_dce"])  # host HNSW
+        t_insert = time.perf_counter() - t0
+        reset_launches()
+        ids, lat_i = run_batches(col, Q, T)
+        lat += lat_i
+        launches = {k: v + launches[k] for k, v in kernel_launches().items()}
+        checks["inserted"] = against_plain(col, Q, T, ids,
+                                           "graph after the inserts")
+        n_back = deleted_returned(ids_d, gone) + deleted_returned(ids, gone)
+        nb = len(lat)
+        rec = {"phase": "runtime_path", "path": "graph",
+               "queries": Q.shape[0], "qps": 2 * Q.shape[0] / sum(lat),
+               "deletes": len(gone), "inserts": g["extra_sap"].shape[0],
+               "deleted_ids_returned": n_back,
+               "inserted_ids_returned": int((ids >= n).sum()),
+               "checks": checks,
+               "host_s": {"load_snapshot": t_load, "warmup_csr": t_warm,
+                          "delete": t_delete, "insert": t_insert},
+               **rt_common(col, lat, time.perf_counter() - t_start,
+                           launches, nb, audit)}
+        log(json.dumps(rec))
+        if (n_back or rec["recompiles"]
+                or launches["graph_expand.graph_walk"] != nb
+                or launches["dce_comp.refine_topk"] != nb):
+            raise AssertionError(f"graph runtime: {rec}")
+    finally:
+        col.close()
+    del col
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def runtime_paths(corpus: dict, graph: dict, records: list) -> dict:
+    """Phase 6: the serving runtime on the card.  -> launches by path."""
+    phase2_ms = {}
+    for r in records:
+        if r["name"] == f"l2_topk.knn[nq={BATCH},n=1000000,d=128," \
+                        f"k={K * RATIO_K}]":
+            phase2_ms["l2_topk.knn"] = r["ms"]
+        if r["name"].startswith(f"dce_comp.refine_topk[B={BATCH},"
+                                f"n={K * RATIO_K},"):
+            phase2_ms["dce_comp.refine_topk"] = r["ms"]
+    t0 = time.perf_counter()
+    cp, on_flat = runtime_flat(corpus, "flush", None, phase2_ms)
+    _, on_cont = runtime_flat(corpus, "continuous", cp, phase2_ms)
+    on_int8 = runtime_adc(corpus, "int8", cp["gone"])
+    on_pq8 = runtime_adc(graph, "pq8")
+    on_graph = runtime_graph(graph)
+    log(json.dumps({"phase": "runtime_done",
+                    "wall_s": time.perf_counter() - t0}))
+    return {"runtime_flat": on_flat, "runtime_flat_continuous": on_cont,
+            "runtime_int8": on_int8, "runtime_pq8": on_pq8,
+            "runtime_graph": on_graph}
 
 
 def main() -> int:
@@ -1614,12 +2130,15 @@ def main() -> int:
                 on_adc[f"{path}_k1600"] = k1600
             gc.collect()
             torch.cuda.empty_cache()
+
+        # phase 6 ---------------------------------------------------
+        on_runtime = runtime_paths(corpus, graph, records)
         del corpus
 
         # phase 5 ---------------------------------------------------
         on_graph = graph_path(graph)
 
-    paths = {"flat": flat, "graph": on_graph, **on_adc}
+    paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

@@ -12,6 +12,10 @@ Implementation notes
   * The index never sees plaintexts in the PP-ANNS scheme: `build` is fed
     C_SAP; distance comparisons during build/search happen on ciphertexts.
   * Supports incremental insert and delete-with-repair (paper §V-D).
+    `delete` finds a node's in-neighbours in a padded copy of the link
+    rows, kept across a burst of deletes (an insert drops it), instead of
+    the JAX package's Python scan over every row: the same rows are
+    repaired in the same order, so the graph stays bit-identical.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ class HNSW:
         self.entry = -1
         self.max_level = -1
         self.n_dist_evals = 0          # instrumentation for benchmarks
+        # per level, the link rows padded with -1 to (n, cap): the
+        # in-neighbour index of a delete burst (None: rebuilt on demand)
+        self._padded = None
 
     # ------------------------------------------------------------- storage
 
@@ -86,6 +93,7 @@ class HNSW:
 
     def insert(self, x: np.ndarray) -> int:
         x = np.asarray(x, np.float32)
+        self._padded = None              # link rows change: drop the index
         self._ensure_capacity(1)
         node = self._n
         self._X[node] = x
@@ -231,30 +239,41 @@ class HNSW:
         changed — so a derived mirror (graph.csr.CSRGraph) can refresh
         exactly the touched rows instead of rebuilding."""
         repaired: set[int] = set()
+        if self._padded is None:
+            self._padded = [self._pad_rows(rows, self.M if lev else self.M0)
+                            for lev, rows in enumerate(self.links)]
         for lev in range(len(self.links)):
             if self.links[lev][node] is None:
                 continue
-            for src, nb in enumerate(self.links[lev]):
-                if nb is None or src == node:
+            padded = self._padded[lev]
+            # every src whose row holds node, ascending, as the scan over
+            # all rows finds them (a None row is all -1, and a repair
+            # below never adds node to a row)
+            for src in np.flatnonzero((padded == node).any(1)).tolist():
+                if src == node:
                     continue
-                if (nb == node).any():
-                    repaired.add(src)
-                    keep = nb[nb != node]
-                    # repair: reconnect through the deleted node's neighbors
-                    cands = np.unique(np.concatenate(
-                        [keep, self.links[lev][node][
-                            self.links[lev][node] != src]]))
-                    cands = cands[cands != src]
-                    if cands.size:
-                        d = self._dists(self._X[src], cands)
-                        order = np.argsort(d)
-                        W = [(float(d[i]), int(cands[i])) for i in order]
-                        cap = self.M if lev > 0 else self.M0
-                        self.links[lev][src] = np.asarray(
-                            self._select_heuristic(W, cap), np.int32)
-                    else:
-                        self.links[lev][src] = keep
+                nb = self.links[lev][src]
+                repaired.add(src)
+                keep = nb[nb != node]
+                # repair: reconnect through the deleted node's neighbors
+                cands = np.unique(np.concatenate(
+                    [keep, self.links[lev][node][
+                        self.links[lev][node] != src]]))
+                cands = cands[cands != src]
+                if cands.size:
+                    d = self._dists(self._X[src], cands)
+                    order = np.argsort(d)
+                    W = [(float(d[i]), int(cands[i])) for i in order]
+                    cap = self.M if lev > 0 else self.M0
+                    self.links[lev][src] = np.asarray(
+                        self._select_heuristic(W, cap), np.int32)
+                else:
+                    self.links[lev][src] = keep
+                row = self.links[lev][src]
+                padded[src] = -1
+                padded[src, : row.size] = row
             self.links[lev][node] = None
+            padded[node] = -1
         self.levels[node] = -1
         self._X[node] = np.inf       # unreachable by distance
         if self.entry == node:
@@ -262,6 +281,17 @@ class HNSW:
             self.entry = max(alive, key=lambda i: self.levels[i]) if alive else -1
             self.max_level = self.levels[self.entry] if alive else -1
         return sorted(repaired)
+
+    @staticmethod
+    def _pad_rows(rows: list, cap: int) -> np.ndarray:
+        """A level's link rows as an (n, cap) int32 matrix, -1 padded
+        (None rows all -1); cap is the level's degree bound."""
+        cap = max([cap] + [r.size for r in rows if r is not None])
+        out = np.full((len(rows), cap), -1, np.int32)
+        for i, r in enumerate(rows):
+            if r is not None and r.size:
+                out[i, : r.size] = r
+        return out
 
     # -------------------------------------------------------- persistence
 

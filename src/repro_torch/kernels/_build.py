@@ -27,7 +27,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
-           "function", "check", "PTR", "INT", "LONG"]
+           "function", "check", "events", "PTR", "INT", "LONG"]
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -41,6 +41,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# Kernel-library builds (nvcc runs) and loads in this process: the
+# runtime's recompile audit (`serving.runtime.telemetry.jit_cache_size`)
+# reads their sum, which stays constant once the first launch is past.
+events = {"builds": 0, "loads": 0}
 _functions: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -104,6 +108,7 @@ def build() -> Path:
         Path(str(lib_path) + ".log").write_text(
             "\n".join(logs) + link.stdout)
         os.replace(tmp_lib, lib_path)      # atomic if processes build at once
+    events["builds"] += 1
     return lib_path
 
 
@@ -115,6 +120,7 @@ def _library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.argtypes = [INT]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
+            events["loads"] += 1
     return _lib
 
 

@@ -18,7 +18,8 @@ The four pool and oblivious scans keep the reference's float32
 the cross term alone is exact for d <= 1040), and the PQ sums in
 ascending subspace order.  `lax.top_k` of the negated distances becomes
 a stable ascending sort (ties to the lowest position).  The reference's
-`use_kernel=` switch is not ported: CUDA tensors always take the kernel.
+`use_kernel=` switch is not ported: CUDA tensors always take the kernel.  The six scans are wrapped by the
+opt-in kernel profiler (`obs.profiler`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ...device import full_fp32
+from ...obs.profiler import instrument as _instrument
 from ..common import top_positions
 from .adc_topk import INT_BIG, pq_adc_topk, sq_adc_topk
 from .ref import pq_dists
@@ -117,3 +119,13 @@ def pq_oblivious_scan(codes_t, lut, member, kp: int):
     d = torch.where(member, pq_dists(lut, codes_t), float("inf"))
     pos = top_positions(d, kp)
     return pos, torch.gather(member, 1, pos)
+
+
+sq_knn = _instrument("adc_topk.sq_knn", sq_knn)
+pq_knn = _instrument("adc_topk.pq_knn", pq_knn)
+sq_pool_scan = _instrument("adc_topk.sq_pool_scan", sq_pool_scan)
+pq_pool_scan = _instrument("adc_topk.pq_pool_scan", pq_pool_scan)
+sq_oblivious_scan = _instrument("adc_topk.sq_oblivious_scan",
+                                sq_oblivious_scan)
+pq_oblivious_scan = _instrument("adc_topk.pq_oblivious_scan",
+                                pq_oblivious_scan)

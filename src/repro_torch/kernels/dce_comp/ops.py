@@ -4,13 +4,15 @@ Counterpart of `repro.kernels.dce_comp.ops`.  `jax.lax.top_k` keeps the
 lowest index among equal values and `torch.topk` promises no tie order,
 so the top-k by wins here is a stable ascending sort of `-wins`.
 `refine_topk` is the whole refine of a batch (gather, Z, wins, top-k) in
-one fused kernel call on the card.
+one fused kernel call on the card.  The public entry points are wrapped
+by the opt-in kernel profiler (`obs.profiler`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...obs.profiler import instrument as _instrument
 from .dce_comp import batched_z_matrix, refine_topk, z_matrix
 from .ref import batched_wins
 
@@ -41,3 +43,9 @@ def batched_top_k_by_wins(C: torch.Tensor, T: torch.Tensor, k: int, *,
     wins = batched_wins(batched_z_matrix(C, T), valid)
     k = min(k, C.shape[1])
     return torch.sort(-wins, dim=-1, stable=True).indices[:, :k]
+
+
+top_k_by_wins = _instrument("dce_comp.top_k_by_wins", top_k_by_wins)
+batched_top_k_by_wins = _instrument("dce_comp.batched_top_k_by_wins",
+                                    batched_top_k_by_wins)
+refine_topk = _instrument("dce_comp.refine_topk", refine_topk)

@@ -21,6 +21,7 @@ ids equal its ids wherever the fp32 distances do.
 from __future__ import annotations
 
 from ...graph import traverse as _traverse
+from ...obs.profiler import instrument as _instrument
 from .graph_expand import expand_layer0, graph_walk
 
 __all__ = ["graph_topk", "graph_walk", "expand_layer0"]
@@ -41,3 +42,6 @@ def graph_topk(neigh0, neigh_up, ok, db, qd, entry: int, ef: int, *,
         neigh0, neigh_up, ok, C, qd, entry, ef, ef_cap=ef_cap,
         max_hops=max_hops)
     return beam_i[:, :kp], beam_d[:, :kp], visited, hops, edges
+
+
+graph_topk = _instrument("graph_expand.graph_topk", graph_topk)

@@ -66,7 +66,8 @@ class SearchStats:
     ciphertext + DCE trapdoor + k (4 bytes); server -> user is the
     serialized id matrix — int64 ids, so 8 bytes per returned slot.
     The fields and their meaning are those of the JAX package's
-    `SearchStats`; the fields of backends not ported yet stay 0.
+    `SearchStats`; the fields of backends not ported yet stay 0 unless a
+    backend sets them (`last_n_shards_down`, `last_degraded`).
     """
     latency_s: float
     filter_dist_evals: int      # ciphertext distance evaluations (filter)
@@ -516,9 +517,14 @@ class SecureSearchEngine:
     def _ensure_attached(self):
         if self._dirty:
             self._C_dce_dev = None            # free the old copy first
-            self._C_dce_dev = torch.as_tensor(
-                np.asarray(self._C_dce, np.float32)).to(
-                self.device).contiguous()
+            # a backend may manage the refine array's device residency
+            # itself (the runtime's mutable store ships only appended
+            # rows, DESIGN.md §8); default is a full upload
+            provider = getattr(self.backend, "dce_device", None)
+            self._C_dce_dev = (
+                torch.as_tensor(np.asarray(self._C_dce, np.float32)).to(
+                    self.device).contiguous() if provider is None
+                else provider(self._C_dce))
             self.backend.attach(self._C_sap, self)
             self._dirty = False
 
@@ -566,7 +572,13 @@ class SecureSearchEngine:
             if refine == "tournament":
                 T = torch.as_tensor(np.asarray(T_q, np.float32)).to(
                     self.device)
-                out = refine_candidates(self._C_dce_dev, cand, T, valid, k)
+                # a backend may supply its own batched refine (the
+                # sharded backend of the JAX package does); semantics
+                # are identical
+                refine_fn = getattr(self.backend, "refine_batch", None)
+                if refine_fn is None:
+                    refine_fn = refine_candidates
+                out = refine_fn(self._C_dce_dev, cand, T, valid, k)
                 ids = out.cpu().numpy().astype(np.int64)
                 nv = valid.sum(dim=1)
                 ncmp = int((nv * (nv - 1)).sum())
@@ -592,6 +604,9 @@ class SecureSearchEngine:
             n_hops=int(getattr(self.backend, "last_n_hops", 0)),
             n_edges_scanned=int(
                 getattr(self.backend, "last_n_edges_scanned", 0)),
+            n_shards_down=int(
+                getattr(self.backend, "last_n_shards_down", 0)),
+            degraded=bool(getattr(self.backend, "last_degraded", False)),
         )
         return ids, stats
 
@@ -633,5 +648,8 @@ class SecureSearchEngine:
             n_hops=int(getattr(self.backend, "last_n_hops", 0)),
             n_edges_scanned=int(
                 getattr(self.backend, "last_n_edges_scanned", 0)),
+            n_shards_down=int(
+                getattr(self.backend, "last_n_shards_down", 0)),
+            degraded=bool(getattr(self.backend, "last_degraded", False)),
         )
         return ids, stats

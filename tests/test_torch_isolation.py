@@ -24,6 +24,11 @@ from repro_torch.kernels.adc_topk import ref as adc_ref
 from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
+from repro_torch.obs import profile_kernels
+from repro_torch.serving.runtime import (Collection, CollectionManager,
+                                         DeltaAwareBackend,
+                                         MutableEncryptedStore,
+                                         jit_cache_size)
 from repro_torch.serving.search_engine import SecureSearchEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +49,9 @@ def test_port_imports_without_jax():
             "repro_torch.obs, repro_torch.data.synth, repro_torch.kernels."
             "l2_topk, repro_torch.kernels.dce_comp, repro_torch.graph, "
             "repro_torch.kernels.graph_expand.ops, repro_torch.kernels."
-            "adc_topk, repro_torch.core.adc, repro_torch.core.ivf\n"
+            "adc_topk, repro_torch.core.adc, repro_torch.core.ivf, "
+            "repro_torch.serving.runtime, repro_torch.sec, "
+            "repro_torch.obs.metrics, repro_torch.obs.profiler\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -72,6 +79,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     owner = ppanns.DataOwner(d=8, sap_beta=1.0)
     X = np.ones((3, 8), np.float32)
     for call in (lambda: SecureSearchEngine(C_sap, C_dce),
+                 lambda: Collection("t", "c", 8, sap_beta=1.0),
+                 lambda: CollectionManager(),
+                 lambda: CollectionManager(device="cpu").create_collection(
+                     "t", "c", 8, sap_beta=1.0, device=None),
+                 lambda: DeltaAwareBackend(MutableEncryptedStore(8, 32)),
                  lambda: owner.encrypt_vectors(X),
                  lambda: dce.encrypt_torch(X, owner.keys.dce_key),
                  lambda: dcpe.encrypt_torch(X, owner.keys.sap_key),
@@ -110,6 +122,78 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
     assert d.dtype == torch.float32 and i.dtype == torch.int64
     assert _launch_counts() == before
     assert adc_topk.launches == adc_before
+
+
+def _runtime_corpus(n=300, nq=6, d=16, seed=0):
+    """Numpy-encrypted rows, queries and an owner-built graph (the
+    runtime's keyless inputs)."""
+    rng = np.random.default_rng(seed)
+    P = rng.standard_normal((n, d)).astype(np.float32)
+    owner = ppanns.DataOwner(d=d, sap_beta=dcpe.suggest_beta(P, 0.05),
+                             seed=seed)
+    db = owner.encrypt_database(P, build_index=False)
+    user = ppanns.User(owner.share_keys())
+    Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in
+                               rng.standard_normal((nq, d)))))
+    return db.C_sap, db.C_dce, Q, T
+
+
+_RUNTIME_KINDS = [("flat", None), ("flat", "int8"), ("flat", "pq8"),
+                  ("graph", None)]
+
+
+def _runtime_run(device, kind, quant, C_sap, C_dce, Q, T, k=5):
+    """A keyless collection through snapshot load, a delete, an insert
+    burst (a live delta), searches, a compaction and a second burst.
+    Returns (ids of the delta search, ids after compaction, deleted ids,
+    K1 launches a batch while the delta was non-empty, builds+loads
+    after warmup)."""
+    kw = {"pq_m": 4} if quant == "pq8" else {}
+    if kind == "graph":
+        kw.update(hnsw_M=8, hnsw_ef_construction=32)
+    col = Collection("t", f"{kind}-{quant}", C_sap.shape[1], device=device,
+                     keyless=True, seed=1, backend=kind,
+                     quantization=quant, compact_every=10_000, max_batch=4,
+                     **kw)
+    try:
+        n0 = C_sap.shape[0] - 40
+        if kind == "graph":
+            col.insert_encrypted(C_sap[:n0], C_dce[:n0])
+        else:
+            col.load_snapshot(C_sap[:n0], C_dce[:n0])
+        col.warmup(k)
+        audit = jit_cache_size()
+        first, _ = col.search_batch(Q, T, k)
+        gone = np.unique(first[:, :2])
+        col.delete(gone)
+        col.insert_encrypted(C_sap[n0:n0 + 20], C_dce[n0:n0 + 20])
+        before = l2_topk.launches["knn"]
+        delta, _ = col.search_batch(Q, T, k)
+        per_batch = l2_topk.launches["knn"] - before
+        col.compact()
+        col.insert_encrypted(C_sap[n0 + 20:], C_dce[n0 + 20:])
+        via = np.stack([col.submit(q, t, k).result(timeout=60)
+                        for q, t in zip(Q, T)])
+        direct, _ = col.search_batch(Q, T, k)
+        np.testing.assert_array_equal(via, direct)
+        return delta, direct, gone, per_batch, jit_cache_size() - audit
+    finally:
+        col.close()
+
+
+@pytest.mark.parametrize("kind,quant", _RUNTIME_KINDS)
+def test_runtime_on_cpu_never_reaches_the_launch_path(monkeypatch, kind,
+                                                      quant):
+    def refuse(*a, **kw):
+        raise AssertionError("CPU tensor reached the kernel launch path")
+    monkeypatch.setattr(_build, "function", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    before = _launch_counts()
+    delta, after, gone, _, rebuilt = _runtime_run(
+        "cpu", kind, quant, *_runtime_corpus())
+    assert not np.isin(delta, gone).any() and not np.isin(after, gone).any()
+    assert rebuilt == 0
+    assert _launch_counts() == before
 
 
 def _launch_counts() -> dict:
@@ -545,3 +629,60 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 256)
     with pytest.raises(ValueError, match="shared memory"):
         adc_topk.pq_adc_topk(lut, codes_t, ok, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,quant", _RUNTIME_KINDS)
+def test_runtime_collections_on_the_card_equal_the_host(kind, quant):
+    """The runtime on the card through a mutation sequence: its ids equal
+    the host's plain versions' (>= 99% of slots: the fp32 sums of the
+    filter and the refine are taken in another order), no deleted id
+    comes back, the flat filter launches K1 twice a batch while the delta
+    is non-empty, and nothing is built or loaded after warmup."""
+    _needs_card()
+    corpus = _runtime_corpus(n=1000, nq=32, d=32)
+    card = _runtime_run(None, kind, quant, *corpus)
+    host = _runtime_run("cpu", kind, quant, *corpus)
+    for got, want in zip(card[:2], host[:2]):
+        assert (got == want).mean() >= 0.99
+    gone = card[2]
+    assert not np.isin(card[0], gone).any()
+    assert not np.isin(card[1], gone).any()
+    assert card[3] == (2 if (kind, quant) == ("flat", None) else 0)
+    assert card[4] == 0
+
+
+@pytest.mark.cuda
+def test_refine_array_written_in_place_on_the_card():
+    """Inside a capacity bucket an insert burst is copied into the refine
+    array's device tensor already held, bit-equal to a full upload."""
+    _needs_card()
+    C_sap, C_dce, Q, T = _runtime_corpus(n=300, nq=4, d=16)
+    col = Collection("t", "c", 16, keyless=True, seed=1,
+                     compact_every=10_000)
+    try:
+        col.load_snapshot(C_sap[:200], C_dce[:200])
+        col.search_batch(Q, T, 5)
+        ptr = col._backend._C_dce_dev.data_ptr()
+        col.insert_encrypted(C_sap[200:], C_dce[200:])
+        col.search_batch(Q, T, 5)
+        dev = col._backend._C_dce_dev
+        assert dev.data_ptr() == ptr and dev.is_cuda
+        assert torch.equal(dev.cpu(), torch.from_numpy(
+            col.store.dce_padded_view))
+    finally:
+        col.close()
+
+
+@pytest.mark.cuda
+def test_profiler_times_card_calls_with_cuda_events():
+    _needs_card()
+    Q = torch.randn(8, 32, device="cuda")
+    X = torch.randn(5000, 32, device="cuda")
+    from repro_torch.kernels.l2_topk import ops as l2_ops
+    with profile_kernels() as prof:
+        l2_ops.knn(Q, X, 10)
+        l2_ops.knn(Q, X, 10)
+    s = prof.summary()["l2_topk.knn"]
+    assert s["calls"] == 2 and s["total_s"] > 0
+    assert s["total_bytes"] == 2 * (Q.nbytes + X.nbytes)

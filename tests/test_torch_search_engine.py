@@ -191,3 +191,64 @@ def test_secure_knn_refines_equal_jax(setup):
     want = jsecure_knn.linear_scan_heap(C[:200], T[1], K)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] == want[1]
+
+
+class _HookedBackend:
+    """A stub filter backend with the engine's optional hooks: its own
+    refine-array residency (`dce_device`), its own batched refine
+    (`refine_batch`) and the failover fields.  `to_array` makes the
+    hooks' arrays in either package (jnp or torch)."""
+
+    name = "stub"
+
+    def __init__(self, to_array, refine):
+        self.to_array = to_array
+        self.refine = refine
+        self.calls = []
+        self.last_filter_bytes = 7
+        self.last_n_shards_down = 2
+        self.last_degraded = True
+
+    def dce_device(self, C_dce):
+        self.calls.append("dce_device")
+        return self.to_array(np.asarray(C_dce, np.float32))
+
+    def attach(self, C_sap, engine):
+        self.C_sap = np.asarray(C_sap, np.float32)
+
+    def candidates(self, Q_sap, kp, ef_search):
+        d = ((Q_sap[:, None, :] - self.C_sap[None]) ** 2).sum(-1)
+        cand = np.argsort(d, axis=1, kind="stable")[:, :kp].astype(np.int32)
+        return cand, np.ones(cand.shape, bool), d.size
+
+    def refine_batch(self, C_dce_dev, cand, T, valid, k):
+        self.calls.append("refine_batch")
+        return self.refine(C_dce_dev, cand, T, valid, k)
+
+
+def test_backend_hooks_and_failover_fields_equal_jax(setup):
+    """The engine hands the refine array's residency and the refine
+    itself to a backend that offers them, and reports the backend's
+    shard-failover fields, in both packages alike."""
+    import jax.numpy as jnp
+
+    from repro.serving.search_engine import \
+        refine_candidates as jrefine_candidates
+    ds, _, teng, Q, T = setup
+    jb = _HookedBackend(jnp.asarray, jrefine_candidates)
+    tb = _HookedBackend(torch.from_numpy, refine_candidates)
+    jeng = JEngine(teng._C_sap, teng._C_dce, backend=jb)
+    eng = SecureSearchEngine(teng._C_sap, teng._C_dce, backend=tb,
+                             device=CPU)
+    want, wstats = jeng.search_batch(Q, T, K, ratio_k=6)
+    got, gstats = eng.search_batch(Q, T, K, ratio_k=6)
+    np.testing.assert_array_equal(got, want)
+    _same_counts(gstats, wstats)
+    assert (gstats.n_shards_down, gstats.degraded) == (2, True)
+    assert (wstats.n_shards_down, wstats.degraded) == (2, True)
+    assert tb.calls == jb.calls == ["dce_device", "refine_batch"]
+    one, ostats = eng.search(Q[0], T[0], K, ratio_k=6, refine="heap")
+    jone, jostats = jeng.search(Q[0], T[0], K, ratio_k=6, refine="heap")
+    np.testing.assert_array_equal(one, jone)
+    assert (ostats.n_shards_down, ostats.degraded) == \
+        (jostats.n_shards_down, jostats.degraded) == (2, True)
