@@ -116,6 +116,33 @@ Phases, each of which fails the run (non-zero exit, no final line):
    One `runtime_path` line each; their launches join the `kernels` line
    as `launches_by_path` runtime_flat, runtime_flat_continuous,
    runtime_int8, runtime_pq8 and runtime_graph.
+7. The public API (`repro_torch.api`) and the leakage harness
+   (`repro_torch.sec.leakage`), run after phase 6 and before phase 5, on
+   the ciphertexts the script already holds:
+   (a) the three roles over phase 3's corpus: `DataOwnerClient` around
+       phase 3's keys (`DataOwner.from_keys`), its keys exported to a
+       keystore, `QueryClient.from_keystore(seed=17)` whose query
+       ciphertexts must equal phase 3's byte for byte, and a keyless
+       flat collection made from phase 3's ciphertexts; batch requests
+       of 32 (each request and result through `to_bytes` /
+       `from_bytes`) whose ids must equal phase 3's in 100% of slots,
+       with one l2_topk.knn and one refine_topk launch each, then 8
+       client threads submitting 128 coalesced single-query requests
+       each, whose ids must equal the batch ids in 100% of slots;
+   (b) persistence over phase 1's graph corpus: a graph collection (the
+       owner's HNSW arrays) and a flat int8 collection, each searched,
+       saved to a `.ppcol`, closed, loaded into a fresh service and
+       searched again (ids equal in 100% of slots, no kernel build or
+       load after the load), then one held-out row inserted and found
+       and one answered id deleted and never returned;
+   (c) the leakage harness at BENCH_attacks.json's replay scale (2,048
+       rows, d 32, 64 queries): a graph collection's scan trace with the
+       kernels bit-equal to its trace with their plain versions, then
+       `evaluate_profile` for every profile x (ivf, ivf+int8, graph)
+       and the bars of tests/test_leakage.py.
+   One `api_path` line per collection and one `leakage` line; the
+   launches join the `kernels` line as `launches_by_path` api_flat,
+   api_graph and api_int8.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -1136,7 +1163,8 @@ def main_path(n: int, n_queries: int) -> dict:
     on_k1600 = k1600_path(eng, Q, T, 200, "flat_k1600")
     # the ADC paths search the same ciphertexts and queries
     return launches, on_k1600, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce,
-                                "Q": Q, "T": T, "ids": ids}
+                                "Q": Q, "T": T, "ids": ids,
+                                "keys": owner.keys}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1332,6 +1360,8 @@ def graph_setup(n: int, n_queries: int, pool) -> dict:
     extra = synth.make_dataset("sift1m", n=n + 1000, n_queries=1,
                                k_gt=1).base[n:]
     extra_sap, extra_dce = owner.encrypt_vectors(extra)
+    # query 0's plaintext as a row: phase 7's insert after a reload
+    probe_sap, probe_dce = owner.encrypt_vectors(ds.queries[:1])
     user = ppanns.User(owner.share_keys())
     Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
     log(json.dumps({"phase": "graph_setup", "n": ds.n, "d": ds.d,
@@ -1340,6 +1370,7 @@ def graph_setup(n: int, n_queries: int, pool) -> dict:
                     "hnsw_ef_construction": GRAPH_EF_CONSTRUCTION}))
     return {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q, "T": T,
             "extra_sap": extra_sap, "extra_dce": extra_dce,
+            "probe_sap": probe_sap, "probe_dce": probe_dce,
             "build": build, "t_data": t_data, "t_enc": t_enc}
 
 
@@ -2041,6 +2072,432 @@ def runtime_paths(corpus: dict, graph: dict, records: list) -> dict:
             "runtime_graph": on_graph}
 
 
+# --------------------------------------------------------------- phase 7
+
+API_THREADS = 8                 # client threads of the coalesced pass
+API_PER_THREAD = 128            # single-query requests each submits (at
+                                # most: --queries / 8 on a short run)
+# the leakage harness's replay scale (BENCH_attacks.json's leak_n,
+# leak_d and leak_nq), its profiles and its backend cells
+LEAK_N, LEAK_D, LEAK_NQ = 2048, 32, 64
+LEAK_PROFILES = ("perf", "balanced", "hardened", "oblivious-sketch")
+LEAK_IVF_CELLS = (("ivf", None), ("ivf", "int8"))
+
+
+def api_params():
+    from repro_torch.api import SearchParams
+    return SearchParams(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+
+
+def api_batches(svc, name: str, Q, T, wire: bool = False):
+    """Every query as batch requests of 32 (coalesce=False), each through
+    `SearchRequest.to_bytes` -> `from_bytes` and its result through
+    `SearchResult.to_bytes` -> `from_bytes` when `wire`, as between two
+    processes.  -> (ids, request seconds, request bytes, result bytes,
+    seconds of each request spent packing and unpacking)."""
+    from repro_torch.api import (EncryptedQuery, SearchRequest,
+                                 SearchResult)
+    ids, lat, wire_s, up, down = [], [], [], 0, 0
+    for s in range(0, Q.shape[0], BATCH):
+        req = SearchRequest(tenant="t0", collection=name,
+                            query=EncryptedQuery(C_sap=Q[s:s + BATCH],
+                                                 T=T[s:s + BATCH]),
+                            params=api_params(), coalesce=False)
+        t0 = time.perf_counter()
+        if wire:
+            data = req.to_bytes()
+            got = SearchRequest.from_bytes(data)
+            t1 = time.perf_counter()
+            res = svc.submit(got)
+            t2 = time.perf_counter()
+            out = res.to_bytes()
+            back = SearchResult.from_bytes(out)
+            wire_s.append(time.perf_counter() - t2 + t1 - t0)
+            up, down = up + len(data), down + len(out)
+            if not (np.array_equal(back.ids, res.ids)
+                    and back.stats == res.stats):
+                raise AssertionError("a SearchResult changed on the wire")
+            res = back
+        else:
+            res = svc.submit(req)
+        lat.append(time.perf_counter() - t0)
+        ids.append(res.ids)
+    return np.concatenate(ids), lat, up, down, wire_s
+
+
+def api_clients(svc, name: str, Q, T):
+    """API_THREADS client threads, each submitting its share (at most
+    API_PER_THREAD) of single-query requests one after another
+    (coalesce=True: the collection's flush batcher shares engine calls
+    between the threads), each request and result through the wire.
+    -> (ids in query order, request seconds, wall seconds, request
+    bytes, result bytes, seconds of each request spent packing and
+    unpacking).  A client's failure, a hang included (the service's
+    result timeout), is raised here."""
+    import threading
+    from repro_torch.api import (EncryptedQuery, SearchRequest,
+                                 SearchResult)
+    per = min(API_PER_THREAD, Q.shape[0] // API_THREADS)
+    nq = API_THREADS * per
+    ids = np.full((nq, K), -2, np.int64)
+    lat, wire_s = np.zeros(nq), np.zeros(nq)
+    sizes = np.zeros((nq, 2), np.int64)
+    errors = []
+
+    def client(lo, hi):
+        try:
+            for i in range(lo, hi):
+                req = SearchRequest(tenant="t0", collection=name,
+                                    query=EncryptedQuery(C_sap=Q[i:i + 1],
+                                                         T=T[i:i + 1]),
+                                    params=api_params())
+                t0 = time.perf_counter()
+                data = req.to_bytes()
+                got = SearchRequest.from_bytes(data)
+                t1 = time.perf_counter()
+                res = svc.submit(got)
+                t2 = time.perf_counter()
+                out = res.to_bytes()
+                ids[i] = SearchResult.from_bytes(out).ids[0]
+                t3 = time.perf_counter()
+                lat[i], wire_s[i] = t3 - t0, t3 - t2 + t1 - t0
+                sizes[i] = len(data), len(out)
+        except BaseException as exc:         # re-raised by the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t * per, (t + 1) * per))
+               for t in range(API_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads) or (ids == -2).any():
+        raise AssertionError("an API client thread did not finish")
+    return ids, list(lat), wall, int(sizes[:, 0].sum()), \
+        int(sizes[:, 1].sum()), list(wire_s)
+
+
+def ms_stats(lat) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def api_flat(ctx: dict, tmp: Path) -> dict:
+    """(a) The three roles over phase 3's corpus: the owner rebuilt
+    around phase 3's keys (`DataOwner.from_keys`), its keys exported to
+    a keystore, a user from that keystore with phase 3's query seed, and
+    a keyless flat collection made from phase 3's ciphertexts, answering
+    batch requests and coalesced single-query requests from client
+    threads.  -> launches (batch and coalesced passes)."""
+    import torch
+    from repro_torch.api import (DataOwnerClient, EncryptedCorpus,
+                                 IndexSpec, Keystore, QueryClient,
+                                 SecureAnnService)
+    from repro_torch.serving.runtime import jit_cache_size
+    ds, keys = ctx["ds"], ctx["keys"]
+    t_start = time.perf_counter()
+    spec = IndexSpec(tenant="t0", name="sift", d=ds.d, backend="flat",
+                     sap_beta=keys.sap_key.beta, sap_s=keys.sap_key.s,
+                     seed=OWNER_SEED, max_batch=BATCH)
+    owner = DataOwnerClient(spec, keys=keys)
+    owner.export_keys(Keystore(tmp / "keys"))
+    t0 = time.perf_counter()
+    user = QueryClient.from_keystore(tmp / "keys", "t0__sift",
+                                     expect_d=ds.d, seed=17)
+    query = user.encrypt_queries(ds.queries)
+    t_qenc = time.perf_counter() - t0
+    Q, T = query.C_sap, query.T
+    if not (Q.tobytes() == ctx["Q"].tobytes()
+            and T.tobytes() == ctx["T"].tobytes()):
+        raise AssertionError("QueryClient(seed=17) ciphertexts differ from "
+                             "phase 3's User ciphertexts")
+    nq = Q.shape[0]
+    with SecureAnnService() as svc:                   # device: the card
+        t0 = time.perf_counter()
+        svc.create_collection(spec, EncryptedCorpus(C_sap=ctx["C_sap"],
+                                                    C_dce=ctx["C_dce"]))
+        t_create = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc.warmup("t0", "sift", k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        t_warm = time.perf_counter() - t0
+        audit = jit_cache_size()
+        reset_launches()
+        ids, lat, up, down, wire = api_batches(svc, "sift", Q, T, wire=True)
+        on_batches = kernel_launches()
+        ids_c, lat_c, wall_c, up_c, down_c, wire_c = api_clients(
+            svc, "sift", Q, T)
+        launches = kernel_launches()
+        rebuilt = jit_cache_size() - audit
+        snap = svc.stats("t0", "sift")
+        resident = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    nb = len(lat)
+    m = ids_c.shape[0]
+    rec = {"phase": "api_path", "path": "api_flat", "n": ds.n, "d": ds.d,
+           "queries": nq, "k": K, "k_prime": K * RATIO_K,
+           "query_ciphertexts_equal_phase3": True,
+           "batch": {"requests": nb, "queries_per_request": BATCH,
+                     "qps": nq / sum(lat), **ms_stats(lat),
+                     "wire_p50_ms": float(np.percentile(wire, 50)) * 1e3,
+                     "request_bytes_per_query": up / nq,
+                     "result_bytes_per_query": down / nq,
+                     "id_agreement_phase3": float((ids == ctx["ids"]).mean()),
+                     "launches": on_batches},
+           "coalesced": {"threads": API_THREADS, "requests": m,
+                         "qps": m / wall_c, **ms_stats(lat_c),
+                         "wire_p50_ms": float(
+                             np.percentile(wire_c, 50)) * 1e3,
+                         "request_bytes_per_query": up_c / m,
+                         "result_bytes_per_query": down_c / m,
+                         "engine_calls": snap["n_batches"],
+                         "batch_occupancy": snap["batch_occupancy"],
+                         "sojourn_p50_ms": snap["p50_latency_s"] * 1e3,
+                         "sojourn_p99_ms": snap["p99_latency_s"] * 1e3,
+                         "id_agreement_batch": float(
+                             (ids_c == ids[:m]).mean())},
+           "launches": launches, "rebuilds_after_warmup": rebuilt,
+           "device_allocated_bytes": resident,
+           "host_s": {"user_encrypt_queries": t_qenc,
+                      "create_collection": t_create, "warmup": t_warm},
+           "wall_s": time.perf_counter() - t_start}
+    log(json.dumps(rec))
+    if not (ids == ctx["ids"]).all():
+        raise AssertionError("api flat ids differ from phase 3's")
+    if not (ids_c == ids[:m]).all():
+        raise AssertionError("coalesced ids differ from the batch ids")
+    if (on_batches["l2_topk.knn"] != nb
+            or on_batches["dce_comp.refine_topk"] != nb or rebuilt):
+        raise AssertionError(f"api flat: {on_batches} for {nb} batch "
+                             f"requests (one fused scan and one fused "
+                             f"refine each), {rebuilt} rebuilds")
+    return launches
+
+
+def api_persist(g: dict, tmp: Path, quantization: str | None) -> dict:
+    """(b) Persistence over phase 1's graph corpus: a keyless collection
+    (`backend="graph"` with the owner's HNSW arrays, or flat int8 with
+    its codebook trained at attach) searched, saved to a `.ppcol`,
+    closed, loaded into a fresh service and searched again; then one
+    held-out row (query 0's plaintext, encrypted by phase 1's owner)
+    inserted and found, and one answered id deleted and never returned.
+    -> launches."""
+    import torch
+    from repro_torch.api import (EncryptedCorpus, IndexSpec,
+                                 SecureAnnService)
+    from repro_torch.kernels import _build
+    Q, T = g["Q"], g["T"]
+    graph = quantization is None
+    path = "api_graph" if graph else f"api_{quantization}"
+    index = graph_index(g)[0].to_arrays() if graph else None
+    spec = IndexSpec(tenant="t0", name=path, d=Q.shape[1],
+                     backend="graph" if graph else "flat",
+                     quantization=quantization, seed=OWNER_SEED,
+                     hnsw_M=GRAPH_M,
+                     hnsw_ef_construction=GRAPH_EF_CONSTRUCTION,
+                     max_batch=BATCH, compact_every=1_000_000)
+    filt = "graph_expand.graph_walk" if graph else "adc_topk.sq_adc_topk"
+    t_start = time.perf_counter()
+    reset_launches()
+    with SecureAnnService() as svc:
+        t0 = time.perf_counter()
+        svc.create_collection(spec, EncryptedCorpus(
+            C_sap=g["C_sap"], C_dce=g["C_dce"], index=index))
+        svc.warmup("t0", path, k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        t_create = time.perf_counter() - t0        # CSR mirror / codebook
+        before = kernel_launches()
+        ids, lat, *_ = api_batches(svc, path, Q, T)
+        on_batches = {k: v - before[k] for k, v in kernel_launches().items()}
+        t0 = time.perf_counter()
+        (ppcol,) = svc.save(tmp / path)
+        t_save = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    events = dict(_build.events)
+    t0 = time.perf_counter()
+    svc = SecureAnnService.load(tmp / path)
+    t_load = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        first, *_ = api_batches(svc, path, Q[:BATCH], T[:BATCH])
+        t_first = time.perf_counter() - t0        # upload, CSR / codes
+        ids_l, lat_l, *_ = api_batches(svc, path, Q, T)
+        builds = {k: v - events[k] for k, v in _build.events.items()}
+        new = svc.insert("t0", path, g["probe_sap"], g["probe_dce"])
+        ids_i, *_ = api_batches(svc, path, Q[:BATCH], T[:BATCH])
+        gone = int(ids_l[1, 0])
+        svc.delete("t0", path, [gone])
+        ids_d, *_ = api_batches(svc, path, Q, T)
+        launches = kernel_launches()
+    finally:
+        svc.close()
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    nb = len(lat)
+    rec = {"phase": "api_path", "path": path, "n": g["C_sap"].shape[0],
+           "queries": Q.shape[0],
+           "backend": spec.backend, "quantization": quantization,
+           "qps": Q.shape[0] / sum(lat), **ms_stats(lat),
+           "qps_after_load": Q.shape[0] / sum(lat_l),
+           "ppcol_bytes": ppcol.stat().st_size,
+           "host_s": {"create_and_warmup": t_create, "save": t_save,
+                      "load": t_load,
+                      "first_batch_after_load": t_first},
+           "id_agreement_after_load": float((ids_l == ids).mean()),
+           "first_batch_after_load_equal": bool(
+               (first == ids[:BATCH]).all()),
+           "kernel_builds_after_load": builds,
+           "inserted_row": int(new[0]),
+           "inserted_row_found": bool(int(new[0]) in ids_i[0]),
+           "deleted_id": gone,
+           "deleted_id_returned": int((ids_d == gone).sum()),
+           "launches_per_batch_before_save": {
+               k: v / nb for k, v in on_batches.items() if v},
+           "launches": launches,
+           "wall_s": time.perf_counter() - t_start}
+    log(json.dumps(rec))
+    if not (ids_l == ids).all() or not rec["first_batch_after_load_equal"]:
+        raise AssertionError(f"{path}: ids after load differ from the ids "
+                             f"before the save")
+    if any(builds.values()):
+        raise AssertionError(f"{path}: kernel builds after load: {builds}")
+    if not rec["inserted_row_found"] or rec["deleted_id_returned"]:
+        raise AssertionError(f"{path}: insert / delete after load: {rec}")
+    if on_batches[filt] != nb or on_batches["dce_comp.refine_topk"] != nb:
+        raise AssertionError(f"{path}: {on_batches} for {nb} batches (one "
+                             f"{filt} and one refine_topk each)")
+    return launches
+
+
+def leak_cell(profile: str, backend: str, quantization):
+    """Worker process: one frontier cell of the leakage harness on the
+    card.  -> ([AttackResult dicts], seconds)."""
+    from repro_torch.sec import evaluate_profile
+    t0 = time.perf_counter()
+    res = evaluate_profile(profile, backend, quantization, n=LEAK_N,
+                           d=LEAK_D, nq=LEAK_NQ, seed=0)
+    return [r.to_dict() for r in res], time.perf_counter() - t0
+
+
+def leak_trace_check() -> dict:
+    """The graph collection the harness builds for its `perf` cell (the
+    same data, keys, seed and per-row HNSW inserts), built here once:
+    its scan trace (the graph walk's visited words, downloaded) with the
+    kernels must be bit-equal to the trace with them swapped for their
+    plain versions."""
+    from repro_torch.core import dcpe, ppanns
+    from repro_torch.data import synth
+    from repro_torch.serving.runtime import Collection
+    ds = synth.make_dataset("sift1m", n=LEAK_N, n_queries=LEAK_NQ,
+                            d=LEAK_D, k_gt=K, seed=0)
+    owner = ppanns.DataOwner(d=LEAK_D, sap_beta=dcpe.suggest_beta(
+        ds.base, fraction=0.01), sap_s=1024.0, seed=0)
+    user = ppanns.User(owner.share_keys(), seed=1)
+    C_sap, C_dce = owner.encrypt_vectors(ds.base)            # the card
+    Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
+    col = Collection("leak", "perf-graph", LEAK_D, backend="graph", seed=0,
+                     keyless=True, security_profile="perf")
+    try:
+        t0 = time.perf_counter()
+        col.insert_encrypted(C_sap, C_dce)          # host HNSW inserts
+        t_build = time.perf_counter() - t0
+        with untallied():
+            before = kernel_launches()
+            col.search_batch(Q, T, K)
+            walks = (kernel_launches()["graph_expand.graph_walk"]
+                     - before["graph_expand.graph_walk"])
+            trace = np.array(col._backend.last_scan_trace, copy=True)
+            before = kernel_launches()
+            with plain_kernels():
+                col.search_batch(Q, T, K)
+            if kernel_launches() != before:
+                raise AssertionError("a kernel launched during the plain "
+                                     "run")
+            plain = np.array(col._backend.last_scan_trace, copy=True)
+    finally:
+        col.close()
+    return {"graph_walk_launches": walks, "rows": LEAK_N,
+            "queries": LEAK_NQ, "hnsw_build_s": t_build,
+            "touched": int(trace.sum()),
+            "touched_plain": int(plain.sum()),
+            "bit_equal": bool(trace.shape == plain.shape
+                              and np.array_equal(trace, plain))}
+
+
+def leakage() -> dict:
+    """(c) The leakage harness on the card at BENCH_attacks.json's
+    replay scale: `evaluate_profile` for every profile x (ivf, ivf+int8,
+    graph) -- the four graph cells in worker processes, whose host HNSW
+    builds (per-row inserts, ~half a minute each) run beside the trace
+    check and the IVF cells here -- and the bars of
+    tests/test_leakage.py."""
+    from repro_torch.sec import evaluate_profile
+    t_start = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(LEAK_PROFILES)) as pool:
+        jobs = {p: pool.apply_async(leak_cell, (p, "graph", None))
+                for p in LEAK_PROFILES}
+        trace = leak_trace_check()
+        cells = {}
+        for p in LEAK_PROFILES:
+            for backend, quant in LEAK_IVF_CELLS:
+                t0 = time.perf_counter()
+                res = evaluate_profile(p, backend, quant, n=LEAK_N, d=LEAK_D,
+                                       nq=LEAK_NQ, seed=0)
+                cells[(p, res[0].backend)] = (
+                    [r.to_dict() for r in res], time.perf_counter() - t0)
+        for p, job in jobs.items():
+            cells[(p, "graph")] = job.get(timeout=600)
+    succ = {f"{p}/{b}": {r["attack"]: r["success"] for r in rs}
+            for (p, b), (rs, _) in cells.items()}
+    rec = {"phase": "leakage", "n": LEAK_N, "d": LEAK_D, "queries": LEAK_NQ,
+           "trace_check": trace, "success": succ,
+           "detail": {f"{p}/{b}": {"results": rs, "seconds": s}
+                      for (p, b), (rs, s) in cells.items()},
+           "wall_s": time.perf_counter() - t_start}
+    bars = {
+        "perf ivf access pattern leaks (>= 0.2)":
+            succ["perf/ivf"]["access-pattern"] >= 0.2,
+        "graph perf access pattern leaks (>= 0.15)":
+            succ["perf/graph"]["access-pattern"] >= 0.15,
+        "hardened and oblivious-sketch ivf at chance (<= 0.05)": all(
+            v <= 0.05 for p in ("hardened", "oblivious-sketch")
+            for b in ("ivf", "ivf+int8") for v in succ[f"{p}/{b}"].values()),
+        "graph hardened the intermediate tier (> 0.05)":
+            succ["hardened/graph"]["access-pattern"] > 0.05,
+        "dce sign channel at chance everywhere (<= 0.05)": all(
+            s["dce-kpa-sign"] <= 0.05 for s in succ.values()),
+    }
+    rec["bars"] = bars
+    log(json.dumps(rec))
+    if not trace["bit_equal"] or trace["graph_walk_launches"] != 1:
+        raise AssertionError(f"leakage graph trace: {trace}")
+    if not all(bars.values()):
+        raise AssertionError(f"leakage bars: {bars}")
+    return rec
+
+
+def api_paths(corpus: dict, graph: dict) -> dict:
+    """Phase 7: the public API and the leakage harness on the card.
+    -> launches by path."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_api_") as tmp:
+        tmp = Path(tmp)
+        on_flat = api_flat(corpus, tmp)
+        on_graph = api_persist(graph, tmp, None)
+        on_int8 = api_persist(graph, tmp, "int8")
+    leakage()
+    log(json.dumps({"phase": "api_done",
+                    "wall_s": time.perf_counter() - t0}))
+    return {"api_flat": on_flat, "api_graph": on_graph, "api_int8": on_int8}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2133,12 +2590,18 @@ def main() -> int:
 
         # phase 6 ---------------------------------------------------
         on_runtime = runtime_paths(corpus, graph, records)
+
+        # phase 7 ---------------------------------------------------
+        on_api = api_paths(corpus, graph)
         del corpus
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # phase 5 ---------------------------------------------------
         on_graph = graph_path(graph)
 
-    paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime}
+    paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
+             **on_api}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

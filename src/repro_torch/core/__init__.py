@@ -1,7 +1,6 @@
-"""Paper core, as far as the flat, IVF, ADC and graph filter-and-refine
-paths need it: DCE, DCPE, the owner's HNSW, the IVF coarse quantizer, the
-ADC codebooks, the secure k-NN refines, the wire frame and the scheme's
-roles."""
+"""Paper core: DCE, DCPE, the owner's HNSW, the IVF coarse quantizer, the
+ADC codebooks, the secure k-NN refines, the wire frame, the scheme's
+roles, and the ASPE strawman with its KPA attacks (`aspe`, `attacks`)."""
 
-from . import (adc, dce, dcpe, hnsw, ivf, ppanns, secure_knn,  # noqa: F401
-               wireformat)
+from . import (adc, aspe, attacks, dce, dcpe, hnsw, ivf,  # noqa: F401
+               ppanns, secure_knn, wireformat)

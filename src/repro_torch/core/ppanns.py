@@ -12,8 +12,6 @@
     `serving.search_engine.SecureSearchEngine` with the paper's HNSW
     filter (the per-query host walk), the refine on the card.
 
-`DataOwner.from_keys` comes with the api slice, its only caller.
-
 `Keys` crosses process boundaries (and packages) through the same wire
 frame as the JAX package's `Keys` (kind "ppanns-keys", version 1), so
 keys round-trip bit for bit in both directions.
@@ -126,6 +124,23 @@ class DataOwner:
         self._enc_ctr = 10_000 + seed    # fresh-randomness counter (ingest)
         self._enc_lock = threading.Lock()
 
+    @classmethod
+    def from_keys(cls, keys: Keys, seed: int = 0) -> "DataOwner":
+        """Rehydrate an owner around round-tripped keys (`api`).
+
+        `seed` keeps the deterministic `encrypt_database` schedule;
+        the fresh-randomness counter for `encrypt_vectors` restarts
+        from fresh entropy, NEVER from the seed — a restarted owner
+        re-drawing an earlier incarnation's auto-seeds would let the
+        server difference old and new ciphertexts."""
+        self = cls.__new__(cls)
+        self.keys = keys
+        self._seed = int(seed)
+        self._enc_ctr = 10_000 + int(
+            np.random.SeedSequence().entropy % (2 ** 31))
+        self._enc_lock = threading.Lock()
+        return self
+
     def encrypt_database(
         self, P: np.ndarray, M: int = 16, ef_construction: int = 200,
         progress_every: int = 0, build_index: bool = True,
@@ -237,8 +252,8 @@ class Server:
                refine: str = "tournament"):   # | "heap" | "none"
         warnings.warn(
             "ppanns.Server.search is a legacy entry point; new code should "
-            "go through SecureSearchEngine with repro_torch.graph."
-            "GraphFilter, which returns the same ids",
+            "go through repro_torch.api (QueryClient.encrypt_query -> "
+            "SecureAnnService.submit), which returns the same ids",
             DeprecationWarning, stacklevel=2)
         return self.engine.search(
             np.asarray(C_sap_q), np.asarray(T_q), k, ratio_k=ratio_k,
@@ -273,12 +288,15 @@ def build_system(P: np.ndarray, beta_fraction: float = 0.05,
                  device=None):
     """Convenience: owner encrypts P, returns (owner, user, server).
 
-    .. deprecated:: kept for the JAX package's callers; build the
-       `DataOwner`, `User` and a `SecureSearchEngine` directly.
+    .. deprecated:: use `repro_torch.api` — `DataOwnerClient(spec)` +
+       `encrypt_corpus` + `SecureAnnService.create_collection` builds the
+       same system behind the typed protocol (and serializable keys /
+       queries / collections); parity is asserted in
+       tests/test_torch_api.py.
     """
     warnings.warn(
-        "ppanns.build_system is deprecated; build DataOwner, User and "
-        "SecureSearchEngine directly",
+        "ppanns.build_system is deprecated; use repro_torch.api "
+        "(DataOwnerClient / QueryClient / SecureAnnService)",
         DeprecationWarning, stacklevel=2)
     P = np.atleast_2d(np.asarray(P))
     if beta is None:

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import (DataOwnerClient, IndexSpec, SearchParams,
+                             SearchRequest, SecureAnnService)
 from repro_torch.core import dce, dcpe, ppanns, secure_knn
 from repro_torch.kernels import _build
 from repro_torch.kernels.adc_topk import adc_topk
@@ -25,6 +27,7 @@ from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
 from repro_torch.obs import profile_kernels
+from repro_torch.sec import capture_server_view, evaluate_profile
 from repro_torch.serving.runtime import (Collection, CollectionManager,
                                          DeltaAwareBackend,
                                          MutableEncryptedStore,
@@ -51,7 +54,10 @@ def test_port_imports_without_jax():
             "repro_torch.kernels.graph_expand.ops, repro_torch.kernels."
             "adc_topk, repro_torch.core.adc, repro_torch.core.ivf, "
             "repro_torch.serving.runtime, repro_torch.sec, "
-            "repro_torch.obs.metrics, repro_torch.obs.profiler\n"
+            "repro_torch.obs.metrics, repro_torch.obs.profiler, "
+            "repro_torch.api.protocol, repro_torch.api.keystore, "
+            "repro_torch.api.roles, repro_torch.sec.leakage, "
+            "repro_torch.core.aspe, repro_torch.core.attacks\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -77,8 +83,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
     C_sap = np.zeros((4, 8), np.float32)
     C_dce = np.zeros((4, 4, dce.ciphertext_dim(8)), np.float32)
     owner = ppanns.DataOwner(d=8, sap_beta=1.0)
+    client = DataOwnerClient(IndexSpec(tenant="t", name="c", d=8))
     X = np.ones((3, 8), np.float32)
     for call in (lambda: SecureSearchEngine(C_sap, C_dce),
+                 lambda: SecureAnnService(),
+                 lambda: SecureAnnService.load("no-such-dir"),
+                 lambda: client.encrypt_vectors(X),
+                 lambda: capture_server_view("perf", n=64, d=8, nq=2),
+                 lambda: evaluate_profile("perf", n=64, d=8, nq=2),
                  lambda: Collection("t", "c", 8, sap_beta=1.0),
                  lambda: CollectionManager(),
                  lambda: CollectionManager(device="cpu").create_collection(
@@ -686,3 +698,50 @@ def test_profiler_times_card_calls_with_cuda_events():
     s = prof.summary()["l2_topk.knn"]
     assert s["calls"] == 2 and s["total_s"] > 0
     assert s["total_bytes"] == 2 * (Q.nbytes + X.nbytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,quant", [("flat", None), ("flat", "int8"),
+                                        ("graph", None)])
+def test_api_service_on_the_card_saves_what_the_host_loads(tmp_path, kind,
+                                                           quant):
+    """The api on the card: a keyless collection serves batch and
+    coalesced requests through the hand kernels (one filter launch and
+    one refine launch a batch), and the `.ppcol` it saves loads in a host
+    service (plain versions) that answers with the same ids (>= 99% of
+    slots: fp32 sums in another order) and equal file bytes on a second
+    save."""
+    _needs_card()
+    C_sap, C_dce, Q, T = _runtime_corpus(n=1000, nq=32, d=32)
+    graph = None
+    if kind == "graph":
+        from repro_torch.core.hnsw import HNSW
+        graph = HNSW(32, M=8, ef_construction=32, seed=6).build(
+            C_sap).to_arrays()
+    from repro_torch.api import EncryptedCorpus, EncryptedQuery
+    spec = IndexSpec(tenant="t", name=kind, d=32, backend=kind,
+                     quantization=quant, seed=2, hnsw_M=8,
+                     hnsw_ef_construction=32)
+    query = EncryptedQuery(C_sap=Q, T=T)
+    req = SearchRequest(tenant="t", collection=kind, query=query,
+                        params=SearchParams(k=5), coalesce=False)
+    kern = {("flat", None): l2_topk.launches, ("graph", None):
+            graph_expand.launches}.get((kind, quant), adc_topk.launches)
+    with SecureAnnService() as svc:
+        svc.create_collection(spec, EncryptedCorpus(C_sap=C_sap, C_dce=C_dce,
+                                                    index=graph))
+        svc.warmup("t", kind, k=5)
+        before = (sum(kern.values()), dce_comp.launches["refine_topk"])
+        card = svc.submit(req).ids
+        assert (sum(kern.values()) - before[0],
+                dce_comp.launches["refine_topk"] - before[1]) == (1, 1)
+        one = svc.submit(SearchRequest(
+            tenant="t", collection=kind, params=SearchParams(k=5),
+            query=EncryptedQuery(C_sap=Q[:1], T=T[:1]))).ids
+        np.testing.assert_array_equal(one[0], card[0])
+        (path,) = svc.save(tmp_path / "card")
+    with SecureAnnService.load(tmp_path / "card", device="cpu") as svc:
+        host = svc.submit(req).ids
+        (again,) = svc.save(tmp_path / "host")
+    assert (card == host).mean() >= 0.99
+    assert again.read_bytes() == path.read_bytes()

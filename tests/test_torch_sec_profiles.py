@@ -2,9 +2,10 @@
 registry equal to the JAX package's, dummy-query accounting in the
 schedulers, and the acceptance bar — returned real ids bit-identical to
 `perf` under `balanced` and `hardened`, across both schedulers and f32,
-quantized and graph filters — the cases of tests/test_sec_profiles.py
-that the runtime serves, in port form on the CPU.  The IndexSpec and
-result-padding cases belong to the api layer, which is not ported yet.
+quantized and graph filters — and, through `repro_torch.api`, the
+IndexSpec wire round trip and validation, the result-width padding and
+its accounting: the cases of tests/test_sec_profiles.py in port form on
+the CPU (all but the sharded one: sharded placement is not ported yet).
 """
 
 import dataclasses
@@ -12,8 +13,11 @@ import dataclasses
 import numpy as np
 import pytest
 
+from repro import api as japi
 from repro import sec as jsec
 from repro_torch import sec
+from repro_torch.api import (DataOwnerClient, IndexSpec, SearchParams,
+                             SearchRequest, SearchResult, SecureAnnService)
 from repro_torch.core import dcpe, ppanns
 from repro_torch.core.hnsw import HNSW
 from repro_torch.data import synth
@@ -78,9 +82,7 @@ def test_profile_registry_equals_the_jax_package():
     assert get_profile(p) is p                      # idempotent
     with pytest.raises(ValueError, match="unknown security profile"):
         get_profile("bogus")
-    assert set(sec.__all__) == {"SecurityProfile", "PROFILES",
-                                "SECURITY_PROFILE_NAMES",
-                                "DEFAULT_PROFILE", "get_profile"}
+    assert sec.__all__ == jsec.__all__
 
 
 def test_profile_tier_monotonicity_and_widths():
@@ -149,3 +151,131 @@ def test_dummy_query_accounting(corpus, scheduler):
         assert stats.n_dummy_queries == want
         assert snap["n_dummy_queries"] == want
         assert snap["security_profile"] == profile
+
+
+# ---------------------------------------------------------------------------
+# Through the api: IndexSpec wire round trip + validation, result padding.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def owner_and_query():
+    ds = synth.make_dataset("sift1m", n=N, n_queries=6, d=D, k_gt=10,
+                            seed=0)
+    spec = IndexSpec(tenant="t", name="base", d=D, seed=5,
+                     sap_beta=dcpe.suggest_beta(ds.base, fraction=0.05))
+    owner = DataOwnerClient(spec)
+    C_sap, C_dce = owner.encrypt_vectors(ds.base, seed=11, device="cpu")
+    return spec, C_sap, C_dce, owner.query_client().encrypt_queries(
+        ds.queries)
+
+
+def _one(query):
+    """Slice a batch EncryptedQuery down to its first query."""
+    return dataclasses.replace(query, C_sap=query.C_sap[:1],
+                               T=query.T[:1])
+
+
+def _spec(base, profile, name, *, quant=None, scheduler="flush",
+          backend="ivf"):
+    extra = dict(n_partitions=8, nprobe=3) if backend == "ivf" else {}
+    return dataclasses.replace(base, name=name, backend=backend,
+                               scheduler=scheduler, max_batch=8,
+                               quantization=quant,
+                               security_profile=profile, **extra)
+
+
+def test_indexspec_security_profile_wire_roundtrip():
+    spec = IndexSpec(tenant="t", name="c", d=D,
+                     security_profile="hardened")
+    assert IndexSpec.from_bytes(spec.to_bytes()) == spec
+    assert spec.to_bytes() == japi.IndexSpec(
+        tenant="t", name="c", d=D, security_profile="hardened").to_bytes()
+    # additive wire versioning: payloads from before the field
+    d = spec.to_dict()
+    del d["security_profile"]
+    assert IndexSpec.from_dict(d).security_profile == "perf"
+
+
+def test_indexspec_rejects_bad_profiles():
+    with pytest.raises(ValueError, match="security_profile"):
+        IndexSpec(tenant="t", name="c", d=D, security_profile="bogus")
+    with pytest.raises(ValueError, match="scan-oblivious"):
+        IndexSpec(tenant="t", name="c", d=D, backend="hnsw",
+                  security_profile="hardened")
+    IndexSpec(tenant="t", name="c", d=D, backend="hnsw",
+              security_profile="balanced")
+
+
+@pytest.mark.parametrize("scheduler", ["flush", "continuous"])
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_service_cross_profile_id_parity(owner_and_query, scheduler, quant):
+    spec0, C_sap, C_dce, query = owner_and_query
+    params = SearchParams(k=K, ratio_k=6.0)
+    got = {}
+    for profile in ("perf", "balanced", "hardened"):
+        spec = _spec(spec0, profile, f"par-{profile}", quant=quant,
+                     scheduler=scheduler)
+        with SecureAnnService(device="cpu") as svc:
+            svc.create_collection(spec)
+            svc.insert("t", spec.name, C_sap, C_dce)
+            batch = svc.submit(SearchRequest(
+                tenant="t", collection=spec.name, query=query,
+                params=params, coalesce=False))
+            one = svc.submit(SearchRequest(          # scheduler path
+                tenant="t", collection=spec.name, query=_one(query),
+                params=params))
+        # padding profiles widen the id matrix to the pow2 bucket...
+        width = get_profile(profile).result_width(params.k)
+        assert batch.k == width and one.k == width
+        got[profile] = (batch.ids_lists(), [one.ids_lists()[0]])
+    for profile in ("balanced", "hardened"):
+        for ref, ids in zip(got["perf"], got[profile]):
+            # ...but the real ids are bit-identical to perf
+            for a, b in zip(ref, ids):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("scheduler", ["flush", "continuous"])
+def test_dummy_and_padding_accounting(owner_and_query, scheduler):
+    spec0, C_sap, C_dce, query = owner_and_query
+    params = SearchParams(k=K, ratio_k=6.0)
+    for profile in ("perf", "balanced", "hardened"):
+        want_dummies = 0 if profile == "perf" else \
+            7 if (profile == "hardened" or scheduler == "continuous") else 0
+        spec = _spec(spec0, profile, f"acct-{profile}",
+                     scheduler=scheduler)
+        with SecureAnnService(device="cpu") as svc:
+            svc.create_collection(spec)
+            svc.insert("t", spec.name, C_sap, C_dce)
+            res = svc.submit(SearchRequest(      # lone coalesced query
+                tenant="t", collection=spec.name, query=_one(query),
+                params=params))
+            st = svc.stats("t", spec.name)
+        assert res.stats.n_dummy_queries == want_dummies
+        assert st["n_dummy_queries"] == want_dummies
+        assert st["security_profile"] == profile
+        if get_profile(profile).pad_results:
+            # k=8 -> 16-column bucket: 8 pad cols x 8 bytes recorded
+            assert st["padded_result_bytes"] == 64
+        else:
+            assert st["padded_result_bytes"] == 0
+
+
+def test_padded_result_wire_roundtrip(owner_and_query):
+    spec0, C_sap, C_dce, query = owner_and_query
+    spec = _spec(spec0, "balanced", "wire-bal")
+    with SecureAnnService(device="cpu") as svc:
+        svc.create_collection(spec)
+        svc.insert("t", spec.name, C_sap, C_dce)
+        res = svc.submit(SearchRequest(
+            tenant="t", collection=spec.name, query=query,
+            params=SearchParams(k=K, ratio_k=6.0), coalesce=False))
+    assert res.k == 16 and (res.ids[:, K:] == -1).all()
+    rt = SearchResult.from_bytes(res.to_bytes())
+    np.testing.assert_array_equal(rt.ids, res.ids)
+    # the JAX package reads the padded frame alike
+    np.testing.assert_array_equal(
+        japi.SearchResult.from_bytes(res.to_bytes()).ids, res.ids)
+    for a, b in zip(rt.ids_lists(), res.ids_lists()):
+        np.testing.assert_array_equal(a, b)      # -1 padding stripped
+        assert (a >= 0).all() and len(a) <= K
