@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one card.
 
     python3 chip_smoke.py            # flat and ADC paths at SIFT1M scale
-                                     # (n = 1M), graph path at n = 100,000
+                                     # (n = 1M), graph path at n = 50,000
     python3 chip_smoke.py --graph-n 20000 --n 20000 --queries 64  # quick
 
 Phases, each of which fails the run (non-zero exit, no final line):
@@ -11,10 +11,14 @@ Phases, each of which fails the run (non-zero exit, no final line):
    CUDA versions, and the build of the CUDA kernels from
    `src/repro_torch/csrc/` (with nvcc's register and spill report).
    Then the graph path's corpus is made and encrypted on the card, and
-   the owner's HNSW build over it (host numpy, minutes at 100k rows)
+   the owner's HNSW build over it (host numpy, minutes at 50k rows)
    starts in a worker process, so it runs while phases 2 to 4 use the
-   card; 1,000 more rows of the same mixture are encrypted with the same
-   keys for phase 6's graph inserts.
+   card, beside four more workers building phase 8's per-shard
+   subgraphs; 1,000 more rows of the same mixture are encrypted with the
+   same keys for phase 6's graph inserts.  Phase 3's corpus is made and
+   encrypted here too, and a sixth worker trains phase 4's pq8 codebook
+   over it and encodes the rows (host numpy, ~9 min at 1M rows), which
+   the pq8 engine then takes instead of training at its attach.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them, with times (CUDA events), bounds
    and a library yardstick where one PyTorch call computes the same
@@ -69,13 +73,16 @@ Phases, each of which fails the run (non-zero exit, no final line):
 4. The ADC paths, after the flat engine is freed, on the same
    ciphertexts and queries: `SecureSearchEngine(backend="flat",
    quantization="int8" | "pq8")` (codebook trained on the host at
-   attach; sq_adc_topk or pq_adc_topk once per batch, refine_topk for
-   the refine), each once through the kernels and once with them swapped for
-   their plain versions on the same engine (same limits as the flat
-   path), and each with 1600 candidates (k = 100 int8, k = 50 pq8) as
-   the flat path; then `backend="ivf", quantization="int8"` (64
-   partitions, nprobe 8), also against its plain versions.
-5. The graph path, after the ADC engines are freed:
+   attach, pq8's in phase 1's worker; sq_adc_topk or pq_adc_topk once
+   per batch, refine_topk for the refine), each once through the
+   kernels and once with them swapped for their plain versions on the
+   same engine (same limits as the flat path), and each with 1600
+   candidates (k = 100 int8, k = 50 pq8) as the flat path; and
+   `backend="ivf", quantization="int8"` (64 partitions, nprobe 8), also
+   against its plain versions.  The pq8 engine runs after phase 8, so
+   phases 6-8 fill the wait for its codebook.
+5. The graph path, after the ADC engines are freed (and after phases
+   6 to 8):
    `SecureSearchEngine(backend=GraphFilter(index))` over the HNSW of
    phase 1 (M = 8, ef_construction = 48), the same batches, k = 10,
    ratio_k = 8, ef_search = 96: once through the kernels (one
@@ -86,9 +93,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
    times the fused walk against the parent's torch descent and the
    layer-0 entry alone, and the scan trace's download.
 
-6. The serving runtime (`serving/runtime`), run after phase 4 and
-   before phase 5, on phase 3's ciphertexts and queries and phase 1's
-   graph corpus and HNSW (nothing re-encrypted, no HNSW rebuilt), every
+6. The serving runtime (`serving/runtime`), run after phase 4's int8
+   engines and before phase 5, on phase 3's ciphertexts and queries and
+   phase 1's graph corpus and HNSW (nothing re-encrypted, no HNSW
+   rebuilt), every
    collection keyless on the card and each freed before the next:
    (a) a flat collection under the flush micro-batcher (max_batch 32,
        2 ms): `load_snapshot` of rows 0..n-10,001, `warmup`, then 8 client
@@ -143,6 +151,35 @@ Phases, each of which fails the run (non-zero exit, no final line):
    One `api_path` line per collection and one `leakage` line; the
    launches join the `kernels` line as `launches_by_path` api_flat,
    api_graph and api_int8.
+8. Placement, sharding and resilience, run after phase 7 and before
+   phase 5, on the ciphertexts the script holds (nothing re-encrypted,
+   the global HNSW not rebuilt): 8 logical placement devices on the one
+   card (`launch.mesh.force_device_count`), every collection keyless
+   with `PlacementSpec(kind="sharded", n_shards=4, n_replicas=2)`:
+   (a) phase 3's 1M rows, flat: ids equal to phase 3's in 100% of slots,
+       K1 once per shard and K2 once a batch, against the plain run as
+       phase 3 (QPS and p50/p99 beside phase 3's); the same at 8 shards;
+   (b) failover on (a): one replica of group 1 down (ids equal, not
+       degraded), the whole group down (degraded, one group down, no id
+       of its rows, kernel ids = plain ids, K1 three times a batch), both
+       revived (ids equal to (a)'s); no kernel build after warmup;
+   (c) the 1M rows, int8: ids equal to phase 4's in 100% (K4 is exact);
+   (d) phase 1's graph corpus, ivf and flat pq8 (K5 per shard): ids
+       equal to a single-device collection's in 100%;
+   (e) the graph corpus as a sharded graph collection through the
+       service, its subgraphs (M 8, ef_construction 48, seed + s) built
+       by phase 1's workers: ids bit-equal to the plain torch walk's, K6
+       once per shard; recall@10 beside phase 5's global graph;
+   (f) (e) saved to a `.ppcol` and loaded (ids equal, no kernel build);
+       a sharded flat collection over the graph corpus with a WAL and an
+       `AsyncCheckpointer`: a checkpoint, 1,000 inserts, 100 deletes, an
+       insert that crashes before its fsync, `recover`: the acknowledged
+       state_digest and the ids answered before the crash;
+   (g) `build_secure_scan_step` over the 1M rows in 4 shards: candidate
+       and id sets equal to the global step's in every query.
+   One `sharded_path` line per step and one `resilience` line; the
+   launches join the `kernels` line as `launches_by_path` sharded_flat,
+   sharded_int8, sharded_pq8, sharded_graph and secure_scan.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -187,6 +224,7 @@ GRAPH_EF_CONSTRUCTION = 48
 EF_SEARCH = 96
 ORACLE_QUERIES = 64
 # IVF paths: the reference backend's defaults
+PQ_M, PQ_SEED = 16, 0           # ADCFilter's defaults: phase 4's pq8 book
 IVF_PARTITIONS = 64
 IVF_NPROBE = 8
 
@@ -690,7 +728,7 @@ def walk_inputs(R: int, M0: int, M: int, LU: int, d: int, nq: int, gen,
 
 def check_graph_walk(R: int, M0: int, M: int, LU: int, d: int, gen,
                      nq: int = BATCH, ef: int = 96, ef_cap: int = 128,
-                     max_hops: int = 512) -> dict:
+                     max_hops: int = 512, home: str | None = None) -> dict:
     """The fused walk against its plain version (the torch walk) on a
     synthetic graph with upper layers (3 of them empty) over
     integer-valued rows: every distance is exact in any summation order,
@@ -740,6 +778,7 @@ def check_graph_walk(R: int, M0: int, M: int, LU: int, d: int, gen,
         "library_ms": None, "library_call": "none (no PyTorch call runs "
                                             "a graph walk)",
         "bound_ms": b_ms, "bound_by": b_by,
+        **({"home": home} if home else {}),
     }
 
 
@@ -1088,11 +1127,11 @@ def small_reference_check():
         raise AssertionError(f"card and host ids disagree: {bad}")
 
 
-def main_path(n: int, n_queries: int) -> dict:
-    import torch
+def flat_corpus(n: int, n_queries: int) -> dict:
+    """Phase 3's corpus and queries, made in phase 1: the synthetic
+    SIFT-width rows encrypted on the card, the queries by a `User`."""
     from repro_torch.core import dcpe, ppanns
     from repro_torch.data import synth
-    from repro_torch.serving.search_engine import SecureSearchEngine
 
     t0 = time.perf_counter()
     ds = synth.make_dataset("sift1m", n=n, n_queries=n_queries, k_gt=K)
@@ -1110,6 +1149,56 @@ def main_path(n: int, n_queries: int) -> dict:
                     "queries": Q.shape[0], "dataset_s": t_data,
                     "encrypt_vectors_s": t_enc, "encrypt_rows_per_s":
                     ds.n / t_enc, "user_encrypt_queries_s": t_query_enc}))
+    return {"ds": ds, "C_sap": C_sap, "C_dce": C_dce, "Q": Q, "T": T,
+            "keys": owner.keys}
+
+
+def train_pq(C_sap: np.ndarray, m: int, seed: int):
+    """Worker process: the pq8 codebook of phase 4's ADC pq8 engine
+    (`ADCFilter`'s own `train_codebook` and `encode` calls, host numpy)
+    and its codes, with their seconds."""
+    from repro_torch.core import adc
+    t0 = time.perf_counter()
+    book = adc.train_codebook(C_sap, "pq8", m=m, seed=seed)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = book.encode(C_sap)
+    return book, codes, t_train, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def pq_from_worker(ctx: dict, out: dict):
+    """Phase 4's pq8 engine takes the codebook and codes `train_pq`
+    made over the same rows in a worker since phase 1 (the script's
+    longest host step, ~9 min at 1M rows, off the critical path); any
+    other rows train here as usual.  The worker's seconds go to `out`."""
+    from repro_torch.core import adc
+    book, codes, out["codebook_train_s"], out["codebook_encode_s"] = \
+        ctx["pq_job"].get(timeout=1200)
+    out["codebook_in_worker"] = True
+    train, encode = adc.train_codebook, adc.PQCodebook.encode
+    mine = lambda C: C is ctx["C_sap"]
+
+    def trained(C, quantization, **kw):
+        return (book if mine(C) and quantization == "pq8"
+                else train(C, quantization, **kw))
+
+    def encoded(self, C):
+        return codes if self is book and mine(C) else encode(self, C)
+    adc.train_codebook, adc.PQCodebook.encode = trained, encoded
+    try:
+        yield
+    finally:
+        adc.train_codebook, adc.PQCodebook.encode = train, encode
+
+
+def main_path(ctx: dict) -> dict:
+    import torch
+    from repro_torch.data import synth
+    from repro_torch.serving.search_engine import SecureSearchEngine
+    ds, C_sap, C_dce, Q, T = (ctx[k] for k in ("ds", "C_sap", "C_dce",
+                                               "Q", "T"))
+    n = ds.n
 
     eng = SecureSearchEngine(C_sap, C_dce, backend="flat")   # device: card
     t0 = time.perf_counter()
@@ -1162,9 +1251,10 @@ def main_path(n: int, n_queries: int) -> dict:
                              f"{agree}, recall {rec} vs {rec_plain}")
     on_k1600 = k1600_path(eng, Q, T, 200, "flat_k1600")
     # the ADC paths search the same ciphertexts and queries
-    return launches, on_k1600, {"ds": ds, "C_sap": C_sap, "C_dce": C_dce,
-                                "Q": Q, "T": T, "ids": ids,
-                                "keys": owner.keys}
+    ctx["ids"] = ids
+    ctx["flat_stats"] = {k: out[k] for k in ("qps", "batch_p50_ms",
+                                             "batch_p99_ms")}
+    return launches, on_k1600, ctx
 
 
 # --------------------------------------------------------------- phase 4
@@ -1257,7 +1347,8 @@ def adc_path(ctx: dict, quantization: str, backend: str = "flat") -> dict:
                              quantization=quantization, **kw)   # the card
     wall = {}
     t0 = time.perf_counter()
-    with timed_codebook(wall):
+    with (pq_from_worker(ctx, wall) if quantization == "pq8"
+          else timed_codebook(wall)):
         eng._ensure_attached()           # codebook, codes, C_DCE upload
     wall["attach_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1321,6 +1412,7 @@ def adc_path(ctx: dict, quantization: str, backend: str = "flat") -> dict:
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"{path}: kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
+    ctx[f"ids_{path}"] = ids             # phase 8's sharded int8 run
     if ivf:
         return launches, None
     return launches, k1600_path(eng, Q, T, {"int8": 100, "pq8": 50}[
@@ -1601,6 +1693,7 @@ def graph_path(g: dict) -> dict:
                    "host_walk_oracle": t_oracle},
     }
     log(json.dumps(out))
+    g["recall_global"] = rec            # beside phase 8's sharded graph
     if ids.shape != (nq, K) or (ids < 0).any() or (ids >= ds.n).any():
         raise AssertionError("graph path returned ids outside the database")
     if (launches["graph_expand.graph_walk"] != len(lat)
@@ -2498,12 +2591,578 @@ def api_paths(corpus: dict, graph: dict) -> dict:
     return {"api_flat": on_flat, "api_graph": on_graph, "api_int8": on_int8}
 
 
+# --------------------------------------------------------------- phase 8
+
+SHARDS = 4                      # shard groups of phase 8's collections
+REPLICAS = 2                    # logical replicas a group
+LOGICAL_DEVICES = 8             # placement devices forced on the one card
+SHARD_SEED = OWNER_SEED         # the sharded collections' seed: shard s's
+#                                 subgraph is built with SHARD_SEED + s
+WAL_BURSTS = 10                 # (f): insert bursts of 100 rows, then
+WAL_DELETES = 100               # 100 deletes, then a crash before fsync
+
+
+def shard_rows(n: int, n_shards: int = SHARDS) -> int:
+    """Rows a shard of a sharded collection over n rows holds: the
+    port's `serving.sharded.shard_bucket` (the store's power-of-two
+    bucket, minimum 256, split evenly), copied so phase 1 can start the
+    subgraph builds before the port is imported."""
+    b = 256
+    while b < n:
+        b <<= 1
+    return -(-b // n_shards) * n_shards // n_shards
+
+
+def start_shard_graphs(g: dict, pool) -> None:
+    """Phase 1: the per-shard subgraphs of phase 8's graph collection
+    (shard s: the rows of its block, M 8, ef_construction 48, seed
+    SHARD_SEED + s — what the sharded backend builds itself), each in a
+    worker process beside the owner's global build."""
+    n = g["C_sap"].shape[0]
+    per = shard_rows(n)
+    g["shard_builds"] = [
+        pool.apply_async(build_hnsw, (g["C_sap"][s * per:(s + 1) * per],
+                                      GRAPH_M, GRAPH_EF_CONSTRUCTION,
+                                      SHARD_SEED + s))
+        for s in range(SHARDS)]
+
+
+def sharded_placement(n_shards: int = SHARDS):
+    from repro_torch.api import PlacementSpec
+    return PlacementSpec(kind="sharded", n_shards=n_shards,
+                         n_replicas=REPLICAS)
+
+
+def shard_ids_out(ids, per: int, shard: int) -> int:
+    """Answered ids that lie in `shard`'s rows."""
+    return int(((ids >= shard * per) & (ids < (shard + 1) * per)).sum())
+
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lat_stats(lat) -> dict:
+    return {"qps": BATCH * len(lat) / sum(lat),
+            "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def sharded_collection(C_sap, C_dce, name: str, n_shards: int = SHARDS,
+                       **kw):
+    """A keyless sharded collection on the card over the rows given."""
+    from repro_torch.serving.runtime import Collection
+    col = Collection("t0", name, C_sap.shape[1], keyless=True,
+                     seed=SHARD_SEED, max_batch=BATCH,
+                     compact_every=1_000_000,
+                     placement=sharded_placement(n_shards), **kw)
+    col.load_snapshot(C_sap, C_dce)
+    col.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+    return col
+
+
+def sharded_flat(ctx: dict, n_shards: int) -> tuple[dict, object]:
+    """(a) phase 3's rows in a flat collection of `n_shards` groups: its
+    ids must equal phase 3's flat ids in every slot, with K1 once per
+    shard and K2 once a batch, and agree with its plain run as phase 3's
+    did.  -> (record with launches, the collection: the caller closes
+    it)."""
+    from repro_torch.serving.runtime import jit_cache_size
+    Q, T = ctx["Q"], ctx["T"]
+    t0 = time.perf_counter()
+    col = sharded_collection(ctx["C_sap"], ctx["C_dce"],
+                             f"sharded_flat_{n_shards}", n_shards,
+                             backend="flat")
+    t_load = time.perf_counter() - t0
+    audit = jit_cache_size()
+    reset_launches()
+    ids, lat = run_batches(col, Q, T)
+    launches = kernel_launches()
+    nb = len(lat)
+    checks = against_plain(col, Q, T, ids, f"sharded flat {n_shards}")
+    log(json.dumps(dict(profile_batches(col, Q, T),
+                        path=f"sharded_flat_{n_shards}")))
+    rec = {"phase": "sharded_path", "step": "a", "path": "sharded_flat",
+           "n": ctx["C_sap"].shape[0], "shards": n_shards,
+           "replicas": REPLICAS, "logical_devices": LOGICAL_DEVICES,
+           "queries": Q.shape[0], **lat_stats(lat),
+           "phase3": ctx["flat_stats"],
+           "id_agreement_phase3": float((ids == ctx["ids"]).mean()),
+           "checks": checks, "load_and_warmup_s": t_load,
+           "launches_per_batch": {k: v / nb for k, v in launches.items()
+                                  if v},
+           "launches": launches, "recompiles": jit_cache_size() - audit}
+    log(json.dumps(rec))
+    if (ids != ctx["ids"]).any():
+        raise AssertionError(f"sharded flat ({n_shards} shards): ids differ "
+                             f"from phase 3's in {1 - rec['id_agreement_phase3']}"
+                             f" of slots")
+    if (launches["l2_topk.knn"] != n_shards * nb
+            or launches["dce_comp.refine_topk"] != nb):
+        raise AssertionError(f"sharded flat: {launches} for {nb} batches "
+                             f"({n_shards} K1 and one K2 a batch)")
+    rec["ids"] = ids
+    return rec, col
+
+
+def near_ties(col, Q, T, ids, plain) -> dict:
+    """Traces each query whose kernel and plain ids differ to a near-tie.
+    Its batch's candidates are taken again through the kernels and
+    through the plain versions.  Where the two candidate sets differ,
+    every id in their symmetric difference must lie within L2_RTOL *
+    (||q||^2 + ||x||^2) of the kernel's k'-th candidate (fp64 distances):
+    an fp32 near-tie at the k' boundary.  Where they are equal, the
+    refine differs, and one of the candidates the two answers rank
+    differently must meet another with |Z| <= Z_RTOL * max|Z| (plain Z):
+    a near-zero DCE comparison.  -> counts; `unexplained` must be 0."""
+    import torch
+    from repro_torch.kernels.dce_comp import dce_comp
+    b = col._backend
+    X = col.store.sap_view.astype(np.float64)
+    kp = K * RATIO_K
+    out = {"queries": 0, "candidate_sets_differ": 0, "refine_differs": 0,
+           "unexplained": 0, "max_boundary_gap": 0.0}
+    for qi in np.flatnonzero((ids != plain).any(axis=1)):
+        s0 = qi - qi % BATCH
+        Qb = Q[s0:s0 + BATCH]
+        with col._lock:
+            c_k, v_k, _ = b.candidates(Qb, kp, EF_SEARCH)
+            with plain_kernels():
+                c_p, v_p, _ = b.candidates(Qb, kp, EF_SEARCH)
+        j = qi - s0
+        ck, cp = c_k[j][v_k[j]], c_p[j][v_p[j]]
+        q = Q[qi].astype(np.float64)
+        out["queries"] += 1
+        diff = np.setxor1d(ck, cp)
+        if diff.size:
+            out["candidate_sets_differ"] += 1
+            d = lambda r: ((X[r] - q) ** 2).sum(-1)
+            scale = (q * q).sum() + (X[diff] ** 2).sum(-1)
+            gap = float((np.abs(d(diff) - d(ck[-1])) / scale).max())
+            out["max_boundary_gap"] = max(out["max_boundary_gap"], gap)
+            out["unexplained"] += int(gap > L2_RTOL)
+        else:
+            out["refine_differs"] += 1
+            C = torch.from_numpy(col.store.dce_view[ck][None])
+            Z = dce_comp.plain_batched_z_matrix(
+                C, torch.from_numpy(T[qi][None]))[0].abs()
+            moved = ids[qi] != plain[qi]
+            rows = np.flatnonzero(np.isin(ck, np.union1d(ids[qi][moved],
+                                                         plain[qi][moved])))
+            near = Z[rows] <= Z_RTOL * Z.max()
+            near[np.arange(rows.size), rows] = False      # Z[i, i]
+            out["unexplained"] += int(not bool(near.any()))
+    return out
+
+
+def sharded_failover(col, Q, T, ids0) -> dict:
+    """(b) on (a)'s collection: one replica of group 1 down (ids equal,
+    not degraded), the whole group down (degraded, one group down, no id
+    of its rows, K1 three times a batch, kernel ids = plain ids in the
+    limits of phase 3, each differing query traced to an fp32 near-tie by
+    `near_ties`), both revived (ids equal (a)'s); no kernel build after
+    warmup."""
+    from repro_torch.serving.runtime import jit_cache_size
+    audit = jit_cache_size()
+    h = col.health
+    per = col._backend.padded_rows // SHARDS
+    out = {"phase": "sharded_path", "step": "b", "path": "sharded_flat",
+           "shards": SHARDS, "replicas": REPLICAS}
+    h.kill(1, 0)
+    st1 = []
+    ids1, _ = run_batches(col, Q, T, st1)
+    out["replica_down"] = {
+        "ids_equal": bool((ids1 == ids0).all()),
+        "degraded": any(s.degraded for s in st1)}
+    h.kill(1, 1)
+    std = []
+    reset_launches()
+    idsd, lat = run_batches(col, Q, T, std)
+    launches = kernel_launches()
+    checks = against_plain(col, Q, T, idsd, "sharded flat, group down")
+    if not checks["ids_equal_plain"]:
+        with plain_kernels():
+            plain, _ = run_batches(col, Q, T)
+        checks["near_ties"] = near_ties(col, Q, T, idsd, plain)
+    out["group_down"] = {
+        "degraded": all(s.degraded for s in std),
+        "n_shards_down": sorted({s.n_shards_down for s in std}),
+        "ids_from_dead_group": shard_ids_out(idsd, per, 1),
+        "id_agreement_healthy": float((idsd == ids0).mean()),
+        "checks": checks, **lat_stats(lat),
+        "launches_per_batch": {k: v / len(lat) for k, v in launches.items()
+                               if v}}
+    h.revive(1, 0)
+    h.revive(1, 1)
+    str_ = []
+    idsr, _ = run_batches(col, Q, T, str_)
+    out["revived"] = {"ids_equal": bool((idsr == ids0).all()),
+                      "degraded": any(s.degraded for s in str_)}
+    out["recompiles"] = jit_cache_size() - audit
+    log(json.dumps(out))
+    ok = (out["replica_down"]["ids_equal"]
+          and not out["replica_down"]["degraded"]
+          and out["group_down"]["degraded"]
+          and out["group_down"]["n_shards_down"] == [1]
+          and out["group_down"]["ids_from_dead_group"] == 0
+          and not checks.get("near_ties", {}).get("unexplained")
+          and launches["l2_topk.knn"] == (SHARDS - 1) * len(lat)
+          and out["revived"]["ids_equal"] and not out["revived"]["degraded"]
+          and out["recompiles"] == 0)
+    if not ok:
+        raise AssertionError(f"sharded failover: {out}")
+    return out
+
+
+def sharded_int8(ctx: dict) -> dict:
+    """(c) phase 3's rows in an int8 collection of 4 groups: ids equal to
+    phase 4's int8 ids in every slot (K4 is exact), K4 once per shard."""
+    Q, T = ctx["Q"], ctx["T"]
+    t0 = time.perf_counter()
+    col = sharded_collection(ctx["C_sap"], ctx["C_dce"], "sharded_int8",
+                             backend="flat", quantization="int8")
+    t_load = time.perf_counter() - t0
+    try:
+        reset_launches()
+        ids, lat = run_batches(col, Q, T)
+        launches = kernel_launches()
+    finally:
+        col.close()
+    del col
+    free_card()
+    nb = len(lat)
+    rec = {"phase": "sharded_path", "step": "c", "path": "sharded_int8",
+           "n": ctx["C_sap"].shape[0], "shards": SHARDS,
+           "queries": Q.shape[0], **lat_stats(lat),
+           "id_agreement_phase4": float((ids == ctx["ids_adc_int8"]).mean()),
+           "load_warmup_codebook_s": t_load,
+           "launches_per_batch": {k: v / nb for k, v in launches.items()
+                                  if v},
+           "launches": launches}
+    log(json.dumps(rec))
+    if (ids != ctx["ids_adc_int8"]).any():
+        raise AssertionError(f"sharded int8: ids differ from phase 4's: "
+                             f"{rec['id_agreement_phase4']}")
+    if (launches["adc_topk.sq_adc_topk"] != SHARDS * nb
+            or launches["dce_comp.refine_topk"] != nb):
+        raise AssertionError(f"sharded int8: {launches} for {nb} batches")
+    return launches
+
+
+def sharded_vs_single(g: dict, name: str, **kw) -> tuple[dict, dict]:
+    """(d) the graph corpus in a single-device collection and in a
+    sharded one of 4 groups (the sharded pq8 collection takes the single
+    one's codebook from its snapshot, as a reload would): ids equal in
+    every slot.  -> (record, the sharded run's launches)."""
+    from repro_torch.serving.runtime import Collection
+    Q, T, C_sap, C_dce = g["Q"], g["T"], g["C_sap"], g["C_dce"]
+    single = Collection("t0", name, C_sap.shape[1], keyless=True,
+                        seed=SHARD_SEED, max_batch=BATCH,
+                        compact_every=1_000_000, **kw)
+    try:
+        single.load_snapshot(C_sap, C_dce)
+        t0 = time.perf_counter()
+        single.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        t_single = time.perf_counter() - t0   # the IVF / codebook build
+        want, lat_single = run_batches(single, Q, T)
+        arrays, book = single.snapshot()
+    finally:
+        single.close()
+    del single
+    free_card()
+    adc = {k[len("adc__"):]: v for k, v in arrays.items()
+           if k.startswith("adc__")}
+    col = Collection("t0", f"sharded_{name}", C_sap.shape[1], keyless=True,
+                     seed=SHARD_SEED, max_batch=BATCH,
+                     compact_every=1_000_000,
+                     placement=sharded_placement(), **kw)
+    try:
+        col.load_snapshot(C_sap, C_dce, adc_state=(
+            {"arrays": adc, "trained_gen": book["adc_trained_gen"]}
+            if adc else None))
+        col.warmup(k=K, ratio_k=RATIO_K, ef_search=EF_SEARCH)
+        reset_launches()
+        ids, lat = run_batches(col, Q, T)
+        launches = kernel_launches()
+        checks = against_plain(col, Q, T, ids, f"sharded {name}")
+    finally:
+        col.close()
+    del col
+    free_card()
+    nb = len(lat)
+    rec = {"phase": "sharded_path", "step": "d", "path": f"sharded_{name}",
+           "n": C_sap.shape[0], "shards": SHARDS, "queries": Q.shape[0],
+           **lat_stats(lat), "single": lat_stats(lat_single),
+           "single_warmup_s": t_single,
+           "id_agreement_single": float((ids == want).mean()),
+           "checks": checks,
+           "launches_per_batch": {k: v / nb for k, v in launches.items()
+                                  if v},
+           "launches": launches}
+    log(json.dumps(rec))
+    if (ids != want).any():
+        raise AssertionError(f"sharded {name}: ids differ from the single "
+                             f"collection's: {rec['id_agreement_single']}")
+    if name == "pq8" and launches["adc_topk.pq_adc_topk"] != SHARDS * nb:
+        raise AssertionError(f"sharded pq8: {launches} for {nb} batches")
+    return rec, launches
+
+
+def sharded_graph(g: dict, tmp: Path) -> tuple[dict, dict]:
+    """(e) the graph corpus in a sharded graph collection through the
+    service, its subgraphs those phase 1's workers built (handed over as
+    the corpus index, `s<i>__` arrays: what `restore_graph` takes); ids
+    bit-equal to the plain torch walk's, K6 once per shard.  (f, first
+    half) saved to a .ppcol, closed, loaded: ids equal, no kernel build.
+    -> (record, launches)."""
+    from repro_torch.api import (EncryptedCorpus, IndexSpec,
+                                 SecureAnnService)
+    from repro_torch.data import synth
+    from repro_torch.kernels import _build
+    Q, T, C_sap, C_dce = g["Q"], g["T"], g["C_sap"], g["C_dce"]
+    t0 = time.perf_counter()
+    built = [job.get(timeout=900) for job in g["shard_builds"]]
+    t_wait = time.perf_counter() - t0
+    index = {f"s{s}__{k}": v for s, (h, _) in enumerate(built)
+             for k, v in h.to_arrays().items()}
+    spec = IndexSpec(tenant="t0", name="sharded_graph", d=C_sap.shape[1],
+                     backend="graph", seed=SHARD_SEED, hnsw_M=GRAPH_M,
+                     hnsw_ef_construction=GRAPH_EF_CONSTRUCTION,
+                     max_batch=BATCH, compact_every=1_000_000)
+    with SecureAnnService() as svc:
+        t0 = time.perf_counter()
+        svc.create_collection(spec, EncryptedCorpus(C_sap=C_sap, C_dce=C_dce,
+                                                    index=index),
+                              placement=sharded_placement())
+        svc.warmup("t0", spec.name, k=K, ratio_k=RATIO_K,
+                   ef_search=EF_SEARCH)
+        t_create = time.perf_counter() - t0
+        col = svc.collection("t0", spec.name)
+        reset_launches()
+        ids, lat = run_batches(col, Q, T)
+        launches = kernel_launches()
+        checks = against_plain(col, Q, T, ids, "sharded graph")
+        t0 = time.perf_counter()
+        (ppcol,) = svc.save(tmp / "sharded_graph")
+        t_save = time.perf_counter() - t0
+    free_card()
+    events = dict(_build.events)
+    t0 = time.perf_counter()
+    with SecureAnnService.load(tmp / "sharded_graph") as svc:
+        col = svc.collection("t0", spec.name)
+        t_load = time.perf_counter() - t0
+        ids_l, _ = run_batches(col, Q, T)
+        builds = {k: v - events[k] for k, v in _build.events.items()}
+    free_card()
+    nb = len(lat)
+    rec = {"phase": "sharded_path", "step": "e", "path": "sharded_graph",
+           "n": C_sap.shape[0], "shards": SHARDS,
+           "rows_per_shard": [int(h.size) for h, _ in built],
+           "subgraph_build_s": [s for _, s in built],
+           "waited_for_subgraphs_s": t_wait, "queries": Q.shape[0],
+           **lat_stats(lat),
+           "recall@10": synth.recall_at_k(ids, g["ds"].gt, K),
+           "checks": checks, "create_and_warmup_s": t_create,
+           "launches_per_batch": {k: v / nb for k, v in launches.items()
+                                  if v},
+           "launches": launches,
+           "persistence": {"ppcol_bytes": ppcol.stat().st_size,
+                           "save_s": t_save, "load_s": t_load,
+                           "ids_equal_after_load": bool((ids_l == ids).all()),
+                           "kernel_builds_after_load": builds}}
+    log(json.dumps(rec))
+    if not checks["ids_equal_plain"]:
+        raise AssertionError("sharded graph: kernel ids differ from the "
+                             "plain torch walk's")
+    if (launches["graph_expand.graph_walk"] != SHARDS * nb
+            or launches["dce_comp.refine_topk"] != nb):
+        raise AssertionError(f"sharded graph: {launches} for {nb} batches")
+    if not rec["persistence"]["ids_equal_after_load"] or any(builds.values()):
+        raise AssertionError(f"sharded graph after load: {rec['persistence']}")
+    return rec, launches
+
+
+def sharded_recovery(g: dict, tmp: Path) -> dict:
+    """(f, second half) a sharded flat collection over the graph corpus
+    with a WAL and an AsyncCheckpointer: a checkpoint of the loaded rows,
+    the 1,000 held-out rows in 10 inserts, 100 deletes, then an insert
+    that crashes before its fsync (`FaultPlan.crash_before_fsync`), and
+    `recover`: the recovered state_digest must equal the acknowledged
+    state's and its ids the ids answered before the crash."""
+    from repro_torch import resilience as R
+    from repro_torch.serving.runtime import Collection
+    Q, T, C_sap, C_dce = g["Q"], g["T"], g["C_sap"], g["C_dce"]
+
+    def make():
+        return Collection("t0", "wal", C_sap.shape[1], keyless=True,
+                          seed=SHARD_SEED, backend="flat", max_batch=BATCH,
+                          compact_every=1_000_000,
+                          placement=sharded_placement())
+
+    wal_dir, ckpt = tmp / "wal", tmp / "wal.ppcol"
+    col = make()
+    col.load_snapshot(C_sap, C_dce)
+    wal = R.WriteAheadLog(wal_dir)
+    R.attach_wal(col, wal)
+    cp = R.AsyncCheckpointer(col, ckpt)
+    t0 = time.perf_counter()
+    cp.checkpoint()
+    t_ckpt = time.perf_counter() - t0
+    plan = R.FaultPlan().crash_before_fsync(at_record=WAL_BURSTS + 2)
+    plan.install(col)
+    extra_sap, extra_dce = g["extra_sap"], g["extra_dce"]
+    step = extra_sap.shape[0] // WAL_BURSTS
+    t0 = time.perf_counter()
+    for b in range(WAL_BURSTS):
+        col.insert_encrypted(extra_sap[b * step:(b + 1) * step],
+                             extra_dce[b * step:(b + 1) * step])
+    gone = np.random.default_rng(SHARD_SEED + 5).choice(
+        C_sap.shape[0], WAL_DELETES, replace=False)
+    col.delete(gone)
+    t_ops = time.perf_counter() - t0
+    acked = col.store.state_digest()
+    want, _ = run_batches(col, Q, T)
+    try:
+        col.insert_encrypted(g["probe_sap"], g["probe_dce"])
+        raise AssertionError("the planned crash did not happen")
+    except R.SimulatedCrash:
+        pass
+    col.close()
+    wal.close()
+    del col
+    free_card()
+    t0 = time.perf_counter()
+    col2, report = R.recover(make, checkpoint_path=ckpt, wal_dir=wal_dir)
+    t_recover = time.perf_counter() - t0
+    try:
+        digest = col2.store.state_digest()
+        t0 = time.perf_counter()
+        got, _ = run_batches(col2, Q, T)
+        t_first = time.perf_counter() - t0
+    finally:
+        col2.close()
+    del col2
+    free_card()
+    rec = {"phase": "resilience", "n": C_sap.shape[0], "shards": SHARDS,
+           "inserts": int(extra_sap.shape[0]), "insert_records": WAL_BURSTS,
+           "deletes": WAL_DELETES, "checkpoint_s": t_ckpt,
+           "checkpoint_bytes": ckpt.stat().st_size,
+           "mutations_s": t_ops, "recovery_s": t_recover,
+           "first_search_after_recovery_s": t_first,
+           "report": {"had_checkpoint": report.had_checkpoint,
+                      "checkpoint_seq": report.checkpoint_seq,
+                      "n_replayed": report.n_replayed,
+                      "n_rows_replayed": report.n_rows_replayed,
+                      "last_seq": report.last_seq},
+           "digest_equal_acked": digest == acked,
+           "ids_equal_before_crash": bool((got == want).all()),
+           "deleted_ids_returned": deleted_returned(got, gone)}
+    log(json.dumps(rec))
+    if not (rec["digest_equal_acked"] and rec["ids_equal_before_crash"]
+            and report.n_replayed == WAL_BURSTS + 1
+            and not rec["deleted_ids_returned"]):
+        raise AssertionError(f"recovery: {rec}")
+    return rec
+
+
+def secure_scan(ctx: dict) -> dict:
+    """(g) `build_secure_scan_step` over phase 3's 1M rows in 4 shards (K1
+    per shard, the merge, K2) against the global step (one K1 over all
+    rows, K2; its launches uncounted): candidate and final id sets equal
+    in every query."""
+    import torch
+    from repro_torch.launch.mesh import local_devices
+    from repro_torch.serving import secure_scan as ss
+    Q, T = ctx["Q"], ctx["T"]
+    devices = local_devices()[:SHARDS]
+    C_sap = torch.from_numpy(ctx["C_sap"]).to(devices[0])
+    C_dce = torch.from_numpy(ctx["C_dce"]).to(devices[0])
+    kp = K * RATIO_K
+    step = ss.build_secure_scan_step(devices, k=K, k_prime=kp)
+    glob = ss.build_secure_scan_step_gspmd(devices, k=K, k_prime=kp)
+    Qd = torch.from_numpy(Q).to(devices[0])
+    Td = torch.from_numpy(T).to(devices[0])
+    step(C_sap, C_dce, Qd[:BATCH], Td[:BATCH])       # warm
+    reset_launches()
+    lat, same_c, same_i = [], 0, 0
+    for s in range(0, Q.shape[0], BATCH):
+        t0 = time.perf_counter()
+        ids, cand = step(C_sap, C_dce, Qd[s:s + BATCH], Td[s:s + BATCH],
+                         with_candidates=True)
+        ids, cand = ids.cpu().numpy(), cand.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        with untallied():
+            gids, gcand = glob(C_sap, C_dce, Qd[s:s + BATCH],
+                               Td[s:s + BATCH], with_candidates=True)
+        gids, gcand = gids.cpu().numpy(), gcand.cpu().numpy()
+        same_c += sum(set(a) == set(b) for a, b in zip(cand, gcand))
+        same_i += sum(set(a) == set(b) for a, b in zip(ids, gids))
+    launches = kernel_launches()
+    del C_sap, C_dce
+    free_card()
+    nq, nb = Q.shape[0], len(lat)
+    rec = {"phase": "sharded_path", "step": "g", "path": "secure_scan",
+           "n": ctx["C_sap"].shape[0], "shards": SHARDS, "queries": nq,
+           **lat_stats(lat),
+           "candidate_sets_equal": same_c / nq, "id_sets_equal": same_i / nq,
+           "launches_per_batch": {k: v / nb for k, v in launches.items()
+                                  if v},
+           "launches": launches}
+    log(json.dumps(rec))
+    if same_c != nq or same_i != nq:
+        raise AssertionError(f"secure scan: {rec}")
+    if (launches["l2_topk.knn"] != SHARDS * nb
+            or launches["dce_comp.refine_topk"] != nb):
+        raise AssertionError(f"secure scan: {launches} for {nb} batches")
+    return launches
+
+
+def sharded_paths(corpus: dict, graph: dict) -> dict:
+    """Phase 8: placement, sharding and resilience on the card, 8
+    logical placement devices on the one card.  -> (launches by path,
+    the sharded graph's record)."""
+    import tempfile
+    from repro_torch.launch.mesh import force_device_count
+    t0 = time.perf_counter()
+    force_device_count(LOGICAL_DEVICES)
+    try:
+        rec_a, col = sharded_flat(corpus, SHARDS)
+        try:
+            sharded_failover(col, corpus["Q"], corpus["T"], rec_a["ids"])
+        finally:
+            col.close()
+        del col
+        free_card()
+        rec_a8, col8 = sharded_flat(corpus, 2 * SHARDS)
+        col8.close()
+        del col8
+        free_card()
+        on_int8 = sharded_int8(corpus)
+        sharded_vs_single(graph, "ivf", backend="ivf",
+                          n_partitions=IVF_PARTITIONS, nprobe=IVF_NPROBE)
+        _, on_pq8 = sharded_vs_single(graph, "pq8", backend="flat",
+                                      quantization="pq8")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p8_") as tmp:
+            rec_e, on_graph = sharded_graph(graph, Path(tmp))
+            sharded_recovery(graph, Path(tmp))
+        on_scan = secure_scan(corpus)
+    finally:
+        force_device_count(None)
+    log(json.dumps({"phase": "sharded_done",
+                    "wall_s": time.perf_counter() - t0}))
+    return {"sharded_flat": rec_a["launches"], "sharded_int8": on_int8,
+            "sharded_pq8": on_pq8, "sharded_graph": on_graph,
+            "secure_scan": on_scan}, rec_e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="flat path rows (default: SIFT1M's 1,000,000)")
-    ap.add_argument("--graph-n", type=int, default=100_000,
-                    help="graph path rows (default 100,000: the host HNSW "
+    ap.add_argument("--graph-n", type=int, default=50_000,
+                    help="graph path rows (default 50,000: the host HNSW "
                          "build takes minutes)")
     ap.add_argument("--queries", type=int, default=1024)
     args = ap.parse_args()
@@ -2529,9 +3188,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
 
-    # the pool's exit terminates the build worker, also on a failure
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    # the pool's exit terminates the workers, also on a failure: the
+    # owner's global HNSW, phase 8's per-shard subgraphs and phase 4's
+    # pq8 codebook
+    with multiprocessing.get_context("spawn").Pool(2 + SHARDS) as pool:
         graph = graph_setup(args.graph_n, args.queries, pool)
+        start_shard_graphs(graph, pool)
+        corpus = flat_corpus(args.n, args.queries)
+        corpus["pq_job"] = pool.apply_async(train_pq, (
+            corpus["C_sap"], PQ_M, PQ_SEED))
 
         # phase 2 ---------------------------------------------------
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2565,7 +3230,18 @@ def main() -> int:
                    check_sq_adc(32, 1_000_000, 128, 1600, gen,
                                 home="adc_int8_k1600"),
                    check_pq_adc(32, 16, 1_000_000, 1600, gen,
-                                home="adc_pq8_k1600")]
+                                home="adc_pq8_k1600"),
+                   # phase 8's per-shard shapes: a quarter of the 1M
+                   # rows (flat, int8) or of the 50k graph corpus (pq8,
+                   # the subgraphs' R)
+                   check_knn(32, 2 ** 18, 128, K * RATIO_K, gen,
+                             home="sharded_flat"),
+                   check_sq_adc(32, 2 ** 18, 128, 160, gen,
+                                home="sharded_int8"),
+                   check_pq_adc(32, 16, 2 ** 14, 320, gen,
+                                home="sharded_pq8"),
+                   check_graph_walk(2 ** 14, 16, 8, 8, 128, gen,
+                                    home="sharded_graph")]
         for r in records:
             log(json.dumps(dict(r, card=card)))
         gc.collect()
@@ -2573,35 +3249,46 @@ def main() -> int:
 
         # phase 3 ---------------------------------------------------
         small_reference_check()
-        flat, flat_k1600, corpus = main_path(args.n, args.queries)
+        flat, flat_k1600, corpus = main_path(corpus)
         gc.collect()                    # the flat engine is gone: free
         torch.cuda.empty_cache()        # its 4.9 GB before the ADC paths
 
-        # phase 4 ---------------------------------------------------
+        # phase 4, its pq8 engine last (below) --------------------
         on_adc = {"flat_k1600": flat_k1600}
-        for path, quant, backend in (("adc_int8", "int8", "flat"),
-                                     ("adc_pq8", "pq8", "flat"),
-                                     ("ivf_int8", "int8", "ivf")):
+
+        def phase4(path, quant, backend):
             on_adc[path], k1600 = adc_path(corpus, quant, backend)
             if k1600 is not None:
                 on_adc[f"{path}_k1600"] = k1600
             gc.collect()
             torch.cuda.empty_cache()
+        phase4("adc_int8", "int8", "flat")
+        phase4("ivf_int8", "int8", "ivf")
 
         # phase 6 ---------------------------------------------------
         on_runtime = runtime_paths(corpus, graph, records)
 
         # phase 7 ---------------------------------------------------
         on_api = api_paths(corpus, graph)
+
+        # phase 8 ---------------------------------------------------
+        on_sharded, rec_sharded_graph = sharded_paths(corpus, graph)
+
+        # phase 4's pq8 engine, after the worker's codebook ------------
+        phase4("adc_pq8", "pq8", "flat")
         del corpus
         gc.collect()
         torch.cuda.empty_cache()
 
         # phase 5 ---------------------------------------------------
         on_graph = graph_path(graph)
+        log(json.dumps({"phase": "sharded_path", "step": "e_recall",
+                        "path": "sharded_graph",
+                        "recall@10_sharded": rec_sharded_graph["recall@10"],
+                        "recall@10_global_graph": graph["recall_global"]}))
 
     paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
-             **on_api}
+             **on_api, **on_sharded}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

@@ -12,14 +12,15 @@ server — and this package is their protocol: typed dataclasses
 keystores and `.ppcol` files are those of the JAX package, byte for
 byte, so either package reads what the other wrote.
 
+Deployment is a *parameter*, not a class: `create_collection(spec,
+placement=PlacementSpec(kind="sharded", ...))` runs the same
+`submit(SearchRequest)` surface row-sharded over the placement devices
+(`repro_torch.launch.mesh`; DESIGN.md §10).  The old
+`DistributedSecureAnnService` remains as a deprecated shim over that
+path.
+
 The service and the owner's batched encryption run on the card unless
 the caller passes `device="cpu"`.
-
-Not here yet: the JAX package's `api/mesh.py` names
-(`DistributedSecureAnnService`, `build_secure_scan_step`,
-`build_secure_scan_step_gspmd`, `secure_scan_input_specs`,
-`secure_scan_pspecs`) and sharded placement come with placement and
-sharding (ROADMAP Queue 1 item 6).
 
 Exports resolve lazily so `import repro_torch.api` stays light.
 """
@@ -48,6 +49,12 @@ _EXPORTS = {
     "QueueFullError": ".roles",
     # key custody
     "Keystore": ".keystore",
+    # deprecated sharded wrapper + secure-scan step builders
+    "DistributedSecureAnnService": ".mesh",
+    "build_secure_scan_step": ".mesh",
+    "build_secure_scan_step_gspmd": ".mesh",
+    "secure_scan_input_specs": ".mesh",
+    "secure_scan_pspecs": ".mesh",
 }
 
 __all__ = list(_EXPORTS)

@@ -242,6 +242,7 @@ class SecureAnnService:
             default_kw.setdefault("tracer", obs.recorder)
             default_kw.setdefault("metrics", obs.metrics)
         self._mgr = CollectionManager(device=device, **default_kw)
+        self.device = device
         self._specs: dict[tuple[str, str], IndexSpec] = {}
         self._placements: dict[tuple[str, str], PlacementSpec] = {}
         self._lock = threading.Lock()
@@ -256,11 +257,12 @@ class SecureAnnService:
         """Create a (keyless) collection per the spec; optionally load an
         owner-uploaded `EncryptedCorpus` (ciphertexts + owner-built
         index) in the same call.  `placement` chooses the deployment
-        (DESIGN.md §10): the single-device engine runs here; a sharded
-        placement raises `NotImplementedError` until ROADMAP Queue 1
-        item 6 (placement and sharding) is ported.  Returns the
-        effective spec (seed resolved), which is what `save` persists
-        (alongside the placement)."""
+        (DESIGN.md §10): the default single-device engine, or
+        `PlacementSpec(kind="sharded", ...)` for row-sharded execution
+        over the placement devices (`repro_torch.launch.mesh`) behind
+        the same `submit` surface.  Returns the effective spec (seed
+        resolved), which is what `save` persists (alongside the resolved
+        placement)."""
         if placement is None:
             placement = PlacementSpec()
         if placement.is_sharded:
@@ -269,9 +271,9 @@ class SecureAnnService:
                     "hnsw collections cannot be sharded: graph "
                     "traversal does not shard (DESIGN.md §3); use a "
                     "flat or ivf backend with sharded placement")
-            raise NotImplementedError(
-                "sharded placement is not ported yet (ROADMAP Queue 1 "
-                "item 6: placement and sharding)")
+            from ..launch.mesh import device_count   # resolve NOW so
+            placement = placement.resolve(device_count(self.device))
+            # save() persists the exact shard count this collection ran
         if corpus is not None:        # validate BEFORE creating: a bad
             if corpus.d != spec.d:    # corpus must not orphan an empty
                 raise ValueError(     # collection under this name

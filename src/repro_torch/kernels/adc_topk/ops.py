@@ -11,7 +11,10 @@ Counterpart of `repro.kernels.adc_topk.ops`:
       over the probed rows (a gather workload; the reference keeps them
       in XLA, here they are torch ops);
   sq_oblivious_scan / pq_oblivious_scan — the scan-oblivious IVF scans:
-      every row's surrogate, masked by per-query pool membership.
+      every row's surrogate, masked by per-query pool membership;
+  *_pool_dists / *_oblivious_dists — those four scans' masked distances
+      before their top-kp (the sharded backend merges them across
+      shards).
 
 The four pool and oblivious scans keep the reference's float32
 `cn - 2 * cross`, exact while the surrogate stays below 2^24 (d <= 346;
@@ -33,8 +36,9 @@ from .adc_topk import INT_BIG, pq_adc_topk, sq_adc_topk
 from .ref import pq_dists
 
 __all__ = ["sq_knn", "pq_knn", "sq_pool_scan", "pq_pool_scan",
-           "sq_oblivious_scan", "pq_oblivious_scan", "sq_adc_topk",
-           "pq_adc_topk", "INT_BIG"]
+           "sq_oblivious_scan", "pq_oblivious_scan", "sq_pool_dists",
+           "pq_pool_dists", "sq_oblivious_dists", "pq_oblivious_dists",
+           "sq_adc_topk", "pq_adc_topk", "INT_BIG"]
 
 _GATHER_ELEMENTS = 2 ** 27      # gathered code elements per step (int8 pool)
 
@@ -64,13 +68,12 @@ def pq_knn(lut: torch.Tensor, codes_t: torch.Tensor, k: int, *,
     return pq_adc_topk(lut, codes_t, ok, k)
 
 
-def sq_pool_scan(c8_dev, cn_dev, q8, cand, valid, kp: int):
-    """IVF-pruned int8 ADC scan over each query's probed rows.
-
-    c8_dev (n, d) int8, cn_dev (n,) int32, q8 (nq, d) int8, cand/valid
-    (nq, L) pool layout (`serving.search_engine.layout_pools`) -> (ids
-    (nq, kp) of cand's dtype, valid (nq, kp)).  The gathered rows are
-    taken a few queries at a time, so no (nq, L, d) float block exists."""
+def sq_pool_dists(c8_dev, cn_dev, q8, cand, valid) -> torch.Tensor:
+    """The int8 ADC surrogates of each query's probed rows: c8_dev (n, d)
+    int8, cn_dev (n,) int32, q8 (nq, d) int8, cand/valid (nq, L) pool
+    layout (`serving.search_engine.layout_pools`) -> (nq, L) float32,
+    +inf at invalid slots.  The gathered rows are taken a few queries at
+    a time, so no (nq, L, d) float block exists."""
     full_fp32()
     nq, L = cand.shape
     idx = cand.long()
@@ -81,43 +84,61 @@ def sq_pool_scan(c8_dev, cn_dev, q8, cand, valid, kp: int):
         rows = c8_dev[idx[s:s + step]].to(torch.float32)     # (b, L, d)
         cross[s:s + step] = torch.einsum("qld,qd->ql", rows, qf[s:s + step])
     d = cn_dev[idx].to(torch.float32) - 2.0 * cross
-    d = torch.where(valid, d, float("inf"))
-    pos = top_positions(d, kp)
+    return torch.where(valid, d, float("inf"))
+
+
+def sq_pool_scan(c8_dev, cn_dev, q8, cand, valid, kp: int):
+    """IVF-pruned int8 ADC scan over each query's probed rows: the top-kp
+    of `sq_pool_dists` -> (ids (nq, kp) of cand's dtype, valid (nq, kp))."""
+    pos = top_positions(sq_pool_dists(c8_dev, cn_dev, q8, cand, valid), kp)
     return torch.gather(cand, 1, pos), torch.gather(valid, 1, pos)
 
 
-def pq_pool_scan(codes_t, lut, cand, valid, kp: int):
-    """IVF-pruned PQ ADC scan (table look-ups over the probed rows).
-
+def pq_pool_dists(codes_t, lut, cand, valid) -> torch.Tensor:
+    """The PQ ADC distances of each query's probed rows (table look-ups):
     codes_t (m, n) uint8, lut (nq, m, 256) float32, cand/valid (nq, L)
-    -> (ids (nq, kp), valid (nq, kp))."""
+    -> (nq, L) float32, +inf at invalid slots."""
     idx = cand.long()
     d = torch.zeros(cand.shape, dtype=torch.float32, device=cand.device)
     for j in range(codes_t.shape[0]):
         d = d + torch.gather(lut[:, j], 1, codes_t[j][idx].long())
-    d = torch.where(valid, d, float("inf"))
-    pos = top_positions(d, kp)
+    return torch.where(valid, d, float("inf"))
+
+
+def pq_pool_scan(codes_t, lut, cand, valid, kp: int):
+    """IVF-pruned PQ ADC scan: the top-kp of `pq_pool_dists` -> (ids
+    (nq, kp), valid (nq, kp))."""
+    pos = top_positions(pq_pool_dists(codes_t, lut, cand, valid), kp)
     return torch.gather(cand, 1, pos), torch.gather(valid, 1, pos)
 
 
-def sq_oblivious_scan(c8_dev, cn_dev, q8, member, kp: int):
-    """Scan-oblivious int8 ADC IVF scan: the surrogate of EVERY row,
-    masked by member (nq, n) bool (`serving.search_engine.pool_membership`)
-    -> (ids (nq, kp) int64, valid (nq, kp)).  Member rows get the values
-    `sq_pool_scan` computes for them, so the candidates match."""
+def sq_oblivious_dists(c8_dev, cn_dev, q8, member) -> torch.Tensor:
+    """The int8 ADC surrogate of EVERY row, masked (+inf) by member
+    (nq, n) bool (`serving.search_engine.pool_membership`).  Member rows
+    get the values `sq_pool_dists` computes for them."""
     full_fp32()
     cross = q8.to(torch.float32) @ c8_dev.to(torch.float32).T
     d = cn_dev.to(torch.float32)[None, :] - 2.0 * cross
-    d = torch.where(member, d, float("inf"))
-    pos = top_positions(d, kp)
+    return torch.where(member, d, float("inf"))
+
+
+def sq_oblivious_scan(c8_dev, cn_dev, q8, member, kp: int):
+    """Scan-oblivious int8 ADC IVF scan: the top-kp of
+    `sq_oblivious_dists` -> (ids (nq, kp) int64, valid (nq, kp)), the
+    candidates `sq_pool_scan` finds."""
+    pos = top_positions(sq_oblivious_dists(c8_dev, cn_dev, q8, member), kp)
     return pos, torch.gather(member, 1, pos)
 
 
+def pq_oblivious_dists(codes_t, lut, member) -> torch.Tensor:
+    """Every row's PQ table sum, masked (+inf) by member (nq, n) bool."""
+    return torch.where(member, pq_dists(lut, codes_t), float("inf"))
+
+
 def pq_oblivious_scan(codes_t, lut, member, kp: int):
-    """Scan-oblivious PQ ADC IVF scan: every row's table sum, masked by
-    member (nq, n) bool -> (ids (nq, kp) int64, valid (nq, kp))."""
-    d = torch.where(member, pq_dists(lut, codes_t), float("inf"))
-    pos = top_positions(d, kp)
+    """Scan-oblivious PQ ADC IVF scan: the top-kp of `pq_oblivious_dists`
+    -> (ids (nq, kp) int64, valid (nq, kp))."""
+    pos = top_positions(pq_oblivious_dists(codes_t, lut, member), kp)
     return pos, torch.gather(member, 1, pos)
 
 

@@ -105,18 +105,27 @@ class Collection:
             d=d, sap_beta=sap_beta, sap_s=sap_s, seed=seed)
         self.store = MutableEncryptedStore(d, dce.ciphertext_dim(d))
         # placement chooses WHERE the engine executes (DESIGN.md §10):
-        # None/"single" -> the delta-aware single-device backend; the
-        # row-sharded placement is not ported yet.  Everything above the
-        # backend (batcher, ingestion, telemetry, snapshots) is
-        # placement-agnostic.
+        # None/"single" -> the delta-aware single-device backend,
+        # "sharded"     -> row-sharded scans over the placement devices
+        # (`launch.mesh`), one launch per shard + a merge.  Everything
+        # above the backend (batcher, ingestion, telemetry, snapshots)
+        # is placement-agnostic.
         self.placement = placement
         if placement is not None and placement.kind == "sharded":
-            raise NotImplementedError(
-                "sharded placement is not ported yet (ROADMAP Queue 1 "
-                "item 6: placement and sharding)")
-        self._backend = DeltaAwareBackend(self.store, backend,
-                                          device=self.device, seed=seed,
-                                          **backend_kw)
+            from ..sharded import ShardedBackend
+            if placement.n_shards is None:
+                raise ValueError("sharded placement must be resolved "
+                                 "(n_shards pinned) before it reaches "
+                                 "the runtime")
+            self._backend = ShardedBackend(
+                self.store, backend, n_shards=placement.n_shards,
+                n_replicas=getattr(placement, "n_replicas", 1),
+                data_axis=placement.data_axis, device=self.device,
+                seed=seed, **backend_kw)
+        else:
+            self._backend = DeltaAwareBackend(self.store, backend,
+                                              device=self.device,
+                                              seed=seed, **backend_kw)
         self._engine: SecureSearchEngine | None = None
         self._lock = threading.RLock()
         self.compact_every = int(compact_every)

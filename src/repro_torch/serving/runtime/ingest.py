@@ -428,6 +428,17 @@ class DeltaAwareBackend:
 
     # ----------------------------------------------- ADC code arrays
 
+    # placement hooks for the code tensors (a sharded backend partitions
+    # them by rows): row-major codes, (m, n) PQ codes, per-row vectors
+    def _put_codes(self, buf: np.ndarray):
+        return self._put(buf)
+
+    def _put_codes_t(self, buf: np.ndarray):
+        return self._put(buf)
+
+    def _put_rowvec(self, buf: np.ndarray):
+        return self._put(buf)
+
     def restore_adc(self, codebook, trained_gen: int):
         """Install a snapshotted codebook (Collection.load_snapshot):
         codes re-encode from the restored ciphertexts bit-identically,
@@ -476,8 +487,8 @@ class DeltaAwareBackend:
                 cnb = np.zeros(bucket, np.int32)
                 codes, cn = self.adc_codebook.encode(C_sap)
                 buf[: st.n_total], cnb[: st.n_total] = codes, cn
-                self._adc_c8 = self._put(buf)
-                self._adc_cn = self._put(cnb)
+                self._adc_c8 = self._put_codes(buf)
+                self._adc_cn = self._put_rowvec(cnb)
             elif st.n_total > old_n:        # encode appended rows only
                 codes, cn = self.adc_codebook.encode(
                     C_sap[old_n: st.n_total])
@@ -489,7 +500,7 @@ class DeltaAwareBackend:
                 buf = np.zeros((self.adc_codebook.m, bucket), np.uint8)
                 codes = self.adc_codebook.encode(C_sap)
                 buf[:, : st.n_total] = codes.T
-                self._adc_codes_t = self._put(buf)
+                self._adc_codes_t = self._put_codes_t(buf)
             elif st.n_total > old_n:
                 codes = self.adc_codebook.encode(C_sap[old_n: st.n_total])
                 self._write_rows(self._adc_codes_t, old_n, st.n_total,
@@ -502,7 +513,7 @@ class DeltaAwareBackend:
             self._write_rows(self._adc_ok, 0, bucket, ok)
         else:
             self._adc_ok = None
-            self._adc_ok = self._put(ok)
+            self._adc_ok = self._put_rowvec(ok)
         self._adc_snapshot = (cb_id, bucket, st.n_total)
 
     def attach(self, C_sap: np.ndarray, engine):

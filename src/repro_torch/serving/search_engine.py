@@ -117,13 +117,13 @@ def refine_candidates(C_dce: torch.Tensor, cand: torch.Tensor,
 _GATHER_ELEMENTS = 2 ** 27
 
 
-def _masked_pruned_scan(C_sap, Q, cand, valid, kp: int):
+def _masked_pruned_dists(C_sap, Q, cand, valid) -> torch.Tensor:
     """IVF filter inner loop: ciphertext distances over probed rows only.
 
     Same ||q||^2 - 2 q.x + ||x||^2 restructuring as the l2_topk kernel,
     with a per-query gather (each query probes different partitions) and
-    an invalid-slot mask; the gather runs a few queries at a time.
-    Returns (ids, valid) of the per-query top-kp.
+    an invalid-slot mask (+inf); the gather runs a few queries at a time.
+    Returns the (nq, L) distances of the pool layout.
     """
     full_fp32()
     nq, L = cand.shape
@@ -136,8 +136,13 @@ def _masked_pruned_scan(C_sap, Q, cand, valid, kp: int):
         rows = C_sap[idx[s:s + step]]                    # (b, L, d)
         xn[s:s + step] = (rows * rows).sum(-1)
         cross[s:s + step] = torch.einsum("qld,qd->ql", rows, Q[s:s + step])
-    d = torch.where(valid, qn - 2.0 * cross + xn, float("inf"))
-    pos = top_positions(d, kp)
+    return torch.where(valid, qn - 2.0 * cross + xn, float("inf"))
+
+
+def _masked_pruned_scan(C_sap, Q, cand, valid, kp: int):
+    """The IVF pool scan: (ids, valid) of each query's top-kp of
+    `_masked_pruned_dists`."""
+    pos = top_positions(_masked_pruned_dists(C_sap, Q, cand, valid), kp)
     return torch.gather(cand, 1, pos), torch.gather(valid, 1, pos)
 
 
@@ -177,17 +182,22 @@ def scan_ivf_pools(C_dev: torch.Tensor, Q_sap: np.ndarray, pools, kp: int,
         torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev), kp)
 
 
-def _masked_full_scan(C_all, Q, member, kp: int):
+def _masked_full_dists(C_all, Q, member) -> torch.Tensor:
     """Scan-oblivious IVF filter inner loop (DESIGN.md §14): ciphertext
-    distances over EVERY resident row, masked afterwards by per-query
-    pool membership, so which rows the probes selected is not visible in
-    the access pattern.  Member rows get the values the pruned scan
-    computes.  Returns (ids (nq, kp) int64, valid (nq, kp))."""
+    distances over EVERY resident row, masked afterwards (+inf) by
+    per-query pool membership, so which rows the probes selected is not
+    visible in the access pattern.  Member rows get the values the
+    pruned scan computes.  Returns the (nq, n) distances."""
     full_fp32()
     qn = (Q * Q).sum(-1)[:, None]
     xn = (C_all * C_all).sum(-1)[None, :]
-    d = torch.where(member, qn - 2.0 * Q @ C_all.T + xn, float("inf"))
-    pos = top_positions(d, kp)
+    return torch.where(member, qn - 2.0 * Q @ C_all.T + xn, float("inf"))
+
+
+def _masked_full_scan(C_all, Q, member, kp: int):
+    """The oblivious scan: (ids (nq, kp) int64, valid (nq, kp)) of each
+    query's top-kp of `_masked_full_dists`."""
+    pos = top_positions(_masked_full_dists(C_all, Q, member), kp)
     return pos, torch.gather(member, 1, pos)
 
 

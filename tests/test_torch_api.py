@@ -17,7 +17,8 @@ exactly:
     delete, with equal ids, and the two files' bytes are equal (numpy's
     zip writer stamps a fixed date, so equal content is equal bytes);
   * the legacy shims warn and match the typed path; sharded placement
-    raises until it is ported; a `use_kernel=False` spec loads and
+    is refused beyond the placement devices and serves the single
+    collection's ids within them; a `use_kernel=False` spec loads and
     serves with the same ids.
 """
 
@@ -432,7 +433,12 @@ def test_use_kernel_false_spec_loads_and_serves(ds, corpus, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_sharded_placement_is_not_ported_yet(ds, corpus):
-    enc, _, _ = corpus
+    """Sharded placement is ported now (tests/test_torch_placement.py
+    holds it to the JAX package): the host is one placement device, so
+    two shards are refused with the reference's "device" error and
+    nothing is created; one shard serves the single collection's ids;
+    hnsw still does not shard."""
+    enc, query, _ = corpus
     sharded = PlacementSpec(kind="sharded", n_shards=1)
     assert PlacementSpec.from_bytes(sharded.to_bytes()) == sharded
     assert sharded.resolve(4) == sharded
@@ -442,14 +448,23 @@ def test_sharded_placement_is_not_ported_yet(ds, corpus):
     with SecureAnnService(device=CPU) as svc:
         with pytest.raises(ValueError, match="cannot be sharded"):
             svc.create_collection(_spec(api, ds, "hnsw"), placement=sharded)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="device"):
             svc.create_collection(_spec(api, ds), _as(api, enc, "flat"),
-                                  placement=sharded)
+                                  placement=PlacementSpec(kind="sharded",
+                                                          n_shards=2))
         # nothing was created under the name
         with pytest.raises(api.TenantIsolationError):
             svc.collection("t", "col")
-        svc.create_collection(_spec(api, ds))
-        assert svc.placement("t", "col") == PlacementSpec()
+        svc.create_collection(_spec(api, ds), _as(api, enc, "flat"),
+                              placement=PlacementSpec(kind="sharded"))
+        assert svc.placement("t", "col") == sharded
+        got = svc.submit(_request(api, query))
+        assert got.stats.backend == "sharded-flat"
+        svc.create_collection(_spec(api, ds, name="one"),
+                              _as(api, enc, "flat"))
+        assert svc.placement("t", "one") == PlacementSpec()
+        want = svc.submit(_request(api, query, name="one")).ids
+    np.testing.assert_array_equal(got.ids, want)
 
 
 def test_shims_warn_and_match_new_path(ds):

@@ -57,7 +57,11 @@ def test_port_imports_without_jax():
             "repro_torch.obs.metrics, repro_torch.obs.profiler, "
             "repro_torch.api.protocol, repro_torch.api.keystore, "
             "repro_torch.api.roles, repro_torch.sec.leakage, "
-            "repro_torch.core.aspe, repro_torch.core.attacks\n"
+            "repro_torch.core.aspe, repro_torch.core.attacks, "
+            "repro_torch.launch.mesh, repro_torch.resilience, "
+            "repro_torch.ft, repro_torch.ft.runner, "
+            "repro_torch.serving.sharded, repro_torch.serving.secure_scan, "
+            "repro_torch.serving.ann_server, repro_torch.api.mesh\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -204,6 +208,73 @@ def test_runtime_on_cpu_never_reaches_the_launch_path(monkeypatch, kind,
     delta, after, gone, _, rebuilt = _runtime_run(
         "cpu", kind, quant, *_runtime_corpus())
     assert not np.isin(delta, gone).any() and not np.isin(after, gone).any()
+    assert rebuilt == 0
+    assert _launch_counts() == before
+
+
+_SHARDED_KINDS = [("flat", None), ("ivf", None), ("flat", "int8"),
+                  ("flat", "pq8"), ("graph", None)]
+
+
+def _sharded_run(device, kind, quant, C_sap, C_dce, Q, T, k=5):
+    """A keyless collection over 4 logical shards (8 logical devices):
+    load, warmup, a search, one group down, a search, revived, an insert
+    burst and a delete, a search.  -> (healthy ids, degraded ids, ids
+    after the mutations, filter launches a healthy batch, builds+loads
+    after warmup, rows per shard)."""
+    from repro_torch.api import PlacementSpec
+    from repro_torch.launch.mesh import force_device_count
+    kw = {"pq_m": 4} if quant == "pq8" else {}
+    if kind == "ivf":
+        kw.update(n_partitions=8, nprobe=4)
+    if kind == "graph":
+        kw.update(hnsw_M=8, hnsw_ef_construction=32)
+    kern = {("flat", None): "l2_topk.knn", ("graph", None):
+            "graph_expand.graph_walk", ("flat", "int8"):
+            "adc_topk.sq_adc_topk", ("flat", "pq8"): "adc_topk.pq_adc_topk"
+            }.get((kind, quant))
+    force_device_count(8)
+    col = Collection("t", f"sh-{kind}-{quant}", C_sap.shape[1],
+                     device=device, keyless=True, seed=1, backend=kind,
+                     quantization=quant, compact_every=10_000,
+                     placement=PlacementSpec(kind="sharded", n_shards=4,
+                                             n_replicas=2), **kw)
+    try:
+        n0 = C_sap.shape[0] - 20
+        col.insert_encrypted(C_sap[:n0], C_dce[:n0])
+        col.warmup(k)
+        audit = jit_cache_size()
+        before = _launch_counts()
+        healthy, _ = col.search_batch(Q, T, k)
+        per_batch = (_launch_counts()[kern] - before[kern]) if kern else 0
+        col.health.kill(1, 0)
+        col.health.kill(1, 1)
+        degraded, st = col.search_batch(Q, T, k)
+        assert st.degraded and st.n_shards_down == 1
+        col.health.revive(1, 0)
+        col.insert_encrypted(C_sap[n0:], C_dce[n0:])
+        col.delete(np.unique(healthy[:, 0]))
+        after, _ = col.search_batch(Q, T, k)
+        per = col._backend._row_bucket(col.store.n_total) // 4
+        return (healthy, degraded, after, per_batch,
+                jit_cache_size() - audit, per)
+    finally:
+        col.close()
+        force_device_count(None)
+
+
+@pytest.mark.parametrize("kind,quant", _SHARDED_KINDS)
+def test_sharded_runtime_on_cpu_never_reaches_the_launch_path(monkeypatch,
+                                                              kind, quant):
+    def refuse(*a, **kw):
+        raise AssertionError("CPU tensor reached the kernel launch path")
+    monkeypatch.setattr(_build, "function", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    before = _launch_counts()
+    healthy, degraded, after, _, rebuilt, per = _sharded_run(
+        "cpu", kind, quant, *_runtime_corpus())
+    assert not np.isin(after, healthy[:, 0]).any()
+    assert not ((degraded >= per) & (degraded < 2 * per)).any()
     assert rebuilt == 0
     assert _launch_counts() == before
 
@@ -661,6 +732,26 @@ def test_runtime_collections_on_the_card_equal_the_host(kind, quant):
     assert not np.isin(card[0], gone).any()
     assert not np.isin(card[1], gone).any()
     assert card[3] == (2 if (kind, quant) == ("flat", None) else 0)
+    assert card[4] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,quant", _SHARDED_KINDS)
+def test_sharded_runtime_on_the_card_equals_the_host(kind, quant):
+    """A sharded collection on the card (4 logical shards on one card)
+    through failover and mutations: its ids equal the host's plain
+    versions' (>= 99% of slots, the fp32 sums in another order), the
+    filter kernel launches once per shard a healthy batch, no id of the
+    dead group comes back, and nothing is built after warmup."""
+    _needs_card()
+    corpus = _runtime_corpus(n=1000, nq=32, d=32)
+    card = _sharded_run(None, kind, quant, *corpus)
+    host = _sharded_run("cpu", kind, quant, *corpus)
+    for got, want in zip(card[:3], host[:3]):
+        assert (got == want).mean() >= 0.99
+    per = card[5]
+    assert not ((card[1] >= per) & (card[1] < 2 * per)).any()
+    assert card[3] == (4 if (kind, quant) != ("ivf", None) else 0)
     assert card[4] == 0
 
 

@@ -770,9 +770,31 @@ def test_metrics_registry_mirrors_counters():
 
 
 def test_sharded_placement_not_ported_yet():
+    """Sharded placement is ported now: a placement wider than the
+    placement devices raises the reference's "device" error, an
+    unresolved one is refused, and within the devices (here two logical
+    ones on the host) the collection runs the sharded backend."""
+    from repro_torch.launch.mesh import force_device_count
+
     class Placement:
         kind = "sharded"
         n_shards = 2
+        n_replicas = 2
+        data_axis = "data"
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="device"):
         Collection("t", "c", D, device="cpu", placement=Placement())
+    force_device_count(2)
+    try:
+        col = Collection("t", "c", D, device="cpu", placement=Placement())
+        assert col._backend.name == "sharded-flat"
+        assert col.health.n_shards == 2 and col.health.n_replicas == 2
+        assert col.shard_manifest() == [
+            {"shard": s, "row_start": 0, "row_stop": 0, "n_alive": 0}
+            for s in range(2)]
+        col.close()
+        Placement.n_shards = None
+        with pytest.raises(ValueError, match="resolved"):
+            Collection("t", "c", D, device="cpu", placement=Placement())
+    finally:
+        force_device_count(None)

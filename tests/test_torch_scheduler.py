@@ -246,8 +246,8 @@ def test_parity_assertion_never_retried(kind):
 # ---------------------------------------------------------------------------
 # A real engine: inject a one-shot fault into the collection's _run_batch
 # and require transparent recovery with exact ids (DESIGN.md §16: the
-# fault is invisible to the client).  The sharded placement is not
-# ported yet.
+# fault is invisible to the client).  The sharded placement's fault
+# recovery is in tests/test_torch_failover.py.
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
