@@ -180,6 +180,34 @@ Phases, each of which fails the run (non-zero exit, no final line):
    One `sharded_path` line per step and one `resilience` line; the
    launches join the `kernels` line as `launches_by_path` sharded_flat,
    sharded_int8, sharded_pq8, sharded_graph and secure_scan.
+9. The LM server and its encrypted kNN-LM retrieval (`repro_torch.
+   models`, `serving.engine.LMServer`, `launch.serve`), run after phase 8
+   and before phase 4's pq8 engine, its tensors freed before that:
+   (a) qwen3-1.7b at full width and depth (28 layers, d_model 2048,
+       vocab 151,936; 1.72 B parameters drawn from a seeded generator on
+       the card): in fp32, decode_step(prefill(prompt)) against
+       forward(prompt + token) within the reference test's rtol = atol =
+       2e-2 at B 4 / prompt 32, and at B 1 / prompt 4,080 in a 4,096-row
+       cache (the prefill takes attention's chunked branch); in bf16,
+       `LMServer.generate` at the reference CLI's B 4, prompt 32, 16 new
+       tokens (prefill ms, decode ms a step against its weight-bytes
+       bound, a profile of the decode step, greedy tokens against the
+       fp32 model's), its first token equal to bf16 forward's argmax
+       wherever the top-2 margin is resolved;
+   (b) the kNN-LM loop of examples/rag_serving.py at full width: 100,000
+       standard-normal rows of d 2048 (D 4112) with random next tokens,
+       encrypted on the card by a `DataOwnerClient` and inserted into a
+       keyless `SecureAnnService` flat collection; 8 bf16 decode steps at
+       B 4, k 8, lambda 0.3, each step's probes one batch request; ids
+       equal to the same steps under the plain versions in >= 99.9% of
+       slots, blended tokens equal where the ids are, K1 and K2 once a
+       step (none in the plain run), recall@8 against plaintext exact
+       kNN of the probes;
+   (d) `repro_torch.launch.serve.main(["--secure-ann"])` on the card at
+       the reference CLI's defaults: (4, 16) tokens, its recall logged.
+   Phase 2 holds K1 and K2 at (b)'s shapes (nq 4, n 100,000, d 2048,
+   k' 64; B 4, n 64, D 4112).  One `lm` line per check; the launches
+   join the `kernels` line as `launches_by_path` knn_lm and lm_serve.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -1028,29 +1056,27 @@ def k1600_path(eng, Q, T, k: int, path: str, n_batches: int = 4):
     return launches
 
 
-def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
-    """Device time by kernel over a short window of main-path batches
-    (torch.profiler), and the device's busy share of that window.  One
-    batch runs first as the profiler's warm-up step: the tracer loses
-    activity at its start, which on a path of few kernels a batch can be
-    a whole batch.  The profiler's own host cost lengthens the window,
-    so the idle share is an upper bound."""
+def profile_steps(step, n_steps: int, unit: str = "batch") -> dict:
+    """Device time by kernel over a short window of `n_steps` calls of
+    `step(i)` (torch.profiler), and the device's busy share of that
+    window.  One call runs first as the profiler's warm-up step: the
+    tracer loses activity at its start, which on a path of few kernels a
+    step can be a whole step.  The profiler's own host cost lengthens
+    the window, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     events = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=n_batches),
+                 schedule=schedule(wait=0, warmup=1, active=n_steps),
                  on_trace_ready=lambda p: events.extend(p.key_averages())
                  ) as prof:
-        for i in range(n_batches + 1):
+        for i in range(n_steps + 1):
             if i == 1:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            s = i * BATCH % Q.shape[0]
-            eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
-                             ratio_k=RATIO_K, ef_search=EF_SEARCH)
-            if i == n_batches:
+            step(i)
+            if i == n_steps:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
@@ -1059,20 +1085,29 @@ def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
         dev_us = getattr(ev, "self_device_time_total", 0)
         if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0
                 and not ev.key.startswith("ProfilerStep")):   # step ranges
-            kernels.append((dev_us / 1e3 / n_batches, ev.count / n_batches,
+            kernels.append((dev_us / 1e3 / n_steps, ev.count / n_steps,
                             ev.key[:60]))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     return {
-        "phase": "profile", "batches": n_batches,
-        "device_busy_ms_per_batch": busy_ms if kernels else None,
-        "profiled_wall_ms_per_batch": wall_ms / n_batches,
+        f"device_busy_ms_per_{unit}": busy_ms if kernels else None,
+        f"profiled_wall_ms_per_{unit}": wall_ms / n_steps,
         "device_idle_share_upper_bound":
-            1 - busy_ms * n_batches / wall_ms if kernels else None,
-        "top_kernels_ms_per_batch": [
+            1 - busy_ms * n_steps / wall_ms if kernels else None,
+        f"top_kernels_ms_per_{unit}": [
             {"kernel": name, "ms": ms, "launches": cnt}
             for ms, cnt, name in kernels[:8]],
     }
+
+
+def profile_batches(eng, Q, T, n_batches: int = 2) -> dict:
+    """`profile_steps` over main-path batches of the engine."""
+    def step(i):
+        s = i * BATCH % Q.shape[0]
+        eng.search_batch(Q[s:s + BATCH], T[s:s + BATCH], K,
+                         ratio_k=RATIO_K, ef_search=EF_SEARCH)
+    return {"phase": "profile", "batches": n_batches,
+            **profile_steps(step, n_batches)}
 
 
 def small_reference_check():
@@ -3157,6 +3192,338 @@ def sharded_paths(corpus: dict, graph: dict) -> dict:
             "secure_scan": on_scan}, rec_e
 
 
+# --------------------------------------------------------------- phase 9
+
+LM_ARCH = "qwen3-1.7b"          # src/repro_torch/configs/qwen3_1p7b.py
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 16   # the reference serve CLI's
+LONG_PROMPT, LONG_T_MAX = 4_080, 4_096    # a prefill on the chunked branch
+DECODE_TOL = 2e-2               # rtol = atol of tests/test_arch_smoke.py
+BF16_MANTISSA = 7               # bfloat16's stored significand bits
+# the kNN-LM loop of examples/rag_serving.py at full width: the
+# datastore's rows are d_model wide
+KNN_N, KNN_K, KNN_LAM, KNN_STEPS, KNN_PROMPT = 100_000, 8, 0.3, 8, 16
+
+
+def sync_s(fn):
+    """(fn's result, host seconds to its end on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_decode_check(model, B: int, S: int, t_max: int, gen) -> dict:
+    """decode_step(prefill(prompt)) against forward(prompt + token), the
+    reference test's check (rtol = atol = 2e-2) at full width: the
+    prefill's logits against forward's at the prompt's last position,
+    the decode step's against forward's at the token's."""
+    import torch
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    full, forward_s = sync_s(lambda: model.forward({"tokens": tokens}))
+    cache = model.init_cache(B, t_max)
+    (pre, cache), prefill_s = sync_s(
+        lambda: model.prefill({"tokens": tokens[:, :-1]}, cache))
+    (dec, cache), decode_s = sync_s(
+        lambda: model.decode_step(tokens[:, -1:], cache))
+    checks, ok = {}, True
+    for name, got, want in (("prefill", pre, full[:, -2]),
+                            ("decode", dec, full[:, -1])):
+        want = want.float()
+        err = (got.float() - want).abs()
+        excess = float((err - DECODE_TOL * (1 + want.abs())).max())
+        checks[name] = {"max_abs_err": float(err.max()),
+                        "max_excess_over_tolerance": excess,
+                        "argmax_equal": bool(torch.equal(
+                            got.argmax(-1), want.argmax(-1)))}
+        ok &= excess <= 0 and bool(torch.isfinite(got).all())
+    rec = {"phase": "lm", "step": "a", "check": "prefill_decode_vs_forward",
+           "arch": cfg.name, "dtype": cfg.dtype, "batch": B, "prompt": S,
+           "t_max": t_max, "rtol": DECODE_TOL, "atol": DECODE_TOL,
+           "prefill_chunked_attention": (
+               S > 1 and t_max > L.FLASH_THRESHOLD
+               and t_max % L.FLASH_KV_CHUNK == 0),
+           "forward_s": forward_s, "prefill_s": prefill_s,
+           "decode_s": decode_s, **checks}
+    del full, pre, dec, cache
+    if not ok:
+        raise AssertionError(f"prefill/decode differ from forward at "
+                             f"B={B} S={S}: {checks}")
+    return rec
+
+
+def lm_generate(fp32, bf16, gen, card: str) -> dict:
+    """`LMServer.generate` in bf16 at the reference CLI's batch, prompt
+    and new tokens: times, greedy agreement with the fp32 model's
+    tokens, and the first token against bf16 forward's argmax wherever
+    the top-2 margin is resolved (above two bf16 ulps of the top logit
+    and twice the largest gap between the prefill's and forward's
+    logits, the two bf16 computations of the same function)."""
+    import torch
+    from repro_torch.serving import LMServer
+    from repro_torch.serving.engine import greedy
+    cfg = bf16.cfg
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (LM_BATCH, LM_PROMPT), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    server = LMServer(bf16)
+    server.generate(batch, 2)                      # warm-up
+    out, gen_s = sync_s(lambda: server.generate(batch, LM_NEW))
+    out32 = LMServer(fp32).generate(batch, LM_NEW)
+    t_max = LM_PROMPT + LM_NEW
+    prefill_ms = host_ms(lambda: bf16.prefill(
+        batch, bf16.init_cache(LM_BATCH, t_max)))
+    cache = bf16.init_cache(LM_BATCH, t_max)
+    logits, cache = bf16.prefill(batch, cache)
+    step_ms = []
+    for i in range(LM_NEW - 1):
+        (logits, cache), s = sync_s(
+            lambda: bf16.decode_step(out[:, i:i + 1], cache))
+        step_ms.append(s * 1e3)
+    at = dict(cache, pos=LM_PROMPT)                # rewrites one row
+    prof = profile_steps(lambda i: bf16.decode_step(out[:, :1], at), 4,
+                         unit="step")
+
+    full = bf16.forward(batch)[:, -1].float()
+    pre, _ = bf16.prefill(batch, bf16.init_cache(LM_BATCH, t_max))
+    top2 = full.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs()))
+                     - BF16_MANTISSA)
+    gap = (pre.float() - full).abs().amax(-1)
+    resolved = margin > 2 * torch.maximum(ulp, gap)
+    first_ok = (out[:, 0] == greedy(full)) | ~resolved
+    weights_bytes = sum(p.numel() * p.element_size()
+                        for p in bf16.parameters())
+    decode_bound_ms = weights_bytes / PEAK_BYTES_PER_S * 1e3
+    rec = {"phase": "lm", "step": "a", "check": "generate", "card": card,
+           "arch": cfg.name, "dtype": cfg.dtype, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "generate_s": gen_s, "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_step_median": statistics.median(step_ms),
+           "decode_ms_per_step": step_ms,
+           "decode_bound_ms": decode_bound_ms,
+           "decode_bound_by": f"bytes: {weights_bytes} B of bf16 weights "
+                              "over 3.35 TB/s",
+           "decode_profile": prof,
+           "greedy_equal_fp32_share": float(
+               (out == out32).float().mean()),
+           "greedy_equal_fp32_by_step": (out == out32).float().mean(0)
+           .tolist(),
+           "first_token_margin": margin.tolist(),
+           "first_token_ulp": ulp.tolist(),
+           "first_token_prefill_forward_gap": gap.tolist(),
+           "first_token_resolved": resolved.tolist(),
+           "first_token_equal_forward_argmax": (
+               out[:, 0] == greedy(full)).tolist()}
+    if out.shape != (LM_BATCH, LM_NEW) or not bool(first_ok.all()):
+        raise AssertionError(f"bf16 generate: shape {tuple(out.shape)}, "
+                             f"first tokens {rec}")
+    return rec
+
+
+def knn_lm_loop(model, svc, user, store_tok, prompt) -> dict:
+    """examples/rag_serving.py's decode loop on the card: each step's
+    probe (the embedding row of the argmax token) goes to the keyless
+    service as one batch request, and the retrieved rows' next tokens
+    are blended into the logits.  -> ids (steps, B, k), tokens
+    (B, steps), probes (steps, B, d), and host ms a step of the user's
+    encryption, the service's answer and the LM's decode step."""
+    import torch
+    from repro_torch.api import SearchParams
+    from repro_torch.serving.engine import greedy
+    B = prompt.shape[0]
+    cache = model.init_cache(B, KNN_PROMPT + KNN_STEPS)
+    logits, cache = model.prefill({"tokens": prompt}, cache)
+    tok_dev = torch.as_tensor(store_tok, device="cuda", dtype=torch.long)
+    run = {"ids": [], "tokens": [], "probes": [], "user_ms": [],
+           "service_ms": [], "lm_ms": []}
+    for _ in range(KNN_STEPS):
+        t0 = time.perf_counter()
+        probe = model.embed["tokens"][greedy(logits)].float().cpu().numpy()
+        req = user.request("lm", "datastore", probe,
+                           SearchParams(k=KNN_K))
+        t1 = time.perf_counter()
+        nbr = svc.submit(req).ids                          # (B, k)
+        t2 = time.perf_counter()
+        knn_logits = torch.full(logits.shape, -1e30, device="cuda")
+        knn_logits.scatter_(1, tok_dev[torch.as_tensor(nbr, device="cuda")],
+                            0.0)
+        nxt = greedy((1 - KNN_LAM) * logits.float()
+                     + KNN_LAM * knn_logits).to(torch.int32)[:, None]
+        logits, cache = model.decode_step(nxt, cache)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        run["ids"].append(nbr)
+        run["tokens"].append(nxt[:, 0].cpu().numpy())
+        run["probes"].append(probe)
+        run["user_ms"].append((t1 - t0) * 1e3)
+        run["service_ms"].append((t2 - t1) * 1e3)
+        run["lm_ms"].append((t3 - t2) * 1e3)
+    return {k: (np.stack(v, 1) if k == "tokens" else
+                np.stack(v) if k in ("ids", "probes") else v)
+            for k, v in run.items()}
+
+
+def knn_lm(model, gen, card: str) -> tuple[dict, dict]:
+    """(b) The kNN-LM loop at full width through the port's API: a flat
+    collection of KNN_N encrypted d_model-wide rows in a keyless service,
+    decoded once through the kernels and once with them swapped for
+    their plain versions.  -> (record, launches)."""
+    import torch
+    from repro_torch.api import DataOwnerClient, IndexSpec, SecureAnnService
+    cfg = model.cfg
+    d = cfg.d_model
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    store_emb = rng.standard_normal((KNN_N, d), dtype=np.float32)
+    store_tok = rng.integers(0, cfg.vocab_size, KNN_N).astype(np.int32)
+    t_data = time.perf_counter() - t0
+    spec = IndexSpec(tenant="lm", name="datastore", d=d, backend="flat",
+                     sap_beta=1.0, seed=1)
+    t0 = time.perf_counter()
+    owner = DataOwnerClient(spec)              # keys stay with the owner
+    t_keygen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    C_sap, C_dce = owner.encrypt_vectors(store_emb)        # on the card
+    t_encrypt = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, KNN_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    with SecureAnnService() as svc:
+        svc.create_collection(spec)
+        t0 = time.perf_counter()
+        svc.insert("lm", "datastore", C_sap, C_dce)
+        t_insert = time.perf_counter() - t0
+        dce_bytes, sap_bytes = C_dce.nbytes, C_sap.nbytes
+        del C_sap, C_dce
+        t0 = time.perf_counter()
+        svc.warmup("lm", "datastore", k=KNN_K)
+        t_warmup = time.perf_counter() - t0
+        reset_launches()
+        run = knn_lm_loop(model, svc, owner.query_client(seed=9),
+                          store_tok, prompt)
+        launches = kernel_launches()
+        reset_launches()
+        with plain_kernels():
+            plain = knn_lm_loop(model, svc, owner.query_client(seed=9),
+                                store_tok, prompt)
+        plain_launches = sum(kernel_launches().values())
+    # plaintext exact kNN of the probes the kernel run sent
+    X = torch.as_tensor(store_emb, device="cuda")
+    P = torch.as_tensor(run["probes"].reshape(-1, d), device="cuda")
+    exact = torch.topk((X * X).sum(1)[None] - 2.0 * P @ X.T, KNN_K, dim=1,
+                       largest=False).indices.cpu().numpy()
+    hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in
+               zip(run["ids"].reshape(-1, KNN_K), exact))
+    del X, P
+    same_ids = run["ids"] == plain["ids"]                # (steps, B, k)
+    agree = float(same_ids.mean())
+    rows_same = same_ids.all(-1).T                       # (B, steps)
+    tokens_ok = bool((run["tokens"] == plain["tokens"])[rows_same].all())
+    k1, k2 = launches["l2_topk.knn"], launches["dce_comp.refine_topk"]
+    rec = {"phase": "lm", "step": "b", "path": "knn_lm", "card": card,
+           "arch": cfg.name, "dtype": cfg.dtype, "n": KNN_N, "d": d,
+           "D": 2 * (d + d % 2) + 16, "batch": LM_BATCH, "k": KNN_K,
+           "k_prime": KNN_K * RATIO_K, "lam": KNN_LAM, "steps": KNN_STEPS,
+           "dce_bytes": dce_bytes, "sap_bytes": sap_bytes,
+           "datastore_s": t_data, "keygen_s": t_keygen,
+           "encrypt_s": t_encrypt, "insert_s": t_insert,
+           "warmup_s": t_warmup,
+           "user_encrypt_ms_per_step": statistics.median(run["user_ms"]),
+           "retrieval_ms_per_step": statistics.median(run["service_ms"]),
+           "retrieval_ms_per_step_plain":
+               statistics.median(plain["service_ms"]),
+           "lm_decode_ms_per_step": statistics.median(run["lm_ms"]),
+           "recall@8_vs_plaintext": hits / (KNN_STEPS * LM_BATCH * KNN_K),
+           "id_agreement_plain": agree,
+           "tokens_equal_where_ids_equal": tokens_ok,
+           "launches": {"l2_topk.knn": k1, "dce_comp.refine_topk": k2},
+           "plain_run_launches": plain_launches}
+    if (agree < MIN_ID_AGREEMENT or not tokens_ok or k1 != KNN_STEPS
+            or k2 != KNN_STEPS or plain_launches):
+        raise AssertionError(f"kNN-LM: {rec}")
+    return rec, launches
+
+
+def lm_serve_main() -> tuple[dict, dict]:
+    """(d) The port's serve entry point on the card at the reference
+    CLI's defaults (smoke width, 5,000 encrypted vectors).  -> (record,
+    launches)."""
+    import io
+    from repro_torch.launch import serve
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(["--secure-ann"])
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log("  " + line)
+    recall = [float(line.split("recall@10=")[1].split()[0])
+              for line in lines if "recall@10=" in line]
+    rec = {"phase": "lm", "step": "d", "path": "lm_serve",
+           "argv": ["--secure-ann"], "tokens_shape": list(out.shape),
+           "tokens_device": out.device.type, "recall@10": recall,
+           "wall_s": wall, "launches": {
+               k: v for k, v in launches.items() if v}}
+    if (tuple(out.shape) != (4, 16) or out.device.type != "cuda"
+            or len(recall) != 1 or not launches["l2_topk.knn"]
+            or not launches["dce_comp.refine_topk"]):
+        raise AssertionError(f"serve --secure-ann: {rec}")
+    return rec, launches
+
+
+def lm_paths(card: str) -> dict:
+    """Phase 9: the LM server and its encrypted kNN-LM retrieval on the
+    card.  -> launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    t_start = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fp32, init_s = sync_s(lambda: Model(cfg, device="cuda",
+                                        dtype=torch.float32, seed=0))
+    log(json.dumps({"phase": "lm", "step": "init", "card": card,
+                    "arch": cfg.name,
+                    "layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                    "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                    "n_params": fp32.n_params(),
+                    "n_params_metas": fp32.n_meta_params(),
+                    "fp32_bytes": 4 * fp32.n_params(), "init_s": init_s}))
+    if fp32.n_params() != fp32.n_meta_params():
+        raise AssertionError("the model holds another count of "
+                             "parameters than its metas")
+    log(json.dumps(dict(lm_decode_check(fp32, LM_BATCH, LM_PROMPT,
+                                        LM_PROMPT + 1, gen), card=card)))
+    log(json.dumps(dict(lm_decode_check(fp32, 1, LONG_PROMPT, LONG_T_MAX,
+                                        gen), card=card)))
+    free_card()
+    bf16 = Model(cfg, device="cuda", dtype=torch.bfloat16, seed=None)
+    bf16.load_state_dict(fp32.state_dict())
+    log(json.dumps(lm_generate(fp32, bf16, gen, card)))
+    del fp32
+    free_card()
+    rec_b, on_knn = knn_lm(bf16, gen, card)
+    log(json.dumps(rec_b))
+    del bf16
+    free_card()
+    rec_d, on_serve = lm_serve_main()
+    log(json.dumps(dict(rec_d, card=card)))
+    free_card()
+    log(json.dumps({"phase": "lm_done", "card": card,
+                    "wall_s": time.perf_counter() - t_start}))
+    return {"knn_lm": on_knn, "lm_serve": on_serve}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -3241,7 +3608,13 @@ def main() -> int:
                    check_pq_adc(32, 16, 2 ** 14, 320, gen,
                                 home="sharded_pq8"),
                    check_graph_walk(2 ** 14, 16, 8, 8, 128, gen,
-                                    home="sharded_graph")]
+                                    home="sharded_graph"),
+                   # phase 9's kNN-LM shapes: B 4 probes of d_model
+                   # 2048 over 100,000 rows, k' = 8 k, D = 4112
+                   check_knn(LM_BATCH, KNN_N, 2048, KNN_K * RATIO_K, gen,
+                             home="knn_lm"),
+                   check_refine(LM_BATCH, KNN_K * RATIO_K, 2048, KNN_K,
+                                gen, "knn_lm")]
         for r in records:
             log(json.dumps(dict(r, card=card)))
         gc.collect()
@@ -3274,6 +3647,9 @@ def main() -> int:
         # phase 8 ---------------------------------------------------
         on_sharded, rec_sharded_graph = sharded_paths(corpus, graph)
 
+        # phase 9 ---------------------------------------------------
+        on_lm = lm_paths(card)
+
         # phase 4's pq8 engine, after the worker's codebook ------------
         phase4("adc_pq8", "pq8", "flat")
         del corpus
@@ -3288,7 +3664,7 @@ def main() -> int:
                         "recall@10_global_graph": graph["recall_global"]}))
 
     paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
-             **on_api, **on_sharded}
+             **on_api, **on_sharded, **on_lm}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.api import (DataOwnerClient, IndexSpec, SearchParams,
                              SearchRequest, SecureAnnService)
+from repro_torch.configs import get_config
 from repro_torch.core import dce, dcpe, ppanns, secure_knn
 from repro_torch.kernels import _build
 from repro_torch.kernels.adc_topk import adc_topk
@@ -26,12 +27,15 @@ from repro_torch.kernels.adc_topk import ref as adc_ref
 from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
+from repro_torch.launch import serve
+from repro_torch.models import Model
 from repro_torch.obs import profile_kernels
 from repro_torch.sec import capture_server_view, evaluate_profile
 from repro_torch.serving.runtime import (Collection, CollectionManager,
                                          DeltaAwareBackend,
                                          MutableEncryptedStore,
                                          jit_cache_size)
+from repro_torch.serving.engine import LMServer
 from repro_torch.serving.search_engine import SecureSearchEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,7 +65,11 @@ def test_port_imports_without_jax():
             "repro_torch.launch.mesh, repro_torch.resilience, "
             "repro_torch.ft, repro_torch.ft.runner, "
             "repro_torch.serving.sharded, repro_torch.serving.secure_scan, "
-            "repro_torch.serving.ann_server, repro_torch.api.mesh\n"
+            "repro_torch.serving.ann_server, repro_torch.api.mesh, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.configs.ppanns_datasets, repro_torch.sharding, "
+            "repro_torch.serving.engine, repro_torch.launch.serve, "
+            "repro_torch.core.ame, repro_torch.core.lsh\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -104,7 +112,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: dce.encrypt_torch(X, owner.keys.dce_key),
                  lambda: dcpe.encrypt_torch(X, owner.keys.sap_key),
                  lambda: secure_knn.refine_tournament(
-                     C_dce, np.arange(4), np.ones(C_dce.shape[-1]), 2)):
+                     C_dce, np.arange(4), np.ones(C_dce.shape[-1]), 2),
+                 lambda: Model(get_config("qwen3-1.7b").smoke()),
+                 lambda: serve.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -753,6 +763,29 @@ def test_sharded_runtime_on_the_card_equals_the_host(kind, quant):
     assert not ((card[1] >= per) & (card[1] < 2 * per)).any()
     assert card[3] == (4 if (kind, quant) != ("ivf", None) else 0)
     assert card[4] == 0
+
+
+@pytest.mark.cuda
+def test_lm_on_the_card_equals_the_host():
+    """The smoke qwen3 in float32 on the card and on the host with the
+    same weights: logits within 1e-4 (cuBLAS and the host's BLAS sum in
+    other orders; logits are O(1)), equal greedy tokens, and the card by
+    default."""
+    _needs_card()
+    cfg = get_config("qwen3-1.7b").smoke()
+    card = Model(cfg, seed=3)
+    host = Model(cfg, device="cpu", seed=None)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    assert card.device.type == "cuda"
+    toks = torch.randint(0, cfg.vocab_size, (3, 20),
+                         generator=torch.Generator().manual_seed(0))
+    got = card.forward({"tokens": toks.cuda()}).cpu()
+    want = host.forward({"tokens": toks})
+    assert torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+    out = LMServer(card).generate({"tokens": toks.cuda()}, 6)
+    assert out.is_cuda and out.dtype == torch.int32
+    assert torch.equal(out.cpu(), LMServer(host).generate({"tokens": toks},
+                                                          6))
 
 
 @pytest.mark.cuda
