@@ -204,10 +204,31 @@ Phases, each of which fails the run (non-zero exit, no final line):
        step (none in the plain run), recall@8 against plaintext exact
        kNN of the probes;
    (d) `repro_torch.launch.serve.main(["--secure-ann"])` on the card at
-       the reference CLI's defaults: (4, 16) tokens, its recall logged.
+       the reference CLI's defaults: (4, 16) tokens, its recall logged;
+   (e) the other families, each model's tensors freed before the next
+       and `torch.cuda.mem_get_info()` logged before each: mamba2-370m
+       (48 layers), zamba2-1.2b (38) and whisper-small (12 + 12) at full
+       width and depth, grok-1-314b (1 of 64 layers) and kimi-k2-1t-a32b
+       (1 of 61) at full width.  In fp32, (a)'s check at B 4 / prompt 32
+       (grok at capacity factor 8.0, as tests/test_arch_smoke.py; kimi at
+       its smoke width: a full-width fp32 layer, 77.5 GB, does not fit);
+       for mamba2 and zamba2 also at B 1 in two parts (a prompt above the
+       SSD chunk of 128 must be a multiple of it, so S and S - 1 cannot
+       both be): a 4,096-token prefill against forward's last position,
+       then 128 decode steps against forward over all 4,224 tokens,
+       position by position, within 2e-2 (zamba2 in a 4,608-row cache,
+       so the shared block's prefill takes attention's chunked branch).
+       In bf16, (a)'s `generate`, its bound from the bytes a decode step
+       moves (the weights the decoder reads, every expert's included, as
+       the MoE block reads them all; the KV rows, the cross K/V, the f32
+       SSM state read and written); for grok and kimi n_active_params
+       beside n_params and the active-weight bound beside it.  Then
+       `serve.main(["--arch", a, "--secure-ann"])` for each of the five:
+       (4, 16) tokens and its recall.
    Phase 2 holds K1 and K2 at (b)'s shapes (nq 4, n 100,000, d 2048,
    k' 64; B 4, n 64, D 4112).  One `lm` line per check; the launches
-   join the `kernels` line as `launches_by_path` knn_lm and lm_serve.
+   join the `kernels` line as `launches_by_path` knn_lm and lm_serve
+   (the serve runs of (d) and (e)).
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -218,6 +239,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import multiprocessing
@@ -3202,6 +3224,16 @@ BF16_MANTISSA = 7               # bfloat16's stored significand bits
 # the kNN-LM loop of examples/rag_serving.py at full width: the
 # datastore's rows are d_model wide
 KNN_N, KNN_K, KNN_LAM, KNN_STEPS, KNN_PROMPT = 100_000, 8, 0.3, 8, 16
+# (e) the other families: (arch, layers built (None: all), the fp32
+# check's width)
+FAMILY_ARCHS = (("mamba2-370m", None, "full"),
+                ("zamba2-1.2b", None, "full"),
+                ("whisper-small", None, "full"),
+                ("grok-1-314b", 1, "full"),
+                ("kimi-k2-1t-a32b", 1, "smoke"))
+MOE_CHECK_CF = 8.0              # tests/test_arch_smoke.py: no drops
+SSM_LONG_PROMPT, SSM_LONG_STEPS = 4_096, 128   # 32 SSD chunks, then 33
+HYBRID_LONG_T_MAX = 4_608       # > 2048, a multiple of 512: chunked prefill
 
 
 def sync_s(fn):
@@ -3214,35 +3246,73 @@ def sync_s(fn):
     return out, time.perf_counter() - t0
 
 
+def lm_batch(cfg, B: int, S: int, gen) -> dict:
+    """A random batch on the card: B x S token ids, and for encdec the
+    stub frame embeddings `enc_input` (B, enc_seq_len, d_model)."""
+    import torch
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["enc_input"] = torch.randn(
+            (B, cfg.enc_seq_len, cfg.d_model), generator=gen,
+            device="cuda")
+    return batch
+
+
+def logit_check(got, want) -> tuple[dict, bool]:
+    """got against want (..., V) within rtol = atol = DECODE_TOL: the
+    largest error, its excess over the tolerance, argmax agreement."""
+    import torch
+    want = want.float()
+    err = (got.float() - want).abs()
+    excess = float((err - DECODE_TOL * (1 + want.abs())).max())
+    same = got.argmax(-1) == want.argmax(-1)
+    return ({"max_abs_err": float(err.max()),
+             "max_excess_over_tolerance": excess,
+             "argmax_equal": bool(same.all()),
+             "argmax_equal_share": float(same.float().mean())},
+            excess <= 0 and bool(torch.isfinite(got).all()))
+
+
+@contextlib.contextmanager
+def capacity_factor(model, cf):
+    """The model's MoE capacity factor set to cf (None: unchanged) for a
+    while; the MoE block reads it from the config at each call."""
+    cfg = model.cfg
+    if cf is not None:
+        model.cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
 def lm_decode_check(model, B: int, S: int, t_max: int, gen) -> dict:
     """decode_step(prefill(prompt)) against forward(prompt + token), the
     reference test's check (rtol = atol = 2e-2) at full width: the
     prefill's logits against forward's at the prompt's last position,
     the decode step's against forward's at the token's."""
-    import torch
     from repro_torch.models import layers as L
     cfg = model.cfg
-    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    full, forward_s = sync_s(lambda: model.forward({"tokens": tokens}))
+    batch = lm_batch(cfg, B, S + 1, gen)
+    tokens = batch["tokens"]
+    full, forward_s = sync_s(lambda: model.forward(batch))
     cache = model.init_cache(B, t_max)
     (pre, cache), prefill_s = sync_s(
-        lambda: model.prefill({"tokens": tokens[:, :-1]}, cache))
+        lambda: model.prefill(dict(batch, tokens=tokens[:, :-1]), cache))
     (dec, cache), decode_s = sync_s(
         lambda: model.decode_step(tokens[:, -1:], cache))
     checks, ok = {}, True
     for name, got, want in (("prefill", pre, full[:, -2]),
                             ("decode", dec, full[:, -1])):
-        want = want.float()
-        err = (got.float() - want).abs()
-        excess = float((err - DECODE_TOL * (1 + want.abs())).max())
-        checks[name] = {"max_abs_err": float(err.max()),
-                        "max_excess_over_tolerance": excess,
-                        "argmax_equal": bool(torch.equal(
-                            got.argmax(-1), want.argmax(-1)))}
-        ok &= excess <= 0 and bool(torch.isfinite(got).all())
+        checks[name], good = logit_check(got, want)
+        ok &= good
     rec = {"phase": "lm", "step": "a", "check": "prefill_decode_vs_forward",
-           "arch": cfg.name, "dtype": cfg.dtype, "batch": B, "prompt": S,
+           "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "batch": B, "prompt": S,
+           "moe_capacity_factor": (cfg.moe_capacity_factor
+                                   if cfg.family == "moe" else None),
            "t_max": t_max, "rtol": DECODE_TOL, "atol": DECODE_TOL,
            "prefill_chunked_attention": (
                S > 1 and t_max > L.FLASH_THRESHOLD
@@ -3256,24 +3326,49 @@ def lm_decode_check(model, B: int, S: int, t_max: int, gen) -> dict:
     return rec
 
 
+def decode_step_bytes(model, cache) -> dict:
+    """Bytes one decode step at the cache's pos must move: the weights
+    the decoder reads (all but the encoder's; every expert's, as the MoE
+    block reads them all), the KV rows [0, pos] of each self-attention
+    cache, the cross K/V whole, and the conv and float32 SSM states read
+    and written."""
+    pos = int(cache["pos"])
+    out = {"weights": sum(p.numel() * p.element_size()
+                          for n, p in model.named_parameters()
+                          if not n.startswith("encoder.")),
+           "kv_rows": 0, "cross_kv": 0, "ssm_state_read_written": 0}
+    for name, t in cache.items():
+        if name == "pos":
+            continue
+        nbytes = t.numel() * t.element_size()
+        if name in ("k", "v", "ak", "av"):
+            out["kv_rows"] += nbytes * (pos + 1) // t.shape[2]
+        elif name in ("xk", "xv"):
+            out["cross_kv"] += nbytes
+        else:                                       # conv, state
+            out["ssm_state_read_written"] += 2 * nbytes
+    out["total"] = sum(out.values())
+    return out
+
+
 def lm_generate(fp32, bf16, gen, card: str) -> dict:
     """`LMServer.generate` in bf16 at the reference CLI's batch, prompt
     and new tokens: times, greedy agreement with the fp32 model's
-    tokens, and the first token against bf16 forward's argmax wherever
-    the top-2 margin is resolved (above two bf16 ulps of the top logit
-    and twice the largest gap between the prefill's and forward's
-    logits, the two bf16 computations of the same function)."""
+    tokens (fp32=None: none to compare), and the first token against
+    bf16 forward's argmax wherever the top-2 margin is resolved (above
+    two bf16 ulps of the top logit and twice the largest gap between the
+    prefill's and forward's logits, the two bf16 computations of the
+    same function)."""
     import torch
     from repro_torch.serving import LMServer
     from repro_torch.serving.engine import greedy
     cfg = bf16.cfg
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (LM_BATCH, LM_PROMPT), generator=gen,
-                                     device="cuda", dtype=torch.int32)}
+    batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, gen)
     server = LMServer(bf16)
     server.generate(batch, 2)                      # warm-up
     out, gen_s = sync_s(lambda: server.generate(batch, LM_NEW))
-    out32 = LMServer(fp32).generate(batch, LM_NEW)
+    out32 = (None if fp32 is None
+             else LMServer(fp32).generate(batch, LM_NEW))
     t_max = LM_PROMPT + LM_NEW
     prefill_ms = host_ms(lambda: bf16.prefill(
         batch, bf16.init_cache(LM_BATCH, t_max)))
@@ -3285,6 +3380,7 @@ def lm_generate(fp32, bf16, gen, card: str) -> dict:
             lambda: bf16.decode_step(out[:, i:i + 1], cache))
         step_ms.append(s * 1e3)
     at = dict(cache, pos=LM_PROMPT)                # rewrites one row
+    step_bytes = decode_step_bytes(bf16, at)
     prof = profile_steps(lambda i: bf16.decode_step(out[:, :1], at), 4,
                          unit="step")
 
@@ -3297,33 +3393,93 @@ def lm_generate(fp32, bf16, gen, card: str) -> dict:
     gap = (pre.float() - full).abs().amax(-1)
     resolved = margin > 2 * torch.maximum(ulp, gap)
     first_ok = (out[:, 0] == greedy(full)) | ~resolved
-    weights_bytes = sum(p.numel() * p.element_size()
-                        for p in bf16.parameters())
-    decode_bound_ms = weights_bytes / PEAK_BYTES_PER_S * 1e3
+    same32 = None if out32 is None else (out == out32).float()
     rec = {"phase": "lm", "step": "a", "check": "generate", "card": card,
-           "arch": cfg.name, "dtype": cfg.dtype, "batch": LM_BATCH,
+           "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": LM_BATCH,
            "prompt": LM_PROMPT, "new_tokens": LM_NEW,
            "generate_s": gen_s, "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
            "prefill_ms": prefill_ms,
            "decode_ms_per_step_median": statistics.median(step_ms),
            "decode_ms_per_step": step_ms,
-           "decode_bound_ms": decode_bound_ms,
-           "decode_bound_by": f"bytes: {weights_bytes} B of bf16 weights "
-                              "over 3.35 TB/s",
+           "decode_bound_ms": step_bytes["total"] / PEAK_BYTES_PER_S * 1e3,
+           "decode_bound_by": "bytes over 3.35 TB/s",
+           "decode_step_bytes": step_bytes,
            "decode_profile": prof,
-           "greedy_equal_fp32_share": float(
-               (out == out32).float().mean()),
-           "greedy_equal_fp32_by_step": (out == out32).float().mean(0)
-           .tolist(),
+           "greedy_equal_fp32_share": (None if same32 is None
+                                       else float(same32.mean())),
+           "greedy_equal_fp32_by_step": (None if same32 is None
+                                         else same32.mean(0).tolist()),
            "first_token_margin": margin.tolist(),
            "first_token_ulp": ulp.tolist(),
            "first_token_prefill_forward_gap": gap.tolist(),
            "first_token_resolved": resolved.tolist(),
            "first_token_equal_forward_argmax": (
                out[:, 0] == greedy(full)).tolist()}
+    if cfg.family == "moe":
+        # what a token's top-k experts alone would read: the bound of a
+        # dispatch that skips the experts no token was routed to
+        active = bf16.n_active_params() * bf16.embed["tokens"].element_size()
+        rec |= {"n_params": bf16.n_params(),
+                "n_active_params": bf16.n_active_params(),
+                "moe_capacity_factor": cfg.moe_capacity_factor,
+                "active_weight_bytes": active,
+                "decode_bound_active_ms": (
+                    step_bytes["total"] - step_bytes["weights"] + active)
+                / PEAK_BYTES_PER_S * 1e3}
     if out.shape != (LM_BATCH, LM_NEW) or not bool(first_ok.all()):
         raise AssertionError(f"bf16 generate: shape {tuple(out.shape)}, "
                              f"first tokens {rec}")
+    return rec
+
+
+def lm_long_check(model, gen, t_max: int) -> dict:
+    """The long_500k families at B 1, in two parts: prefill
+    SSM_LONG_PROMPT tokens against forward over them at the last
+    position, then SSM_LONG_STEPS decode steps against forward over all
+    the tokens, position by position, within rtol = atol = DECODE_TOL."""
+    import torch
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    P, N = SSM_LONG_PROMPT, SSM_LONG_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (1, P + N), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    want_pre, forward_prompt_s = sync_s(
+        lambda: model.forward({"tokens": tokens[:, :P]})[:, -1])
+    cache = model.init_cache(1, t_max)
+    (pre, cache), prefill_s = sync_s(
+        lambda: model.prefill({"tokens": tokens[:, :P]}, cache))
+    full, forward_s = sync_s(
+        lambda: model.forward({"tokens": tokens})[:, P:])
+    dec, step_s = [], []
+    for i in range(N):
+        (logits, cache), s = sync_s(
+            lambda: model.decode_step(tokens[:, P + i:P + i + 1], cache))
+        dec.append(logits)
+        step_s.append(s)
+    dec = torch.stack(dec, 1)                               # (1, N, V)
+    checks = {}
+    checks["prefill"], ok_pre = logit_check(pre, want_pre)
+    checks["decode"], ok_dec = logit_check(dec, full)
+    err_by_pos = (dec.float() - full.float()).abs().amax(-1)[0]
+    checks["decode"]["max_abs_err_last_step"] = float(err_by_pos[-1])
+    rec = {"phase": "lm", "step": "e", "check": "long_prefill_decode_vs_"
+           "forward", "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.dtype, "batch": 1, "prompt": P, "decode_steps": N,
+           "t_max": t_max, "ssd_chunks_prefill": P // 128,
+           "ssd_chunks_forward": (P + N) // 128,
+           "rtol": DECODE_TOL, "atol": DECODE_TOL,
+           "prefill_chunked_attention": (
+               cfg.family == "hybrid" and t_max > L.FLASH_THRESHOLD
+               and t_max % L.FLASH_KV_CHUNK == 0),
+           "forward_prompt_s": forward_prompt_s, "prefill_s": prefill_s,
+           "forward_s": forward_s,
+           "decode_ms_per_step_median": statistics.median(step_s) * 1e3,
+           **checks}
+    del want_pre, pre, full, dec, cache
+    if not (ok_pre and ok_dec):
+        raise AssertionError(f"long prefill/decode differ from forward: "
+                             f"{checks}")
     return rec
 
 
@@ -3450,17 +3606,18 @@ def knn_lm(model, gen, card: str) -> tuple[dict, dict]:
     return rec, launches
 
 
-def lm_serve_main() -> tuple[dict, dict]:
+def lm_serve_main(argv=("--secure-ann",)) -> tuple[dict, dict]:
     """(d) The port's serve entry point on the card at the reference
-    CLI's defaults (smoke width, 5,000 encrypted vectors).  -> (record,
-    launches)."""
+    CLI's defaults (smoke width, 5,000 encrypted vectors); (e) the same
+    with `--arch`.  -> (record, launches)."""
     import io
     from repro_torch.launch import serve
+    argv = list(argv)
     reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        out = serve.main(["--secure-ann"])
+        out = serve.main(argv)
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     lines = buf.getvalue().splitlines()
@@ -3468,8 +3625,8 @@ def lm_serve_main() -> tuple[dict, dict]:
         log("  " + line)
     recall = [float(line.split("recall@10=")[1].split()[0])
               for line in lines if "recall@10=" in line]
-    rec = {"phase": "lm", "step": "d", "path": "lm_serve",
-           "argv": ["--secure-ann"], "tokens_shape": list(out.shape),
+    rec = {"phase": "lm", "step": "e" if "--arch" in argv else "d",
+           "path": "lm_serve", "argv": argv, "tokens_shape": list(out.shape),
            "tokens_device": out.device.type, "recall@10": recall,
            "wall_s": wall, "launches": {
                k: v for k, v in launches.items() if v}}
@@ -3478,6 +3635,86 @@ def lm_serve_main() -> tuple[dict, dict]:
             or not launches["dce_comp.refine_topk"]):
         raise AssertionError(f"serve --secure-ann: {rec}")
     return rec, launches
+
+
+def log_card_memory(what: str) -> None:
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    log(json.dumps({"phase": "lm", "step": "e", "memory_before": what,
+                    "free_bytes": free, "total_bytes": total,
+                    "allocated_bytes": torch.cuda.memory_allocated()}))
+
+
+def family_paths(card: str) -> dict:
+    """Phase 9 (e): the ssm, hybrid, encdec and moe families on the card,
+    one model at a time.  -> launches of the serve runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for arch, n_layers, fp32_width in FAMILY_ARCHS:
+        full_cfg = get_config(arch)
+        cfg = dataclasses.replace(full_cfg,
+                                  n_layers=n_layers or full_cfg.n_layers)
+        moe = cfg.family == "moe"
+        log_card_memory(f"{arch} fp32 ({fp32_width} width)")
+        fp32, init_s = sync_s(lambda: Model(
+            cfg if fp32_width == "full" else cfg.smoke(), device="cuda",
+            dtype=torch.float32, seed=0))
+        log(json.dumps({
+            "phase": "lm", "step": "e", "init": "fp32", "card": card,
+            "arch": arch, "width": fp32_width,
+            "layers": fp32.cfg.n_layers, "layers_of": full_cfg.n_layers,
+            "enc_layers": fp32.cfg.n_enc_layers,
+            "d_model": fp32.cfg.d_model, "vocab": fp32.cfg.vocab_size,
+            "n_params": fp32.n_params(),
+            "n_params_metas": fp32.n_meta_params(),
+            "n_active_params": fp32.n_active_params(),
+            "fp32_bytes": 4 * fp32.n_params(), "init_s": init_s}))
+        if fp32.n_params() != fp32.n_meta_params():
+            raise AssertionError(f"{arch}: the model holds another count "
+                                 "of parameters than its metas")
+        with capacity_factor(fp32, MOE_CHECK_CF if moe else None):
+            rec = lm_decode_check(fp32, LM_BATCH, LM_PROMPT,
+                                  LM_PROMPT + 1, gen)
+        log(json.dumps(dict(rec, step="e", card=card)))
+        if cfg.family in ("ssm", "hybrid"):
+            t_max = (HYBRID_LONG_T_MAX if cfg.family == "hybrid"
+                     else SSM_LONG_PROMPT + SSM_LONG_STEPS)
+            log(json.dumps(dict(lm_long_check(fp32, gen, t_max),
+                                card=card)))
+        free_card()
+        if fp32_width == "full":
+            bf16 = Model(cfg, device="cuda", dtype=torch.bfloat16,
+                         seed=None)
+            bf16.load_state_dict(fp32.state_dict())
+        else:
+            del fp32
+            fp32 = None
+            free_card()
+            log_card_memory(f"{arch} bf16")
+            bf16, init_s = sync_s(lambda: Model(
+                cfg, device="cuda", dtype=torch.bfloat16, seed=0))
+            log(json.dumps({
+                "phase": "lm", "step": "e", "init": "bf16", "card": card,
+                "arch": arch, "layers": cfg.n_layers,
+                "layers_of": full_cfg.n_layers, "n_params": bf16.n_params(),
+                "n_active_params": bf16.n_active_params(),
+                "bf16_bytes": 2 * bf16.n_params(), "init_s": init_s}))
+        log(json.dumps(dict(lm_generate(fp32, bf16, gen, card), step="e")))
+        del fp32, bf16
+        free_card()
+    on_serve: dict = {}
+    for arch, _, _ in FAMILY_ARCHS:
+        rec, launches = lm_serve_main(["--arch", arch, "--secure-ann"])
+        log(json.dumps(dict(rec, card=card)))
+        for k, v in launches.items():
+            on_serve[k] = on_serve.get(k, 0) + v
+        free_card()
+    log(json.dumps({"phase": "lm_families_done", "card": card,
+                    "wall_s": time.perf_counter() - t_start}))
+    return on_serve
 
 
 def lm_paths(card: str) -> dict:
@@ -3519,9 +3756,11 @@ def lm_paths(card: str) -> dict:
     rec_d, on_serve = lm_serve_main()
     log(json.dumps(dict(rec_d, card=card)))
     free_card()
+    on_families = family_paths(card)
     log(json.dumps({"phase": "lm_done", "card": card,
                     "wall_s": time.perf_counter() - t_start}))
-    return {"knn_lm": on_knn, "lm_serve": on_serve}
+    return {"knn_lm": on_knn, "lm_serve": {
+        k: on_serve[k] + on_families.get(k, 0) for k in on_serve}}
 
 
 def main() -> int:

@@ -67,6 +67,10 @@ def main(argv=None):
         batch["vision"] = torch.randn(
             (args.batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
             device=model.device)
+    if cfg.family == "encdec":
+        batch["enc_input"] = torch.randn(
+            (args.batch, cfg.enc_seq_len, cfg.d_model), generator=gen,
+            device=model.device)
 
     t0 = time.time()
     out = server.generate(batch, args.new_tokens)

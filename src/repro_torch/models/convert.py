@@ -2,13 +2,15 @@
 
 The reference holds a nested dict whose layer weights carry a leading L
 axis (`repro.models.transformer.param_metas`); the port holds one
-`DenseLayer` a layer.  `params_from_numpy` takes that tree as numpy
-arrays (`jax.tree.map(np.asarray, params)`) and returns the port's
-`state_dict`: the L axis split into `layers.<i>.`, every other leaf at
-its dotted path.  The fused 2-D projections keep their orientation
-((d_model, heads*d_head) and back: `x @ w` in both packages), so no
-weight is transposed.  `params_to_numpy` is the inverse; the round trip
-is bit for bit, bfloat16 included (numpy's bfloat16 is ml_dtypes').
+`Layer` a layer.  `params_from_numpy` takes that tree as numpy arrays
+(`jax.tree.map(np.asarray, params)`) and returns the port's
+`state_dict`: the L axis split into `layers.<i>.` (n_layers) and
+`encoder.layers.<i>.` (n_enc_layers), every other leaf (`shared.*`,
+`encoder.final_norm.*`, ...) at its dotted path.  The fused 2-D
+projections keep their orientation ((d_model, heads*d_head) and back:
+`x @ w` in both packages), so no weight is transposed.
+`params_to_numpy` is the inverse; the round trip is bit for bit,
+bfloat16 included (numpy's bfloat16 is ml_dtypes').
 """
 
 from __future__ import annotations
@@ -45,6 +47,16 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{name}", v
 
 
+def _stack_of(cfg: ModelConfig, path: str):
+    """(prefix, depth) of the stacked layers a leaf belongs to, or
+    None for an unstacked leaf."""
+    for prefix, depth in (("encoder.layers.", cfg.n_enc_layers),
+                          ("layers.", cfg.n_layers)):
+        if path.startswith(prefix):
+            return prefix, depth
+    return None
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     """The reference's parameter tree (numpy leaves) -> the port's
     `state_dict` for `Model(cfg)`.  Every leaf's shape is checked
@@ -61,10 +73,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
         if a.shape != metas[path].shape:
             raise ValueError(f"{path}: shape {a.shape}, metas say "
                              f"{metas[path].shape}")
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = _to_torch(a[i])
+        stack = _stack_of(cfg, path)
+        if stack is not None:
+            prefix, depth = stack
+            rest = path[len(prefix):]
+            for i in range(depth):
+                out[f"{prefix}{i}.{rest}"] = _to_torch(a[i])
         else:
             out[path] = _to_torch(a)
     return out
@@ -77,10 +91,12 @@ def params_to_numpy(model) -> dict:
     sd = model.state_dict()
     tree: dict = {}
     for path, _ in _leaves(param_metas(cfg)):
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            a = np.stack([_to_numpy(sd[f"layers.{i}.{rest}"])
-                          for i in range(cfg.n_layers)])
+        stack = _stack_of(cfg, path)
+        if stack is not None:
+            prefix, depth = stack
+            rest = path[len(prefix):]
+            a = np.stack([_to_numpy(sd[f"{prefix}{i}.{rest}"])
+                          for i in range(depth)])
         else:
             a = _to_numpy(sd[path])
         node = tree

@@ -1,5 +1,5 @@
-"""Transformer building blocks of the dense and VLM families, the
-counterpart of `repro.models.layers` in plain torch ops.
+"""Transformer building blocks of every family, the counterpart of
+`repro.models.layers` in plain torch ops.
 
 Conventions (those of the reference):
   * Parameters are read by name from a mapping (`params["wq"]`,
@@ -12,8 +12,7 @@ Conventions (those of the reference):
   * Masked attention logits are -1e30, as in the reference.
 
 On one card nothing is placed: the reference's `constrain` is the
-identity without a mesh, so the port calls none.  Cross-attention
-(whisper) belongs to the encdec family, which is not ported yet.
+identity without a mesh, so the port calls none.
 """
 
 from __future__ import annotations
@@ -165,40 +164,51 @@ def attn_core(q, k, v, *, q_positions, kv_valid_len=None, causal=True,
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
-def attention(x, params, cfg: ModelConfig, *, q_positions, cache=None,
-              prefix_len=0):
-    """Causal self-attention block body with rope (no residual / pre-norm
-    — caller owns); `prefix_len` rows attend bidirectionally.
+def attention(x, params, cfg: ModelConfig, *, q_positions, x_kv=None,
+              cache=None, causal=True, prefix_len=0, use_rope=True):
+    """Attention block body (no residual / pre-norm — caller owns).
 
-    cache: None, or {"k", "v": (B, T_max, K, dh), "pos": int} — the new
-    K/V rows are written in place at [pos, pos + S), which the caller
-    has checked lies inside T_max.  Returns (out (B,S,D), {"k","v"} or
-    None).
+    x_kv: the cross-attention source (whisper's encoder output), or None
+      for self-attention.  Rope applies only when `use_rope` and x_kv is
+      None.
+    cache: None; {"k", "v": (B, T_max, K, dh), "pos": int} — the new K/V
+      rows are written in place at [pos, pos + S), which the caller has
+      checked lies inside T_max; or {"xk", "xv": (B, Se, K, dh)} — the
+      precomputed cross K/V, read and never written (x_kv may then be
+      None).  `prefix_len` rows attend bidirectionally.
+    Returns (out (B,S,D), {"k","v"} or None).
     """
     B, S, _ = x.shape
     H, dh, K = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
 
-    def proj(w, b, n):
-        y = x @ w.to(x.dtype)
+    def proj(src, w, b, n):
+        y = src @ w.to(src.dtype)
         if b is not None:
-            y = y + b.to(x.dtype)
-        return y.reshape(B, S, n, dh)
+            y = y + b.to(src.dtype)
+        return y.reshape(src.shape[0], src.shape[1], n, dh)
 
-    q = proj(params["wq"], params.get("bq"), H)
-    k = proj(params["wk"], params.get("bk"), K)
-    v = proj(params["wv"], params.get("bv"), K)
+    q = proj(x, params["wq"], params.get("bq"), H)
+    if cache is not None and "xk" in cache:
+        k, v = cache["xk"], cache["xv"]
+    else:
+        src = x if x_kv is None else x_kv
+        k = proj(src, params["wk"], params.get("bk"), K)
+        v = proj(src, params["wv"], params.get("bv"), K)
 
     if cfg.qk_norm:  # qwen3: per-head RMSNorm before rope
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
 
-    # new K rows share the query positions (contiguous decode/prefill)
-    q = rope(q, q_positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-    k = rope(k, q_positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    if use_rope and x_kv is None:
+        # new K rows share the query positions (contiguous decode/prefill)
+        q = rope(q, q_positions, fraction=cfg.rope_fraction,
+                 theta=cfg.rope_theta)
+        k = rope(k, q_positions, fraction=cfg.rope_fraction,
+                 theta=cfg.rope_theta)
 
     kv_valid = None
     new_cache = None
-    if cache is not None:
+    if cache is not None and "k" in cache:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
         ck[:, pos:pos + S] = k.to(ck.dtype)
@@ -209,7 +219,7 @@ def attention(x, params, cfg: ModelConfig, *, q_positions, cache=None,
         new_cache = {"k": ck, "v": cv}
 
     out = attn_core(q, k, v, q_positions=q_positions, kv_valid_len=kv_valid,
-                    causal=True, prefix_len=prefix_len)
+                    causal=causal, prefix_len=prefix_len)
     out = out.reshape(B, S, H * dh)
     y = out @ params["wo"].to(out.dtype)
     if params.get("bo") is not None:

@@ -22,7 +22,8 @@ from ..sharding.rules import ParamMeta
 from . import transformer as T
 from .config import ModelConfig, ShapeConfig
 
-__all__ = ["Model", "batch_metas", "concrete_batch", "cache_metas"]
+__all__ = ["Model", "batch_metas", "concrete_batch", "cache_metas",
+           "n_active_params"]
 
 
 # ------------------------------------------------------------ batch metas
@@ -69,21 +70,69 @@ def concrete_batch(cfg: ModelConfig, sc: ShapeConfig,
 
 # ------------------------------------------------------------ cache metas
 
-def cache_metas(cfg: ModelConfig, B: int, T_max: int) -> dict:
-    """The dense KV cache: k, v (L, B, T_max, K, dh) and the write
-    position."""
-    T.check_family(cfg)
+def cache_metas(cfg: ModelConfig, B: int, T_max: int,
+                enc_len: int | None = None) -> dict:
+    """Every family's cache: k, v (L, B, T_max, K, dh) for the decoder
+    families and encdec; xk, xv (L, B, Se, K, dh) for encdec's cross
+    attention (Se = enc_len or cfg.enc_seq_len); conv (L, B, kw-1, Cd)
+    and the float32 state (L, B, H, P, N) for ssm and hybrid; ak, av
+    (slots, B, T_max, K, dh) for hybrid, one slot a shared-block call;
+    and the write position."""
+    dt = cfg.dtype
     K, dh, Ls = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     kv_axes = (None, "cache_batch", "cache_seq", None, None)
-    return {"pos": ParamMeta((), (), "int32"),
-            "k": ParamMeta((Ls, B, T_max, K, dh), kv_axes, cfg.dtype),
-            "v": ParamMeta((Ls, B, T_max, K, dh), kv_axes, cfg.dtype)}
+    out: dict[str, Any] = {"pos": ParamMeta((), (), "int32")}
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
+        out["k"] = ParamMeta((Ls, B, T_max, K, dh), kv_axes, dt)
+        out["v"] = ParamMeta((Ls, B, T_max, K, dh), kv_axes, dt)
+    if cfg.family == "encdec":
+        Se = enc_len or cfg.enc_seq_len
+        xa = (None, "cache_batch", None, None, None)
+        out["xk"] = ParamMeta((Ls, B, Se, K, dh), xa, dt)
+        out["xv"] = ParamMeta((Ls, B, Se, K, dh), xa, dt)
+    if cfg.family in ("ssm", "hybrid"):
+        conv_d = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        out["conv"] = ParamMeta((Ls, B, cfg.ssm_conv - 1, conv_d),
+                                (None, "cache_batch", None, "conv_dim"), dt)
+        out["state"] = ParamMeta(
+            (Ls, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            (None, "cache_batch", "state_heads", None, None), "float32")
+    if cfg.family == "hybrid":
+        every = max(cfg.attn_every, 1)
+        n_slots = sum(i % every == 0 for i in range(Ls))
+        out["ak"] = ParamMeta((n_slots, B, T_max, K, dh), kv_axes, dt)
+        out["av"] = ParamMeta((n_slots, B, T_max, K, dh), kv_axes, dt)
+    return out
+
+
+# ------------------------------------------------------------ param counts
+
+def _meta_leaves(tree: dict, path: tuple = ()):
+    for name, v in tree.items():
+        if isinstance(v, ParamMeta):
+            yield path + (name,), v
+        else:
+            yield from _meta_leaves(v, path + (name,))
+
+
+def n_active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token, from the metas alone (no weight is
+    allocated): for moe the expert stacks count k of their E experts;
+    every other family touches all of its parameters."""
+    total = 0
+    for path, m in _meta_leaves(T.param_metas(cfg)):
+        size = math.prod(m.shape)
+        if (cfg.family == "moe" and "mlp" in path and len(m.shape) == 4
+                and path[-1] in ("wg", "wu", "wo")):
+            size = size * cfg.experts_per_token // cfg.n_experts
+        total += size
+    return total
 
 
 # ------------------------------------------------------------------ model
 
 class Model(nn.Module):
-    """A decoder LM of the dense or VLM family on one device.
+    """An LM of any family on one device.
 
     `device=None` means the card (`resolve_device`); `dtype` (a torch
     dtype or its name) overrides `cfg.dtype`, which sets the weights',
@@ -121,23 +170,26 @@ class Model(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def n_meta_params(self) -> int:
-        def count(tree: Any) -> int:
-            if isinstance(tree, ParamMeta):
-                return math.prod(tree.shape)
-            return sum(count(v) for v in tree.values())
-        return count(self.param_metas())
+        return sum(math.prod(m.shape)
+                   for _, m in _meta_leaves(self.param_metas()))
+
+    def n_active_params(self) -> int:
+        """MoE: parameters touched per token (top-k of E experts)."""
+        return n_active_params(self.cfg)
 
     # compute
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
         return T.forward(self, batch, self.cfg)
 
-    def init_cache(self, B: int, T_max: int) -> dict:
-        metas = cache_metas(self.cfg, B, T_max)
-        return {"pos": 0,
-                **{name: torch.zeros(metas[name].shape, dtype=self.dtype,
-                                     device=self.device)
-                   for name in ("k", "v")}}
+    def init_cache(self, B: int, T_max: int,
+                   enc_len: int | None = None) -> dict:
+        """Zeros in each entry's meta dtype (the state float32, the rest
+        the model's), on the model's device; pos 0."""
+        return {name: 0 if name == "pos" else torch.zeros(
+                    m.shape, dtype=T.DTYPES[m.dtype], device=self.device)
+                for name, m in cache_metas(self.cfg, B, T_max,
+                                           enc_len).items()}
 
     @torch.inference_mode()
     def prefill(self, batch: dict, cache: dict):

@@ -1,17 +1,13 @@
-"""Family assembly of the dense and VLM families: parameter metas, the
-module tree that holds the weights, name-based initialization, and
-forward / prefill / decode — the counterpart of
-`repro.models.transformer`.
+"""Family assembly: parameter metas, the module tree that holds the
+weights, name-based initialization, and forward / prefill / decode for
+dense / moe / vlm (decoder-only), ssm (mamba2), hybrid (zamba2) and
+encdec (whisper) — the counterpart of `repro.models.transformer`.
 
 The reference stacks each layer weight on a leading L axis and scans
-over it; the port holds one `DenseLayer` module a layer in an
+over it; the port holds one `Layer` module a layer in an
 `nn.ModuleList` and loops.  `param_metas` keeps the reference's stacked
 shapes (the single source of truth for both), and `convert.py` moves
-weights between the two layouts.
-
-The families moe (grok-1, kimi-k2), ssm (mamba2), hybrid (zamba2) and
-encdec (whisper) are not ported yet (ROADMAP Queue 1 item 9): building
-one raises NotImplementedError.  Training (`loss_fn`, remat) waits for
+weights between the two layouts.  Training (`loss_fn`, remat) waits for
 the training slice.
 """
 
@@ -20,29 +16,23 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..sharding.rules import ParamMeta
 from . import layers as L
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 
-__all__ = ["PORTED_FAMILIES", "DTYPES", "check_family", "param_metas",
-           "ParamGroup", "DenseLayer", "make_params", "init_params",
-           "forward", "prefill", "decode_step"]
-
-PORTED_FAMILIES = ("dense", "vlm")
+__all__ = ["DTYPES", "param_metas", "ParamGroup", "Layer", "make_params",
+           "init_params", "forward", "prefill", "decode_step"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 9); ported: "
-            f"{', '.join(PORTED_FAMILIES)}")
+DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
 # =====================================================================
@@ -93,6 +83,18 @@ def _mlp_metas(cfg: ModelConfig, stack: int | None, dt: str) -> dict:
     return {"wi": pm((D, F), (fs, "ff")), "wo": pm((F, D), ("ff", fs))}
 
 
+def _moe_metas(cfg: ModelConfig, stack: int | None, dt: str) -> dict:
+    pm = _pm(stack, dt)
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    fs = _fs(cfg)
+    return {
+        "router": pm((D, E), (None, None)),
+        "wg": pm((E, D, F), ("expert", fs, "ff")),
+        "wu": pm((E, D, F), ("expert", fs, "ff")),
+        "wo": pm((E, F, D), ("expert", "ff", fs)),
+    }
+
+
 def _norm_metas(cfg: ModelConfig, stack: int | None, dt: str) -> dict:
     pm = _pm(stack, dt)
     out = {"scale": pm((cfg.d_model,), (None,))}
@@ -101,8 +103,38 @@ def _norm_metas(cfg: ModelConfig, stack: int | None, dt: str) -> dict:
     return out
 
 
+def _ssm_metas(cfg: ModelConfig, stack: int | None, dt: str) -> dict:
+    pm = _pm(stack, dt)
+    D, dI = cfg.d_model, cfg.d_inner
+    GN = cfg.ssm_groups * cfg.ssm_state
+    H = cfg.ssm_heads
+    kw = cfg.ssm_conv
+    fs = _fs(cfg)
+    return {
+        "wz": pm((D, dI), (fs, "ssm_inner")),
+        "wx": pm((D, dI), (fs, "ssm_inner")),
+        "wb": pm((D, GN), (fs, None)),
+        "wc": pm((D, GN), (fs, None)),
+        "wdt": pm((D, H), (fs, None)),
+        "conv": pm((kw, dI + 2 * GN), (None, "conv_dim")),
+        "a_log": pm((H,), (None,)),
+        "dt_bias": pm((H,), (None,)),
+        "d_skip": pm((H,), (None,)),
+        "norm_scale": pm((dI,), ("ssm_inner",)),
+        "wo": pm((dI, D), ("ssm_inner", fs)),
+    }
+
+
+def _block_metas(cfg: ModelConfig, stack: int | None, dt: str,
+                 mlp: dict) -> dict:
+    """attn_norm / attn / mlp_norm / mlp: a decoder layer or zamba2's
+    shared block."""
+    return {"attn_norm": _norm_metas(cfg, stack, dt),
+            "attn": _attn_metas(cfg, stack, dt),
+            "mlp_norm": _norm_metas(cfg, stack, dt), "mlp": mlp}
+
+
 def param_metas(cfg: ModelConfig) -> dict:
-    check_family(cfg)
     dt = cfg.dtype
     V, D = cfg.vocab_size, cfg.d_model
     Ls = cfg.n_layers if cfg.scan_layers else None
@@ -113,12 +145,32 @@ def param_metas(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         metas["unembed"] = {"kernel": ParamMeta((D, V), (_fs(cfg), "vocab"),
                                                 dt)}
-    metas["layers"] = {
-        "attn_norm": _norm_metas(cfg, Ls, dt),
-        "attn": _attn_metas(cfg, Ls, dt),
-        "mlp_norm": _norm_metas(cfg, Ls, dt),
-        "mlp": _mlp_metas(cfg, Ls, dt),
-    }
+    if cfg.family in DECODER_FAMILIES:
+        metas["layers"] = _block_metas(
+            cfg, Ls, dt, _moe_metas(cfg, Ls, dt) if cfg.family == "moe"
+            else _mlp_metas(cfg, Ls, dt))
+    elif cfg.family in ("ssm", "hybrid"):
+        metas["layers"] = {"norm": _norm_metas(cfg, Ls, dt),
+                           "mixer": _ssm_metas(cfg, Ls, dt)}
+        if cfg.family == "hybrid":
+            metas["shared"] = _block_metas(cfg, None, dt,
+                                           _mlp_metas(cfg, None, dt))
+    elif cfg.family == "encdec":
+        Le = cfg.n_enc_layers if cfg.scan_layers else None
+        metas["encoder"] = {
+            "layers": _block_metas(cfg, Le, dt, _mlp_metas(cfg, Le, dt)),
+            "final_norm": _norm_metas(cfg, None, dt),
+        }
+        metas["layers"] = {
+            "attn_norm": _norm_metas(cfg, Ls, dt),
+            "attn": _attn_metas(cfg, Ls, dt),
+            "cross_norm": _norm_metas(cfg, Ls, dt),
+            "cross": _attn_metas(cfg, Ls, dt),
+            "mlp_norm": _norm_metas(cfg, Ls, dt),
+            "mlp": _mlp_metas(cfg, Ls, dt),
+        }
+    else:
+        raise ValueError(cfg.family)
     return metas
 
 
@@ -146,20 +198,24 @@ class ParamGroup(nn.Module):
         return self._parameters.get(name, default)
 
 
-class DenseLayer(nn.Module):
-    """One decoder layer's weights (the reference's `layers` subtree at
-    one index of its L axis)."""
+class Layer(nn.Module):
+    """One layer's weights: a `ParamGroup` for each group of the metas
+    (`attn_norm/attn/mlp_norm/mlp`, `norm/mixer`, or
+    `attn_norm/attn/cross_norm/cross/mlp_norm/mlp`).  `stacked`: the
+    metas carry the reference's leading L axis, which is dropped."""
 
-    def __init__(self, metas: dict, dtype, device):
+    def __init__(self, metas: dict, dtype, device, stacked: bool = True):
         super().__init__()
-        for name in ("attn_norm", "attn", "mlp_norm", "mlp"):
-            self.add_module(name, ParamGroup(metas[name], dtype, device,
-                                             stacked=True))
+        for name, group in metas.items():
+            self.add_module(name, ParamGroup(group, dtype, device,
+                                             stacked=stacked))
 
 
 def make_params(module: nn.Module, cfg: ModelConfig, device) -> None:
     """Register the weights of `cfg` on `module` (uninitialized):
-    `embed`, `final_norm`, `unembed` (untied only) and `layers`."""
+    `embed`, `final_norm`, `unembed` (untied only), `layers`, and
+    `shared` (hybrid) or `encoder.layers` / `encoder.final_norm`
+    (encdec)."""
     metas = param_metas(cfg)
     dtype = DTYPES[cfg.dtype]
     module.embed = ParamGroup(metas["embed"], dtype, device)
@@ -167,44 +223,77 @@ def make_params(module: nn.Module, cfg: ModelConfig, device) -> None:
     module.unembed = (ParamGroup(metas["unembed"], dtype, device)
                       if "unembed" in metas else None)
     module.layers = nn.ModuleList(
-        DenseLayer(metas["layers"], dtype, device)
-        for _ in range(cfg.n_layers))
+        Layer(metas["layers"], dtype, device) for _ in range(cfg.n_layers))
+    if "shared" in metas:
+        module.shared = Layer(metas["shared"], dtype, device, stacked=False)
+    if "encoder" in metas:
+        enc = metas["encoder"]
+        module.encoder = nn.Module()
+        module.encoder.layers = nn.ModuleList(
+            Layer(enc["layers"], dtype, device)
+            for _ in range(cfg.n_enc_layers))
+        module.encoder.final_norm = ParamGroup(enc["final_norm"], dtype,
+                                               device)
 
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Name-based initialization, the reference's rules (`init_params`):
-    norm scales and q/k norms ones, biases zeros, `tokens` 0.02·N(0,1),
-    everything else N(0,1)/sqrt(fan_in); drawn in float32 on the
-    generator's device and cast to the weight's dtype, one weight after
-    the other in module order.  The draws are torch's, not
+    norm scales, q/k norms, `norm_scale` and `d_skip` ones, biases zeros,
+    `a_log` log U(1, 16), `dt_bias` softplus^-1 of U(1e-3, 0.1), `tokens`
+    0.02·N(0,1), everything else N(0,1)/sqrt(fan_in); drawn in float32 on
+    the generator's device and cast to the weight's dtype, one weight
+    after the other in module order, a weight of three or more axes (the
+    experts) one slice of its leading axis at a time, so no float32 copy
+    of a whole expert stack exists.  The draws are torch's, not
     `jax.random.fold_in`'s: weights equal to the reference's come in
     through `convert.params_from_numpy`."""
+    def draw(shape, dev):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
     for path, p in module.named_parameters():
         name = path.rsplit(".", 1)[-1]
-        if name in ("scale", "q_norm", "k_norm"):
+        if name in ("scale", "q_norm", "k_norm", "norm_scale", "d_skip"):
             p.fill_(1.0)
         elif name.startswith("b"):               # bq, bk, bv, bias
             p.zero_()
+        elif name == "a_log":
+            p.copy_(draw(p.shape, p.device).uniform_(
+                1.0, 16.0, generator=generator).log_())
+        elif name == "dt_bias":                  # softplus^-1
+            p.copy_(draw(p.shape, p.device).uniform_(
+                1e-3, 0.1, generator=generator).expm1_().log_())
         else:
             std = 0.02 if name == "tokens" else 1.0 / math.sqrt(
                 p.shape[-2] if p.dim() >= 2 else p.shape[-1])
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=p.device)
-            p.copy_(w.mul_(std))
+            for part in (p if p.dim() >= 3 else (p,)):
+                part.copy_(draw(part.shape, p.device).normal_(
+                    generator=generator).mul_(std))
 
 
 # =====================================================================
 # Forward passes
 # =====================================================================
 
-def _dense_layer(x, lp: DenseLayer, cfg: ModelConfig, *, positions,
+def _check_rows(pos: int, S: int, t_max: int) -> None:
+    """A KV write of rows [pos, pos + S) must fit the cache (the
+    reference's dynamic_update_slice would clamp it onto the last
+    rows)."""
+    if pos < 0 or pos + S > t_max:
+        raise ValueError(f"KV cache overflow: rows [{pos}, {pos + S}) "
+                         f"do not fit a cache of T_max={t_max}")
+
+
+def _dense_layer(x, lp: Layer, cfg: ModelConfig, *, positions,
                  cache=None, prefix_len=0):
+    """A decoder layer (dense, moe, vlm), or zamba2's shared block."""
     h = L.norm(x, lp.attn_norm, cfg)
     a, kv = L.attention(h, lp.attn, cfg, q_positions=positions, cache=cache,
                         prefix_len=prefix_len)
     x = x + a
     h = L.norm(x, lp.mlp_norm, cfg)
+    if cfg.family == "moe":
+        return x + moe_mod.moe_block(h, lp.mlp, cfg), kv
     return x + L.mlp(h, lp.mlp, cfg), kv
 
 
@@ -213,14 +302,11 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, cache=None,
     """Loop the layers.  cache: None or {"k", "v": (L, B, T_max, K, dh),
     "pos": int}; its rows [pos, pos + S) are written in place, and the
     returned dict (the same tensors) has pos advanced by S.  A write
-    past T_max raises (the reference's dynamic_update_slice would clamp
-    it onto the last rows)."""
+    past T_max raises."""
     S = x.shape[1]
     if cache is not None:
-        pos, t_max = int(cache["pos"]), cache["k"].shape[2]
-        if pos < 0 or pos + S > t_max:
-            raise ValueError(f"KV cache overflow: rows [{pos}, {pos + S}) "
-                             f"do not fit a cache of T_max={t_max}")
+        pos = int(cache["pos"])
+        _check_rows(pos, S, cache["k"].shape[2])
     for i, lp in enumerate(params.layers):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i], "pos": pos}
@@ -229,6 +315,152 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, cache=None,
     if cache is None:
         return x, None
     return x, dict(cache, pos=pos + S)
+
+
+def _mamba_stack(params, x, cfg: ModelConfig, *, positions, cache=None,
+                 decode=False):
+    """The ssm family's mamba2 layers; for hybrid (zamba2) also ONE
+    shared attention block, run before layer i when i % attn_every == 0,
+    with KV slot (its call's index) in cache["ak"] / cache["av"].
+
+    cache: None, or {"conv": (L, B, kw-1, Cd), "state": (L, B, H, P, N)
+    f32, ("ak", "av": (slots, B, T_max, K, dh),) "pos": int}: each
+    layer's conv and state are replaced in place by the new ones, the
+    shared block's K/V rows written at [pos, pos + S).  A prefill starts
+    every SSM state from zeros, as the reference's does, so a prefill
+    into a cache at pos != 0 raises (the reference would silently drop
+    the cached state)."""
+    S = x.shape[1]
+    hybrid = cfg.family == "hybrid"
+    every = max(cfg.attn_every, 1)
+    if cache is not None:
+        pos = int(cache["pos"])
+        if not decode and pos != 0:
+            raise ValueError(
+                f"{cfg.family} prefill at pos {pos}: a prefill restarts "
+                "the SSM state from zeros, so it must start an empty "
+                "cache (pos 0)")
+        if hybrid:
+            _check_rows(pos, S, cache["ak"].shape[2])
+    slot = -1
+    for i, lp in enumerate(params.layers):
+        if hybrid and i % every == 0:
+            slot += 1
+            c = None if cache is None else {
+                "k": cache["ak"][slot], "v": cache["av"][slot], "pos": pos}
+            x, _ = _dense_layer(x, params.shared, cfg, positions=positions,
+                                cache=c)
+        h = L.norm(x, lp.norm, cfg)
+        if cache is not None and decode:
+            y, sc = ssm_mod.mamba_decode_step(
+                h, lp.mixer, cfg, {"conv": cache["conv"][i],
+                                   "state": cache["state"][i]})
+        else:
+            y, sc = ssm_mod.mamba_block(h, lp.mixer, cfg)
+        if cache is not None:
+            cache["conv"][i].copy_(sc["conv"])
+            cache["state"][i].copy_(sc["state"])
+        x = x + y
+    if cache is None:
+        return x, None
+    return x, dict(cache, pos=pos + S)
+
+
+def _sinusoidal(S: int, D: int, dtype, device) -> torch.Tensor:
+    """The encoder's position table, in float64 numpy cast to dtype, as
+    the reference builds it."""
+    pos = np.arange(S)[:, None]
+    dim = np.arange(D // 2)[None, :]
+    ang = pos / (10_000 ** (2 * dim / D))
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.as_tensor(out, device=device).to(dtype)
+
+
+def _encdec_encoder(params, enc_input, cfg: ModelConfig):
+    """Whisper encoder over stub frame embeddings (bidirectional, no
+    rope; a sinusoidal table added to the input)."""
+    dev = params.embed["tokens"].device
+    x = torch.as_tensor(enc_input, device=dev).to(DTYPES[cfg.dtype])
+    B, Se = x.shape[:2]
+    x = x + _sinusoidal(Se, cfg.d_model, x.dtype, dev)[None]
+    positions = torch.arange(Se, device=dev)[None].expand(B, Se)
+    enc = params.encoder
+    for lp in enc.layers:
+        h = L.norm(x, lp.attn_norm, cfg)
+        a, _ = L.attention(h, lp.attn, cfg, q_positions=positions,
+                           causal=False, use_rope=False)
+        x = x + a
+        h = L.norm(x, lp.mlp_norm, cfg)
+        x = x + L.mlp(h, lp.mlp, cfg)
+    return L.norm(x, enc.final_norm, cfg)
+
+
+def _encdec_decoder(params, x, enc_out, cfg: ModelConfig, *, positions,
+                    cache=None):
+    """Whisper decoder: causal self-attention, cross-attention to the
+    encoder output (or the cache's precomputed xk / xv), mlp.  It has no
+    position signal at all (no rope, no sinusoid), as in the reference.
+    cache: None or {"k", "v": (L, B, T_max, K, dh), "xk", "xv": (L, B,
+    Se, K, dh), "pos": int}; self-attention rows written in place."""
+    S = x.shape[1]
+    if cache is not None:
+        pos = int(cache["pos"])
+        _check_rows(pos, S, cache["k"].shape[2])
+    for i, lp in enumerate(params.layers):
+        self_c = cross_c = None
+        if cache is not None:
+            self_c = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
+            cross_c = {"xk": cache["xk"][i], "xv": cache["xv"][i]}
+        h = L.norm(x, lp.attn_norm, cfg)
+        a, _ = L.attention(h, lp.attn, cfg, q_positions=positions,
+                           cache=self_c, causal=True, use_rope=False)
+        x = x + a
+        h = L.norm(x, lp.cross_norm, cfg)
+        a, _ = L.attention(h, lp.cross, cfg, x_kv=enc_out,
+                           q_positions=positions, cache=cross_c,
+                           causal=False, use_rope=False)
+        x = x + a
+        h = L.norm(x, lp.mlp_norm, cfg)
+        x = x + L.mlp(h, lp.mlp, cfg)
+    if cache is None:
+        return x, None
+    return x, dict(cache, pos=pos + S)
+
+
+def _cross_kv(params, enc_out, cfg: ModelConfig) -> dict:
+    """Each decoder layer's cross K / V of the encoder output (no bias,
+    as in the reference): {"xk", "xv": (L, B, Se, K, dh)}."""
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    B, Se = enc_out.shape[:2]
+    ks, vs = [], []
+    for lp in params.layers:
+        ks.append((enc_out @ lp.cross["wk"].to(enc_out.dtype))
+                  .reshape(B, Se, K, dh))
+        vs.append((enc_out @ lp.cross["wv"].to(enc_out.dtype))
+                  .reshape(B, Se, K, dh))
+    return {"xk": torch.stack(ks), "xv": torch.stack(vs)}
+
+
+def _stack(params, x, batch, cfg: ModelConfig, *, positions, cache=None,
+           prefix_len=0, decode=False):
+    """The family's layer stack -> (x, cache).  encdec: at prefill the
+    encoder runs and the cache's xk / xv are replaced by its cross K / V;
+    at decode the cache supplies them."""
+    if cfg.family in DECODER_FAMILIES:
+        return _decoder_stack(params, x, cfg, positions=positions,
+                              cache=cache, prefix_len=prefix_len)
+    if cfg.family in ("ssm", "hybrid"):
+        return _mamba_stack(params, x, cfg, positions=positions,
+                            cache=cache, decode=decode)
+    if cfg.family == "encdec":
+        enc_out = None
+        if not decode:
+            enc_out = _encdec_encoder(params, batch["enc_input"], cfg)
+            if cache is not None:
+                cache = dict(cache, **_cross_kv(params, enc_out, cfg))
+        return _encdec_decoder(params, x, enc_out, cfg, positions=positions,
+                               cache=cache)
+    raise ValueError(cfg.family)
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -255,10 +487,9 @@ def _inputs(params, batch, cfg: ModelConfig):
 
 def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> logits (B, S_text, V)."""
-    check_family(cfg)
     x, positions, prefix_len = _inputs(params, batch, cfg)
-    x, _ = _decoder_stack(params, x, cfg, positions=positions,
-                          prefix_len=prefix_len)
+    x, _ = _stack(params, x, batch, cfg, positions=positions,
+                  prefix_len=prefix_len)
     x = L.norm(x, params.final_norm, cfg)
     if cfg.family == "vlm":
         x = x[:, prefix_len:]                        # logits on text only
@@ -268,10 +499,9 @@ def forward(params, batch, cfg: ModelConfig):
 def prefill(params, batch, cache, cfg: ModelConfig):
     """Run the prompt through the model, filling `cache` from its pos.
     Returns (last-position logits (B, V), cache)."""
-    check_family(cfg)
     x, positions, prefix_len = _inputs(params, batch, cfg)
-    x, cache = _decoder_stack(params, x, cfg, positions=positions,
-                              cache=cache, prefix_len=prefix_len)
+    x, cache = _stack(params, x, batch, cfg, positions=positions,
+                      cache=cache, prefix_len=prefix_len)
     x = L.norm(x[:, -1:], params.final_norm, cfg)
     return _logits(params, x, cfg)[:, 0], cache
 
@@ -279,14 +509,13 @@ def prefill(params, batch, cache, cfg: ModelConfig):
 def decode_step(params, token, cache, cfg: ModelConfig):
     """One decode step.  token: (B, 1) integer.  Returns (logits (B, V),
     cache)."""
-    check_family(cfg)
     dev = params.embed["tokens"].device
     token = torch.as_tensor(token, device=dev)
     x = L.embed(token, params.embed["tokens"]).to(DTYPES[cfg.dtype])
     B = x.shape[0]
     positions = torch.full((B, 1), int(cache["pos"]), dtype=torch.int32,
                            device=dev)
-    x, cache = _decoder_stack(params, x, cfg, positions=positions,
-                              cache=cache)
+    x, cache = _stack(params, x, None, cfg, positions=positions,
+                      cache=cache, decode=True)
     x = L.norm(x, params.final_norm, cfg)
     return _logits(params, x, cfg)[:, 0], cache

@@ -66,7 +66,8 @@ def test_port_imports_without_jax():
             "repro_torch.ft, repro_torch.ft.runner, "
             "repro_torch.serving.sharded, repro_torch.serving.secure_scan, "
             "repro_torch.serving.ann_server, repro_torch.api.mesh, "
-            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.ssm, "
+            "repro_torch.models.moe, repro_torch.configs, "
             "repro_torch.configs.ppanns_datasets, repro_torch.sharding, "
             "repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.core.ame, repro_torch.core.lsh\n"
@@ -786,6 +787,44 @@ def test_lm_on_the_card_equals_the_host():
     assert out.is_cuda and out.dtype == torch.int32
     assert torch.equal(out.cpu(), LMServer(host).generate({"tokens": toks},
                                                           6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b",
+                                  "whisper-small", "grok-1-314b",
+                                  "kimi-k2-1t-a32b"])
+def test_families_on_the_card_equal_the_host(arch):
+    """The ssm, hybrid, encdec and moe families at smoke width in float32
+    on the card and on the host with the same weights: forward logits
+    within 1e-4 (as qwen3's above), prefill + decode caches within 1e-4,
+    equal greedy tokens."""
+    _needs_card()
+    cfg = get_config(arch).smoke()
+    card = Model(cfg, seed=3)
+    host = Model(cfg, device="cpu", seed=None)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, 16),
+                                     generator=gen)}
+    if cfg.family == "encdec":
+        batch["enc_input"] = torch.randn((3, cfg.enc_seq_len, cfg.d_model),
+                                         generator=gen)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    got = card.forward(on_card).cpu()
+    assert torch.allclose(got, host.forward(batch), atol=1e-4, rtol=1e-4)
+    c_card, c_host = card.init_cache(3, 24), host.init_cache(3, 24)
+    _, c_card = card.prefill(on_card, c_card)
+    _, c_host = host.prefill(batch, c_host)
+    tok = batch["tokens"][:, -1:]
+    _, c_card = card.decode_step(tok.cuda(), c_card)
+    _, c_host = host.decode_step(tok, c_host)
+    for name in set(c_host) - {"pos"}:
+        assert c_card[name].is_cuda
+        assert torch.allclose(c_card[name].cpu(), c_host[name], atol=1e-4,
+                              rtol=1e-4), name
+    out = LMServer(card).generate(on_card, 6)
+    assert out.is_cuda and out.dtype == torch.int32
+    assert torch.equal(out.cpu(), LMServer(host).generate(batch, 6))
 
 
 @pytest.mark.cuda

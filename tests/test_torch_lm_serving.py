@@ -36,7 +36,7 @@ from repro.core import ppanns as jppanns
 from repro.launch import serve as jserve
 from repro.models import Model as JModel
 from repro_torch import api, serving
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import ppanns
 from repro_torch.launch import serve
 from repro_torch.models import Model
@@ -91,6 +91,56 @@ def test_generate_greedy_equals_the_reference(qwen):
     full = model.forward({"tokens": torch.from_numpy(toks)})
     np.testing.assert_array_equal(got[:, 0].numpy(),
                                   full[:, -1].argmax(-1).numpy())
+
+
+def _family_pair(arch):
+    """The reference's smoke model and weights for `arch`, and the port's
+    model holding the same weights."""
+    jcfg = dataclasses.replace(jget_config(arch).smoke(), remat=False)
+    jm = JModel(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get_config(arch).smoke(), remat=False)
+    model = Model(cfg, device=CPU, seed=None)
+    model.load_state_dict(params_from_numpy(
+        cfg, jax.tree.map(np.asarray, params)))
+    return jm, params, model
+
+
+def test_lm_generate_ssm_family():
+    """tests/test_serving.py's test_lm_generate_ssm_family in port form,
+    with the reference's tokens held too."""
+    jm, params, model = _family_pair("mamba2-370m")
+    toks = np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (2, 8)).astype(np.int32)
+    out = LMServer(model).generate({"tokens": torch.from_numpy(toks)},
+                                   max_new_tokens=3)
+    assert out.shape == (2, 3)
+    want = jserving.LMServer(jm, params).generate(
+        {"tokens": jnp.asarray(toks)}, max_new_tokens=3)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small",
+                                  "grok-1-314b"])
+def test_generate_greedy_equals_the_reference_families(arch):
+    """Greedy tokens of the hybrid, encdec and moe families (grok-1 at
+    its own capacity factor 1.25, so the prefill may drop assignments as
+    the reference's does) equal the reference's."""
+    jm, params, model = _family_pair(arch)
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 12))
+             .astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["enc_input"] = rng.standard_normal(
+            (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    want = np.asarray(jserving.LMServer(jm, params).generate(
+        {k: jnp.asarray(v) for k, v in batch.items()}, max_new_tokens=6))
+    got = LMServer(model).generate(
+        {k: torch.from_numpy(v) for k, v in batch.items()},
+        max_new_tokens=6)
+    assert got.dtype == torch.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_greedy_breaks_ties_to_the_first_index():
@@ -227,6 +277,18 @@ def _recording(mod, monkeypatch):
     monkeypatch.setattr(mod.DataOwnerClient, "query_client",
                         lambda self, seed=None: query_client(self, seed=33))
     return seen
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_main_serves_every_arch(arch, capsys):
+    """`--arch` takes every arch the reference CLI takes (whisper's
+    batch carries its `enc_input` stub)."""
+    out = serve.main(["--arch", arch, "--device", CPU])
+    assert isinstance(out, torch.Tensor) and out.shape == (4, 16)
+    assert out.dtype == torch.int32
+    vocab = get_config(arch).smoke().vocab_size
+    assert int(out.min()) >= 0 and int(out.max()) < vocab
+    assert "generated (4, 16)" in capsys.readouterr().out
 
 
 def test_serve_main_returns_tokens_and_the_reference_ids(monkeypatch):

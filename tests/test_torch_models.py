@@ -40,9 +40,9 @@ OP_TOL = dict(atol=2e-5, rtol=1e-5)
 LOGIT_TOL = dict(atol=2e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=2e-2, rtol=2e-2)
 MODEL_ARCHS = ["qwen3-1.7b", "qwen2.5-14b", "chatglm3-6b",
-               "nemotron-4-340b", "paligemma-3b"]
-UNPORTED = ["grok-1-314b", "kimi-k2-1t-a32b", "mamba2-370m", "zamba2-1.2b",
-            "whisper-small"]
+               "nemotron-4-340b", "paligemma-3b", "grok-1-314b",
+               "kimi-k2-1t-a32b", "mamba2-370m", "zamba2-1.2b",
+               "whisper-small"]
 B = 2
 SEQ = 16
 
@@ -141,7 +141,7 @@ def test_attn_core_matches_the_reference(case):
 
 
 # ---------------------------------------------------------------------------
-# Metas, conversion, unported families.
+# Metas, conversion, an unknown family.
 # ---------------------------------------------------------------------------
 
 def _flat(tree, prefix=""):
@@ -178,13 +178,13 @@ def test_param_metas_equal_the_reference(arch):
     assert batch["tokens"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").smoke(),
+                              family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
         T.param_metas(cfg)
+    with pytest.raises(ValueError, match="rnn"):
+        Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -205,6 +205,35 @@ def test_params_round_trip_bit_for_bit(dtype):
         assert flat_a[k].tobytes() == flat_b[k].tobytes(), k
     with pytest.raises(ValueError, match="missing"):
         params_from_numpy(cfg, {"embed": tree["embed"]})
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_round_trip_stacks_bit_for_bit(arch, dtype):
+    """zamba2's unstacked `shared` block and whisper's encoder layers,
+    stacked over n_enc_layers, cross both ways bit for bit."""
+    jcfg = dataclasses.replace(jget_config(arch).smoke(), dtype=dtype,
+                               n_enc_layers=min(jget_config(arch)
+                                                .n_enc_layers, 3))
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype,
+                              n_enc_layers=jcfg.n_enc_layers)
+    tree = jax.tree.map(np.asarray, JModel(jcfg).init(
+        jax.random.PRNGKey(5)))
+    model = Model(cfg, device="cpu", seed=None)
+    sd = params_from_numpy(cfg, tree)
+    model.load_state_dict(sd)
+    if cfg.family == "hybrid":
+        assert "shared.attn.wq" in sd
+    else:
+        assert cfg.n_enc_layers == 3 != cfg.n_layers
+        assert "encoder.layers.2.attn.wq" in sd
+        assert "encoder.final_norm.scale" in sd
+    back = params_to_numpy(model)
+    flat_a, flat_b = dict(_flat(tree)), dict(_flat(back))
+    assert flat_a.keys() == flat_b.keys()
+    for k in flat_a:
+        assert flat_a[k].dtype == flat_b[k].dtype, k
+        assert flat_a[k].tobytes() == flat_b[k].tobytes(), k
 
 
 def test_init_follows_the_reference_rules():
@@ -233,11 +262,13 @@ def pair():
 
     def get(arch):
         if arch not in made:
-            jcfg = dataclasses.replace(jget_config(arch).smoke(),
-                                       remat=False)
+            # the MoE archs at capacity factor 8.0, as the reference
+            # test: no assignment drops, forward = decode
+            kw = dict(remat=False, moe_capacity_factor=8.0)
+            jcfg = dataclasses.replace(jget_config(arch).smoke(), **kw)
             jm = JModel(jcfg)
             params = jm.init(jax.random.PRNGKey(2))
-            cfg = dataclasses.replace(get_config(arch).smoke(), remat=False)
+            cfg = dataclasses.replace(get_config(arch).smoke(), **kw)
             model = Model(cfg, device="cpu", seed=None)
             model.load_state_dict(params_from_numpy(
                 cfg, jax.tree.map(np.asarray, params)))
@@ -247,6 +278,9 @@ def pair():
             if cfg.family == "vlm":
                 batch["vision"] = rng.standard_normal(
                     (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+            if cfg.family == "encdec":
+                batch["enc_input"] = rng.standard_normal(
+                    (B, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
             made[arch] = (jm, params, model, batch)
         return made[arch]
     return get
@@ -296,8 +330,11 @@ def test_prefill_decode_matches_forward_and_reference(pair, arch):
                                **LOGIT_TOL)
     np.testing.assert_allclose(logits_dec.numpy(), np.asarray(jdec),
                                **LOGIT_TOL)
-    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jc["k"]),
-                               **LOGIT_TOL)
+    assert set(cache) == set(jc)
+    for name in set(cache) - {"pos"}:
+        np.testing.assert_allclose(cache[name].numpy(),
+                                   np.asarray(jc[name]), err_msg=name,
+                                   **LOGIT_TOL)
 
 
 def test_cache_overflow_raises_and_the_last_row_agrees(pair):
@@ -330,7 +367,8 @@ def test_cache_overflow_raises_and_the_last_row_agrees(pair):
 # ---------------------------------------------------------------------------
 
 PORT_MODULES = ["models/__init__.py", "models/config.py", "models/layers.py",
-                "models/transformer.py", "models/model.py",
+                "models/transformer.py", "models/model.py", "models/ssm.py",
+                "models/moe.py",
                 "models/convert.py", "configs/__init__.py",
                 "configs/ppanns_datasets.py", "sharding/__init__.py",
                 "sharding/rules.py", "serving/__init__.py",
