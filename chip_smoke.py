@@ -230,6 +230,33 @@ Phases, each of which fails the run (non-zero exit, no final line):
    join the `kernels` line as `launches_by_path` knn_lm and lm_serve
    (the serve runs of (d) and (e)).
 
+10. Training on the card (after phase 9, before the pq8 engine; torch
+   ops and autograd, none of the six kernels: the `train` path counts 0
+   launches of each, read after counts set to 0 before the phase):
+   (a) qwen3-1.7b in fp32 at full width and depth: loss and gradients
+       with remat on against off at B 2 x S 256 (within 1e-5 x max|g| a
+       leaf; bit-equal is expected: the same kernels on the same
+       inputs), and one adamw step with 4 microbatches against 1 at B 4
+       x S 256 (loss within rel 1e-4, weights within 5e-3: the bars of
+       tests/test_training.py);
+   (b) every arch at smoke width, loss and gradients on the card against
+       the host (rel 1e-5; 1e-4 x max|g| + 1e-6 a leaf: the bars the CPU
+       tests hold the port to against jax.grad);
+   (c) qwen3-1.7b in bf16 at full width and depth, adamw with fp32
+       moments, B 8 x S 512, 20 steps on `TokenStream(markov_temp=0.3)`:
+       finite losses whose last five average below the first five; step
+       ms (p50), tokens/s, peak allocated bytes, one profiled step's
+       device busy time, its forward+backward and update device ms, and
+       the bound: model FLOPs (6 N T, the attention's S x S products,
+       remat's second forward) over the H100 SXM's dense bf16 peak;
+   (d) (c)'s state at step 10 saved, restored into a fresh state and
+       stepped: loss and weights bit-equal to the uninterrupted step 11;
+       `launch.train --scale smoke --steps 40 --inject-failure-at 20` on
+       the card finishes with restarts=1 and a lower loss;
+   (e) the int8 ring all-reduce over 4 logical devices of the card,
+       bit-equal to the same call over 4 logical host devices.
+   One `train` line per check.
+
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -242,6 +269,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import multiprocessing
 import statistics
 import subprocess
@@ -3763,6 +3791,417 @@ def lm_paths(card: str) -> dict:
         k: on_serve[k] + on_families.get(k, 0) for k in on_serve}}
 
 
+# -------------------------------------------------------------- phase 10
+
+TRAIN_ARCH = "qwen3-1.7b"       # src/repro_torch/configs/qwen3_1p7b.py
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 256      # (a) remat on against off
+MICRO_B, MICRO_N = 4, 4                    # (a) 4 microbatches of 1 row
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 20  # (c)
+TRAIN_SAVE_AT = 10                          # (d)
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+REMAT_RTOL = 1e-5               # per leaf, of max|g|
+MICRO_LOSS_RTOL = 1e-4          # tests/test_training.py:84's bars
+MICRO_WEIGHT_ATOL = 5e-3
+# the bars the CPU tests hold the port to against jax.grad
+# (tests/test_torch_train_parity.py)
+GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-5
+PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense bf16 on the tensor cores
+RING_DEVICES = 4
+
+
+def on_card(batch: dict) -> dict:
+    import torch
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def grad_gap(got: dict, want: dict) -> tuple[float, bool]:
+    """(max over leaves of max|got - want| / max|want|, every leaf
+    bit-equal)."""
+    import torch
+    worst, equal = 0.0, True
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        equal = equal and torch.equal(g, w)
+        d = float((g.float() - w.float()).abs().max())
+        worst = max(worst, d / max(float(w.float().abs().max()), 1e-30))
+    return worst, equal
+
+
+def train_fp32_checks(card: str) -> None:
+    """Phase 10 (a): qwen3-1.7b in fp32 at full width and depth: loss
+    and gradients with remat on against off (B 2 x S 256), and 4
+    microbatches against 1 (B 4 x S 256: axis 0 must split in 4), one
+    adamw step each from the same state."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenStream
+    from repro_torch.models import Model
+    from repro_torch.training import (OptConfig, build_train_step,
+                                      init_train_state)
+    from repro_torch.training.train_loop import loss_and_grads
+    cfg = get_config(TRAIN_ARCH)
+    model, init_s = sync_s(lambda: Model(cfg, device="cuda",
+                                         dtype=torch.float32, seed=0))
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100,
+                    weight_decay=0.0)          # tests/test_training.py's
+    state = init_train_state(model, opt)
+    batch = on_card(TokenStream(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN_CHECK_S,
+                                batch_size=TRAIN_CHECK_B, seed=1).next())
+    torch.cuda.reset_peak_memory_stats()
+    (loss_on, g_on), s_on = sync_s(
+        lambda: loss_and_grads(model, state["params"], batch))
+    peak_on = torch.cuda.max_memory_allocated()
+    model.cfg = dataclasses.replace(model.cfg, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    (loss_off, g_off), s_off = sync_s(
+        lambda: loss_and_grads(model, state["params"], batch))
+    peak_off = torch.cuda.max_memory_allocated()
+    model.cfg = dataclasses.replace(model.cfg, remat=True)
+    gap, equal = grad_gap(g_on, g_off)
+    del g_on, g_off
+    free_card()
+    rec = {"phase": "train", "step": "a_remat", "card": card,
+           "arch": cfg.name, "dtype": "float32", "batch": TRAIN_CHECK_B,
+           "seq": TRAIN_CHECK_S, "n_params": model.n_params(),
+           "init_s": init_s, "loss_remat": float(loss_on),
+           "loss_no_remat": float(loss_off),
+           "grad_max_rel_to_max_abs": gap, "grads_bit_equal": equal,
+           "loss_bit_equal": bool(torch.equal(loss_on, loss_off)),
+           "s_remat": s_on, "s_no_remat": s_off,
+           "peak_bytes_remat": peak_on, "peak_bytes_no_remat": peak_off,
+           "tolerance": f"{REMAT_RTOL} * max|g| per leaf"}
+    log(json.dumps(rec))
+    if gap > REMAT_RTOL or not abs(float(loss_on) - float(loss_off)) <= \
+            REMAT_RTOL * abs(float(loss_off)):
+        raise AssertionError(f"remat changed the numbers: {rec}")
+
+    batch = on_card(TokenStream(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN_CHECK_S, batch_size=MICRO_B,
+                                seed=2).next())
+    (s1, m1), t1 = sync_s(lambda: build_train_step(model, opt)(state, batch))
+    w1 = {k: v.cpu() for k, v in s1["params"].items()}
+    del s1
+    free_card()
+    (s4, m4), t4 = sync_s(lambda: build_train_step(
+        model, opt, n_microbatches=MICRO_N)(state, batch))
+    dw = max(float((s4["params"][k].cpu() - w).abs().max())
+             for k, w in w1.items())
+    rec = {"phase": "train", "step": "a_microbatch", "card": card,
+           "batch": MICRO_B, "seq": TRAIN_CHECK_S, "n_microbatches": MICRO_N,
+           "loss_1": float(m1["loss"]), "loss_4": float(m4["loss"]),
+           "grad_norm_1": float(m1["grad_norm"]),
+           "grad_norm_4": float(m4["grad_norm"]),
+           "weights_max_abs_diff": dw, "step_s_1": t1, "step_s_4": t4,
+           "tolerance": {"loss_rtol": MICRO_LOSS_RTOL,
+                         "weights_atol": MICRO_WEIGHT_ATOL}}
+    log(json.dumps(rec))
+    if (abs(rec["loss_1"] - rec["loss_4"]) > MICRO_LOSS_RTOL
+            * abs(rec["loss_1"]) or dw > MICRO_WEIGHT_ATOL):
+        raise AssertionError(f"4 microbatches differ from 1: {rec}")
+
+
+def train_card_vs_host(card: str) -> None:
+    """Phase 10 (b): every arch at smoke width, loss and gradients of the
+    port on the card against the port on the host (fp32, TF32 off)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import Model
+    from repro_torch.models.convert import stack_params
+    from repro_torch.training.train_loop import loss_and_grads
+    out = {}
+    for arch in ARCHS:
+        host = Model(get_config(arch).smoke(), device="cpu",
+                     dtype=torch.float32, seed=0)
+        dev = Model(host.cfg, device="cuda", seed=None)
+        dev.load_state_dict(host.state_dict())
+        cfg = host.cfg
+        rng = np.random.default_rng(0)
+        s_text = 64 - (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+        tok = rng.integers(0, cfg.vocab_size, (2, s_text)).astype(np.int32)
+        batch = {"tokens": tok, "labels": tok}
+        if cfg.family == "vlm":
+            batch["vision"] = rng.standard_normal(
+                (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            batch["enc_input"] = rng.standard_normal(
+                (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+        got = {}
+        for name, m in (("cpu", host), ("cuda", dev)):
+            params = stack_params(cfg, {k: p.detach()
+                                        for k, p in m.named_parameters()})
+            got[name] = loss_and_grads(
+                m, params, {k: torch.as_tensor(v, device=m.device)
+                            for k, v in batch.items()})
+        (lh, gh), (lc, gc_) = got["cpu"], got["cuda"]
+        worst = 0.0
+        for k, w in gh.items():
+            d = float((gc_[k].cpu() - w).abs().max())
+            tol = GRAD_RTOL * float(w.abs().max()) + GRAD_ATOL
+            worst = max(worst, d / tol)
+        rel = abs(float(lc) - float(lh)) / abs(float(lh))
+        out[arch] = {"loss_host": float(lh), "loss_card": float(lc),
+                     "loss_rel": rel, "grad_err_over_tol": worst}
+        if rel > LOSS_RTOL or worst > 1.0:
+            raise AssertionError(f"{arch}: card against host {out[arch]}")
+        del host, dev, got
+    log(json.dumps({"phase": "train", "step": "b_card_vs_host",
+                    "card": card, "width": "smoke", "archs": out,
+                    "tolerance": {"loss_rtol": LOSS_RTOL,
+                                  "grads": f"{GRAD_RTOL} * max|g| + "
+                                           f"{GRAD_ATOL} per leaf"}}))
+    free_card()
+
+
+def train_step_flops(model, B: int, S: int) -> dict:
+    """Model FLOPs of one train step with remat: 6 N T for the weights'
+    products (forward 2 N T, backward 4 N T; the tied embedding counted
+    once, as the unembedding's product), the attention's two S x S
+    products of every layer (4 B H S^2 dh forward, as the port computes
+    them: the whole square, masked), 3x for forward and backward, plus
+    remat's second forward of the layers (2 N_layers T + the attention's
+    forward)."""
+    cfg = model.cfg
+    n = model.n_params()
+    n_layers = sum(p.numel() for k, p in model.named_parameters()
+                   if k.startswith("layers."))
+    T = B * S
+    attn = 4 * B * cfg.n_heads * S * S * cfg.head_dim * cfg.n_layers
+    out = {"n_params": n, "n_layer_params": n_layers, "tokens": T,
+           "flops_6NT": 6 * n * T, "flops_attention": 3 * attn,
+           "flops_remat": 2 * n_layers * T + attn}
+    out["flops"] = (out["flops_6NT"] + out["flops_attention"]
+                    + out["flops_remat"])
+    return out
+
+
+def train_step_split(model, opt, state, batch, reps: int = 3) -> dict:
+    """Device ms (CUDA events, median of reps) of a step's two halves:
+    the forward and backward (`loss_and_grads`), and the clip with the
+    optimizer update; each rep's outputs are freed before the next."""
+    import torch
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_loop import loss_and_grads
+    upd = opt_mod.make_optimizer(opt)
+    grads = None
+
+    def fwd_bwd():
+        nonlocal grads
+        grads = None
+        grads = loss_and_grads(model, state["params"], batch)[1]
+
+    def update():
+        g, _ = opt_mod.clip_by_global_norm(grads, opt.grad_clip)
+        upd.update(g, state["opt"], state["params"], state["step"])
+
+    out = {}
+    for name, fn in (("fwd_bwd_device_ms", fwd_bwd),
+                     ("clip_update_device_ms", update)):
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[name] = statistics.median(ms)
+    return out
+
+
+def train_run(card: str, tmp: Path) -> None:
+    """Phase 10 (c) and (d): qwen3-1.7b in bf16 at full width and depth,
+    adamw with fp32 moments, B 8 x S 512, 20 steps on the Markov corpus,
+    a checkpoint at step 10 restored into a fresh state whose step 11
+    must equal the uninterrupted run's bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenStream
+    from repro_torch.models import Model
+    from repro_torch.training import (OptConfig, build_train_step,
+                                      init_train_state)
+    from repro_torch.training.train_loop import (abstract_train_state,
+                                                 state_from_tree, state_tree)
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = sync_s(lambda: Model(cfg, device="cuda",
+                                         dtype=torch.bfloat16, seed=0))
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                    total_steps=TRAIN_STEPS)
+    state = init_train_state(model, opt)
+    step_fn = build_train_step(model, opt)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         batch_size=TRAIN_B, seed=0, markov_temp=0.3)
+    batches = [stream.next() for _ in range(TRAIN_STEPS)]
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        if i == TRAIN_SAVE_AT:
+            tmp.mkdir(parents=True, exist_ok=True)
+            free = shutil.disk_usage(tmp).free
+            _, save_s = sync_s(lambda: save_checkpoint(
+                str(tmp), i, state_tree(state), extra={"arch": cfg.name}))
+        b = on_card(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        loss = float(m["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if i == TRAIN_SAVE_AT:
+            after, loss_after = state["params"], m["loss"]
+    peak = torch.cuda.max_memory_allocated()
+    batch = on_card(batches[-1])
+    prof = profile_steps(lambda i: step_fn(state, batch), 1, unit="step")
+    split = train_step_split(model, opt, state, batch)
+    p50 = statistics.median(step_ms[2:])
+    fl = train_step_flops(model, TRAIN_B, TRAIN_S)
+    bound_ms = fl["flops"] / PEAK_BF16_FLOPS * 1e3
+    n = fl["n_params"]
+    opt_bytes = n * (2 + 2 + 4 + 4) + n * (2 + 4 + 4)   # read p g m v, write
+    rec = {"phase": "train", "step": "c_bf16_run", "card": card,
+           "arch": cfg.name, "dtype": "bfloat16", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+           "optimizer": "adamw", "moments": "float32", "lr": TRAIN_LR,
+           "warmup_steps": TRAIN_WARMUP, "remat": cfg.remat,
+           "init_s": init_s, "losses": losses,
+           "loss_first5_mean": statistics.mean(losses[:5]),
+           "loss_last5_mean": statistics.mean(losses[-5:]),
+           "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": TRAIN_B * TRAIN_S / p50 * 1e3,
+           "peak_allocated_bytes": peak, **fl,
+           "bound_ms": bound_ms, "bound_by": "operations (bf16 peak)",
+           "optimizer_bytes_bound_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
+           "share_of_bound": bound_ms / p50, **split, **prof}
+    log(json.dumps(rec))
+    if not (all(map(math.isfinite, losses))
+            and rec["loss_last5_mean"] < rec["loss_first5_mean"]):
+        raise AssertionError(f"bf16 training did not learn: {losses}")
+
+    # (d) the checkpoint of step 10, restored into a fresh state
+    del state, m
+    free_card()
+    tree, manifest = restore_checkpoint(
+        str(tmp), state_tree(abstract_train_state(model, opt)),
+        step=TRAIN_SAVE_AT, device="cuda")
+    fresh = state_from_tree(tree)
+    del tree
+    state, m = step_fn(fresh, on_card(batches[TRAIN_SAVE_AT]))
+    equal = all(torch.equal(state["params"][k], w) for k, w in after.items())
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in (tmp / f"step_{TRAIN_SAVE_AT:08d}").iterdir())
+    rec = {"phase": "train", "step": "d_checkpoint", "card": card,
+           "saved_at_step": TRAIN_SAVE_AT, "entries": len(manifest["entries"]),
+           "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free,
+           "save_s": save_s, "restored_step": fresh["step"],
+           "loss_uninterrupted": float(loss_after),
+           "loss_restored": float(m["loss"]),
+           "loss_bit_equal": bool(torch.equal(m["loss"], loss_after)),
+           "weights_bit_equal": equal}
+    log(json.dumps(rec))
+    if not (equal and rec["loss_bit_equal"] and fresh["step"] == 10):
+        raise AssertionError(f"resume differs from the run: {rec}")
+
+
+def train_cli(card: str, tmp: Path) -> None:
+    """Phase 10 (d): `launch.train --scale smoke --steps 40
+    --inject-failure-at 20` on the card."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (final, losses), wall = sync_s(lambda: train.main([
+            "--scale", "smoke", "--steps", "40", "--inject-failure-at",
+            "20", "--ckpt-dir", str(tmp), "--ckpt-every", "10"]))
+    out = buf.getvalue()
+    rec = {"phase": "train", "step": "d_cli", "card": card,
+           "argv": "--scale smoke --steps 40 --inject-failure-at 20",
+           "final_loss": final, "logged_losses": losses, "wall_s": wall,
+           "restarts_1": "restarts=1" in out,
+           "recovered": "recovered from step 20" in out}
+    log(json.dumps(rec))
+    if not (rec["restarts_1"] and rec["recovered"] and final < losses[0]):
+        raise AssertionError(f"launch.train on the card: {rec}\n{out}")
+
+
+def train_ring(card: str) -> None:
+    """Phase 10 (e): the int8 ring over 4 logical devices of the card
+    against the same call on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import force_device_count, local_devices
+    from repro_torch.sharding.compression import int8_ring_allreduce
+    rng = np.random.default_rng(11)
+    force_device_count(RING_DEVICES)
+    try:
+        out = {}
+        for shape in ((1, 103), (1, 1 << 20)):
+            x = [rng.standard_normal(shape).astype(np.float32)
+                 for _ in range(RING_DEVICES)]
+            card_out = int8_ring_allreduce(
+                [torch.from_numpy(a).to(d)
+                 for a, d in zip(x, local_devices())])
+            host_out = int8_ring_allreduce(
+                [torch.from_numpy(a).to(d)
+                 for a, d in zip(x, local_devices("cpu"))])
+            exact = sum(x)
+            out[str(shape)] = {
+                "bit_equal": all(torch.equal(c.cpu(), h)
+                                 for c, h in zip(card_out, host_out)),
+                "max_abs_diff": max(float((c.cpu() - h).abs().max())
+                                    for c, h in zip(card_out, host_out)),
+                "rel_err_vs_exact": float(np.abs(
+                    host_out[0].numpy() - exact).max()
+                    / np.abs(exact).max())}
+    finally:
+        force_device_count(None)
+    log(json.dumps({"phase": "train", "step": "e_int8_ring", "card": card,
+                    "devices": RING_DEVICES, "shapes": out}))
+    if not all(v["bit_equal"] for v in out.values()):
+        raise AssertionError(f"int8 ring: card differs from host: {out}")
+
+
+def train_paths(card: str) -> dict:
+    """Phase 10: training on the card.  -> the six kernels' launches in
+    it (none: training runs no kernel of the search path)."""
+    import tempfile
+    import torch
+    from repro_torch.device import full_fp32
+    t_start = time.perf_counter()
+    full_fp32()
+    reset_launches()
+    walls = {}
+    for name, fn in (("a", train_fp32_checks), ("b", train_card_vs_host)):
+        t0 = time.perf_counter()
+        fn(card)
+        free_card()
+        walls[name] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        train_run(card, Path(tmp) / "run")
+        free_card()
+        walls["c_d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_cli(card, Path(tmp) / "cli")
+        walls["d_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_ring(card)
+    walls["e"] = time.perf_counter() - t0
+    free_card()
+    launches = kernel_launches()
+    log(json.dumps({"phase": "train_done", "card": card,
+                    "kernel_launches": launches, "walls_s": walls,
+                    "wall_s": time.perf_counter() - t_start,
+                    "peak_allocated_bytes": torch.cuda.max_memory_allocated()}))
+    if any(launches.values()):
+        raise AssertionError(f"training launched search kernels: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -3889,6 +4328,9 @@ def main() -> int:
         # phase 9 ---------------------------------------------------
         on_lm = lm_paths(card)
 
+        # phase 10 --------------------------------------------------
+        on_train = train_paths(card)
+
         # phase 4's pq8 engine, after the worker's codebook ------------
         phase4("adc_pq8", "pq8", "flat")
         del corpus
@@ -3903,7 +4345,7 @@ def main() -> int:
                         "recall@10_global_graph": graph["recall_global"]}))
 
     paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
-             **on_api, **on_sharded, **on_lm}
+             **on_api, **on_sharded, **on_lm, "train": on_train}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

@@ -1,1 +1,1 @@
-from . import synth  # noqa: F401
+from . import loader, synth  # noqa: F401

@@ -6,10 +6,14 @@ The reference's `Model` is a stateless facade whose methods take the
 parameter tree; the port's holds the weights itself, so its methods
 take only the batch and the cache.  Weights equal to a reference tree
 come in through `convert.params_from_numpy` and `load_state_dict`.
+Serving (`forward`, `prefill`, `decode_step`) runs under
+`torch.inference_mode`; `loss` records autograd, and `bound` lends the
+model other weights (a train state's) for a forward and its backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -181,6 +185,34 @@ class Model(nn.Module):
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
         return T.forward(self, batch, self.cfg)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """The reference's `Model.loss`: next-token cross entropy of the
+        weights in use (the model's own, or those `bound` lends it),
+        recorded for autograd where they require grad."""
+        return T.loss_fn(self, batch, self.cfg)
+
+    @contextlib.contextmanager
+    def bound(self, params: dict):
+        """Compute with `params` (state_dict names -> tensors of the
+        same shapes) in place of the model's weights while the context
+        is open.  With `cfg.remat` the backward pass reads the weights
+        again, so it must run inside the same context."""
+        saved = []
+        try:
+            for name, t in params.items():
+                path, _, attr = name.rpartition(".")
+                group = self.get_submodule(path)
+                old = group._parameters[attr]
+                if t.shape != old.shape:
+                    raise ValueError(f"{name}: shape {tuple(t.shape)}, the "
+                                     f"model's is {tuple(old.shape)}")
+                saved.append((group, attr, old))
+                group._parameters[attr] = t
+            yield self
+        finally:
+            for group, attr, old in reversed(saved):
+                group._parameters[attr] = old
 
     def init_cache(self, B: int, T_max: int,
                    enc_len: int | None = None) -> dict:

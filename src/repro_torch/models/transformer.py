@@ -7,18 +7,24 @@ The reference stacks each layer weight on a leading L axis and scans
 over it; the port holds one `Layer` module a layer in an
 `nn.ModuleList` and loops.  `param_metas` keeps the reference's stacked
 shapes (the single source of truth for both), and `convert.py` moves
-weights between the two layouts.  Training (`loss_fn`, remat) waits for
-the training slice.
+weights between the two layouts.  `loss_fn` is the reference's
+next-token cross entropy; with `cfg.remat` each layer body of a
+cache-free pass (training's) runs under
+`torch.utils.checkpoint.checkpoint`, as the reference wraps it in
+`jax.checkpoint`: its activations are recomputed in the backward pass,
+which changes memory and never the numbers.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..sharding.rules import ParamMeta
 from . import layers as L
@@ -27,7 +33,7 @@ from . import ssm as ssm_mod
 from .config import ModelConfig
 
 __all__ = ["DTYPES", "param_metas", "ParamGroup", "Layer", "make_params",
-           "init_params", "forward", "prefill", "decode_step"]
+           "init_params", "forward", "loss_fn", "prefill", "decode_step"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -275,6 +281,17 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 # Forward passes
 # =====================================================================
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """The reference's `_maybe_remat`: with `cfg.remat` (and autograd
+    recording) the layer body keeps only its inputs for the backward
+    pass and recomputes the rest there.  The weights it reads are
+    read again at the recompute, so the backward must run while the
+    same weights are bound (`Model.bound`)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def _check_rows(pos: int, S: int, t_max: int) -> None:
     """A KV write of rows [pos, pos + S) must fit the cache (the
     reference's dynamic_update_slice would clamp it onto the last
@@ -303,17 +320,21 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, cache=None,
     "pos": int}; its rows [pos, pos + S) are written in place, and the
     returned dict (the same tensors) has pos advanced by S.  A write
     past T_max raises."""
+    if cache is None:
+        def body(xc, lp):
+            return _dense_layer(xc, lp, cfg, positions=positions,
+                                prefix_len=prefix_len)[0]
+        body = _maybe_remat(body, cfg)
+        for lp in params.layers:
+            x = body(x, lp)
+        return x, None
     S = x.shape[1]
-    if cache is not None:
-        pos = int(cache["pos"])
-        _check_rows(pos, S, cache["k"].shape[2])
+    pos = int(cache["pos"])
+    _check_rows(pos, S, cache["k"].shape[2])
     for i, lp in enumerate(params.layers):
-        c = None if cache is None else {"k": cache["k"][i],
-                                        "v": cache["v"][i], "pos": pos}
+        c = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
         x, _ = _dense_layer(x, lp, cfg, positions=positions, cache=c,
                             prefix_len=prefix_len)
-    if cache is None:
-        return x, None
     return x, dict(cache, pos=pos + S)
 
 
@@ -330,39 +351,45 @@ def _mamba_stack(params, x, cfg: ModelConfig, *, positions, cache=None,
     every SSM state from zeros, as the reference's does, so a prefill
     into a cache at pos != 0 raises (the reference would silently drop
     the cached state)."""
-    S = x.shape[1]
     hybrid = cfg.family == "hybrid"
     every = max(cfg.attn_every, 1)
-    if cache is not None:
-        pos = int(cache["pos"])
-        if not decode and pos != 0:
-            raise ValueError(
-                f"{cfg.family} prefill at pos {pos}: a prefill restarts "
-                "the SSM state from zeros, so it must start an empty "
-                "cache (pos 0)")
-        if hybrid:
-            _check_rows(pos, S, cache["ak"].shape[2])
+    if cache is None:
+        def body(xc, lp, attn: bool):
+            if attn:
+                xc, _ = _dense_layer(xc, params.shared, cfg,
+                                     positions=positions)
+            return xc + ssm_mod.mamba_block(L.norm(xc, lp.norm, cfg),
+                                            lp.mixer, cfg)[0]
+        body = _maybe_remat(body, cfg)
+        for i, lp in enumerate(params.layers):
+            x = body(x, lp, hybrid and i % every == 0)
+        return x, None
+    S = x.shape[1]
+    pos = int(cache["pos"])
+    if not decode and pos != 0:
+        raise ValueError(
+            f"{cfg.family} prefill at pos {pos}: a prefill restarts "
+            "the SSM state from zeros, so it must start an empty "
+            "cache (pos 0)")
+    if hybrid:
+        _check_rows(pos, S, cache["ak"].shape[2])
     slot = -1
     for i, lp in enumerate(params.layers):
         if hybrid and i % every == 0:
             slot += 1
-            c = None if cache is None else {
-                "k": cache["ak"][slot], "v": cache["av"][slot], "pos": pos}
+            c = {"k": cache["ak"][slot], "v": cache["av"][slot], "pos": pos}
             x, _ = _dense_layer(x, params.shared, cfg, positions=positions,
                                 cache=c)
         h = L.norm(x, lp.norm, cfg)
-        if cache is not None and decode:
+        if decode:
             y, sc = ssm_mod.mamba_decode_step(
                 h, lp.mixer, cfg, {"conv": cache["conv"][i],
                                    "state": cache["state"][i]})
         else:
             y, sc = ssm_mod.mamba_block(h, lp.mixer, cfg)
-        if cache is not None:
-            cache["conv"][i].copy_(sc["conv"])
-            cache["state"][i].copy_(sc["state"])
+        cache["conv"][i].copy_(sc["conv"])
+        cache["state"][i].copy_(sc["state"])
         x = x + y
-    if cache is None:
-        return x, None
     return x, dict(cache, pos=pos + S)
 
 
@@ -385,13 +412,17 @@ def _encdec_encoder(params, enc_input, cfg: ModelConfig):
     x = x + _sinusoidal(Se, cfg.d_model, x.dtype, dev)[None]
     positions = torch.arange(Se, device=dev)[None].expand(B, Se)
     enc = params.encoder
-    for lp in enc.layers:
-        h = L.norm(x, lp.attn_norm, cfg)
+
+    def body(xc, lp):
+        h = L.norm(xc, lp.attn_norm, cfg)
         a, _ = L.attention(h, lp.attn, cfg, q_positions=positions,
                            causal=False, use_rope=False)
-        x = x + a
-        h = L.norm(x, lp.mlp_norm, cfg)
-        x = x + L.mlp(h, lp.mlp, cfg)
+        xc = xc + a
+        h = L.norm(xc, lp.mlp_norm, cfg)
+        return xc + L.mlp(h, lp.mlp, cfg)
+    body = _maybe_remat(body, cfg)
+    for lp in enc.layers:
+        x = body(x, lp)
     return L.norm(x, enc.final_norm, cfg)
 
 
@@ -402,28 +433,31 @@ def _encdec_decoder(params, x, enc_out, cfg: ModelConfig, *, positions,
     position signal at all (no rope, no sinusoid), as in the reference.
     cache: None or {"k", "v": (L, B, T_max, K, dh), "xk", "xv": (L, B,
     Se, K, dh), "pos": int}; self-attention rows written in place."""
-    S = x.shape[1]
-    if cache is not None:
-        pos = int(cache["pos"])
-        _check_rows(pos, S, cache["k"].shape[2])
-    for i, lp in enumerate(params.layers):
-        self_c = cross_c = None
-        if cache is not None:
-            self_c = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-            cross_c = {"xk": cache["xk"][i], "xv": cache["xv"][i]}
-        h = L.norm(x, lp.attn_norm, cfg)
+    def layer(xc, lp, self_c=None, cross_c=None):
+        h = L.norm(xc, lp.attn_norm, cfg)
         a, _ = L.attention(h, lp.attn, cfg, q_positions=positions,
                            cache=self_c, causal=True, use_rope=False)
-        x = x + a
-        h = L.norm(x, lp.cross_norm, cfg)
+        xc = xc + a
+        h = L.norm(xc, lp.cross_norm, cfg)
         a, _ = L.attention(h, lp.cross, cfg, x_kv=enc_out,
                            q_positions=positions, cache=cross_c,
                            causal=False, use_rope=False)
-        x = x + a
-        h = L.norm(x, lp.mlp_norm, cfg)
-        x = x + L.mlp(h, lp.mlp, cfg)
+        xc = xc + a
+        h = L.norm(xc, lp.mlp_norm, cfg)
+        return xc + L.mlp(h, lp.mlp, cfg)
+
     if cache is None:
+        body = _maybe_remat(layer, cfg)
+        for lp in params.layers:
+            x = body(x, lp)
         return x, None
+    S = x.shape[1]
+    pos = int(cache["pos"])
+    _check_rows(pos, S, cache["k"].shape[2])
+    for i, lp in enumerate(params.layers):
+        x = layer(x, lp, {"k": cache["k"][i], "v": cache["v"][i],
+                          "pos": pos},
+                  {"xk": cache["xk"][i], "xv": cache["xv"][i]})
     return x, dict(cache, pos=pos + S)
 
 
@@ -494,6 +528,19 @@ def forward(params, batch, cfg: ModelConfig):
     if cfg.family == "vlm":
         x = x[:, prefix_len:]                        # logits on text only
     return _logits(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Next-token cross entropy (labels = batch["labels"], < 0 masked):
+    float32 logits, logsumexp minus the gold logit, summed over the
+    unmasked positions and divided by max(their count, 1)."""
+    logits = forward(params, batch, cfg).float()
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = (labels >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def prefill(params, batch, cache, cfg: ModelConfig):

@@ -27,7 +27,9 @@ from repro_torch.kernels.adc_topk import ref as adc_ref
 from repro_torch.kernels.dce_comp import dce_comp
 from repro_torch.kernels.graph_expand import graph_expand
 from repro_torch.kernels.l2_topk import l2_topk
-from repro_torch.launch import serve
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.launch import serve, train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import Model
 from repro_torch.obs import profile_kernels
 from repro_torch.sec import capture_server_view, evaluate_profile
@@ -70,7 +72,11 @@ def test_port_imports_without_jax():
             "repro_torch.models.moe, repro_torch.configs, "
             "repro_torch.configs.ppanns_datasets, repro_torch.sharding, "
             "repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.core.ame, repro_torch.core.lsh\n"
+            "repro_torch.core.ame, repro_torch.core.lsh, "
+            "repro_torch.training, repro_torch.training.optimizer, "
+            "repro_torch.training.train_loop, repro_torch.data.loader, "
+            "repro_torch.checkpoint, repro_torch.sharding.compression, "
+            "repro_torch.launch.train\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
@@ -79,6 +85,48 @@ def test_port_imports_without_jax():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+_TRAIN_WITHOUT_ML_DTYPES = """
+import sys, tempfile
+for m in ("jax", "ml_dtypes"):
+    sys.modules[m] = None
+import torch
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.data.loader import TokenStream
+from repro_torch.models import Model
+from repro_torch.training import OptConfig, build_train_step, init_train_state
+from repro_torch.training.train_loop import state_from_tree, state_tree
+model = Model(get_config("qwen3-1.7b").smoke(), device="cpu",
+              dtype=torch.bfloat16, seed=0)
+opt = OptConfig(state_dtype="bfloat16")
+state = init_train_state(model, opt)
+step = build_train_step(model, opt, n_microbatches=2)
+stream = TokenStream(vocab_size=512, seq_len=16, batch_size=4)
+state, _ = step(state, stream.next())
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, 1, state_tree(state))
+    tree, _ = restore_checkpoint(d, state_tree(state), device="cpu")
+back = state_from_tree(tree)
+for k, v in state["params"].items():
+    assert v.dtype == torch.bfloat16 and torch.equal(back["params"][k], v)
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and (m == "repro" or m.startswith(("repro.", "jax", "ml_dtypes")))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_bf16_training_and_checkpoints_need_no_ml_dtypes():
+    """The card's machine has neither JAX nor ml_dtypes: a bf16 train
+    step, a checkpoint of it and its restore run without them."""
+    out = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT_ML_DTYPES],
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                        "PATH": "/usr/bin:/bin",
+                                        "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -115,7 +163,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: secure_knn.refine_tournament(
                      C_dce, np.arange(4), np.ones(C_dce.shape[-1]), 2),
                  lambda: Model(get_config("qwen3-1.7b").smoke()),
-                 lambda: serve.main([])):
+                 lambda: serve.main([]),
+                 lambda: train.main(["--steps", "1"]),
+                 lambda: restore_checkpoint("no-such-dir", {}),
+                 lambda: make_host_mesh()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
