@@ -18,7 +18,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
    same keys for phase 6's graph inserts.  Phase 3's corpus is made and
    encrypted here too, and a sixth worker trains phase 4's pq8 codebook
    over it and encodes the rows (host numpy, ~9 min at 1M rows), which
-   the pq8 engine then takes instead of training at its attach.
+   the pq8 engine then takes instead of training at its attach.  And
+   phase 11's dry run starts in the background on the host
+   (`python -m repro_torch.launch.dryrun --all --both-meshes --mesh
+   1card_h100`, niced, 4 cells at a time; meta tensors, no card).
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them, with times (CUDA events), bounds
    and a library yardstick where one PyTorch call computes the same
@@ -257,6 +260,31 @@ Phases, each of which fails the run (non-zero exit, no final line):
        bit-equal to the same call over 4 logical host devices.
    One `train` line per check.
 
+11. The dry run held against the card (`launch/{dryrun,roofline}.py`),
+   last, after phase 5, on an emptied card: the card's total_memory must
+   be `roofline.H100_MEMORY_BYTES`; phase 1's background run must have
+   an ok record for every cell of `all_cells()` on 1pod_256, 2pod_512
+   and 1card_h100 (one `dryrun` cell line each: one-card argument and
+   peak bytes, fits_one_card, the roofline terms at chips 1 and 256);
+   (a) phase 10's bf16 step (B 8 x S 512, adamw with fp32 moments, one
+       microbatch) and phase 9's bf16 decode step (B 4, T_max 48),
+       dry-run on 1card_h100 as ShapeConfigs of those sizes: argument
+       bytes equal to the bytes of the tensors the phase allocated (the
+       state or weights, the cache, the batch), the peak within 15% of
+       the phase's measured one (those bytes + the max_memory_allocated
+       increment over one step); FLOPs and the roofline bound beside the
+       measured step;
+   (b) the paper's cell on one card: the first PPANNS_CELLS entry whose
+       1card_h100 record fits (scan_16m: 16,777,216 rows, d 128, B 1024,
+       k 10, k' 128; 81.6 GB of ciphertext-shaped random fp32 data drawn
+       in place): the sharded step over 4 logical shards against the
+       global step, ids equal in 100% of slots, K1 4 + 1 and K2 1 + 1
+       launches; device ms (median of 5) beside the roofline row; K1 (all
+       rows and one shard) and K2 at its shapes against their plain
+       versions, with the library over row chunks summed (a (1024, 2^24)
+       matrix does not fit beside the ciphertexts).  Their launches join
+       the `kernels` line as `launches_by_path` scan_16m.
+
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -265,27 +293,33 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
 import math
 import multiprocessing
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# int8 on the tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet), one home for the port: fp32 outside
+# the tensor cores, dense bf16 and int8 on the tensor cores, HBM3.
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
+    PEAK_INT8_OPS)
 
 K = 10
 RATIO_K = 8
@@ -462,15 +496,48 @@ def check_l2(nq: int, n: int, d: int, gen) -> dict:
     }
 
 
+def knn_against_plain(Q, X, k: int, exact: bool = False) -> dict:
+    """The fused scan against its plain version (the chunked merge over
+    plain tiles) on the same rows: ids equal in >= MIN_ID_AGREEMENT of
+    slots and distances within L2_RTOL * (||q||^2 + ||x||^2) where they
+    agree (`exact`: in every slot, and equal).  Raises otherwise.  ->
+    the record's error fields and its bound."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_topk
+    nq, d = Q.shape
+    n = X.shape[0]
+    got = l2_topk.knn(Q, X, k)
+    want = l2_topk.plain_knn(Q, X, k)
+    torch.cuda.synchronize()
+    kk = min(k, n)
+    same = got[1] == want[1]
+    agree = float(same.float().mean())
+    rows = X[want[1].clamp(min=0)]            # no (n, d) temporary
+    scale = (Q * Q).sum(1)[:, None] + (rows * rows).sum(-1)
+    err = (got[0] - want[0]).abs()[same]
+    rel = float((err / scale[same]).max()) if err.numel() else 0.0
+    if (got[1].shape != (nq, kk) or not torch.isfinite(got[0]).all()
+            or agree < (1.0 if exact else MIN_ID_AGREEMENT)
+            or rel > (0.0 if exact else L2_RTOL)):
+        raise AssertionError(f"fused l2 scan disagrees at nq={nq} n={n} "
+                             f"d={d} k={k}: ids {agree}, max rel err {rel}")
+    flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
+    nbytes = 4.0 * (nq * d + n * d) + 12.0 * nq * kk
+    b_ms, b_by = bound(flops, nbytes)
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_rel_err": rel, "id_agreement": agree,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def check_knn(nq: int, n: int, d: int, k: int, gen,
               home: str | None = None, exact: bool = False) -> dict:
-    """The fused scan against its plain version (the chunked merge over
-    plain tiles): DCPE-like magnitudes, the last 1% of rows repeating the
-    first, so exact ties between distinct ids occur.  `exact`: integer
-    rows and queries in [-8, 8] instead (every distance exact in any
-    summation order), and the ids and distances must be equal (the k'
-    1600 record: at 1600 slots, fp32 sums in another order swap some
-    neighbours within 1e-6 of each other)."""
+    """The fused scan against its plain version (`knn_against_plain`):
+    DCPE-like magnitudes, the last 1% of rows repeating the first, so
+    exact ties between distinct ids occur.  `exact`: integer rows and
+    queries in [-8, 8] instead (every distance exact in any summation
+    order), and the ids and distances must be equal (the k' 1600 record:
+    at 1600 slots, fp32 sums in another order swap some neighbours
+    within 1e-6 of each other)."""
     import torch
     from repro_torch.kernels.l2_topk import l2_topk
     dev = torch.device("cuda")
@@ -483,35 +550,16 @@ def check_knn(nq: int, n: int, d: int, k: int, gen,
     dup = n // 100
     if dup:
         X[n - dup:] = X[:dup]
-    got = l2_topk.knn(Q, X, k)
-    want = l2_topk.plain_knn(Q, X, k)
-    torch.cuda.synchronize()
+    checked = knn_against_plain(Q, X, k, exact)
     kk = min(k, n)
-    same = got[1] == want[1]
-    agree = float(same.float().mean())
-    qn = (Q * Q).sum(1)
-    xn = (X * X).sum(1)
-    scale = qn[:, None] + xn[want[1].clamp(min=0)]
-    err = (got[0] - want[0]).abs()[same]
-    rel = float((err / scale[same]).max()) if err.numel() else 0.0
-    if (got[1].shape != (nq, kk) or not torch.isfinite(got[0]).all()
-            or agree < (1.0 if exact else MIN_ID_AGREEMENT)
-            or rel > (0.0 if exact else L2_RTOL)):
-        raise AssertionError(f"fused l2 scan disagrees at nq={nq} n={n} "
-                             f"d={d} k={k}: ids {agree}, max rel err {rel}")
-    flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
-    nbytes = 4.0 * (nq * d + n * d) + 12.0 * nq * kk
-    b_ms, b_by = bound(flops, nbytes)
-    base = qn[:, None] + xn[None, :]
+    base = (Q * Q).sum(1)[:, None] + (X * X).sum(1)[None, :]
     Xt = X.T
     return {
         "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={k}]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/l2_topk.cu",
         "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77",
-        "max_abs_err": float(err.max()) if err.numel() else 0.0,
-        "max_rel_err": rel, "id_agreement": agree,
-        "duplicated_rows": dup, "integer_rows": exact,
+        **checked, "duplicated_rows": dup, "integer_rows": exact,
         "ms": device_ms(lambda: l2_topk.knn(Q, X, k)),
         "plain_ms": device_ms(lambda: l2_topk.plain_knn(Q, X, k),
                               reps=10, warmup=2),
@@ -520,7 +568,6 @@ def check_knn(nq: int, n: int, d: int, k: int, gen,
             largest=False)),
         "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2), "
                         "torch.topk(largest=False)",
-        "bound_ms": b_ms, "bound_by": b_by,
         **({"home": home} if home else {}),
     }
 
@@ -613,42 +660,38 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
     }
 
 
-def check_refine(B: int, n: int, d: int, k: int, gen, home: str) -> dict:
+def refine_against_plain(C_dce, cand, T, valid, k: int) -> dict:
     """The fused refine against its plain version (gather, Z, wins,
-    stable sort) on real DCE ciphertexts read through a shuffled cand:
-    ~10% of slots invalid (half of them with id -1, as the graph filter
-    leaves them), query 0 with fewer valid slots than k.  The fused
-    kernel's win counts must equal those of the Z entry (one main loop)
-    exactly, and the plain version's wins and ids wherever every pair of
-    valid slots has |Z_plain| > Z_RTOL * max|Z|; the rest is reported."""
+    stable sort): its win counts must equal those of the Z entry (one
+    main loop) exactly, and the plain version's wins and ids wherever
+    every pair of valid slots has |Z_plain| > Z_RTOL * max|Z|; the rest
+    is reported.  valid None: every slot.  Raises otherwise.  -> the
+    record's check fields and its bound, and Z alone by `bmm` +
+    `baddbmm` on the gathered, pre-scaled rows (the library call)."""
     import torch
     from repro_torch.kernels.dce_comp import dce_comp
     from repro_torch.kernels.dce_comp.ref import batched_wins
-    C, T = dce_inputs(B, n, d, gen)
-    D = C.shape[-1]
-    C_dce = C.reshape(B * n, 4, D)
-    dev = C.device
-    cand = (torch.arange(B, device=dev)[:, None] * n
-            + torch.argsort(torch.rand((B, n), generator=gen, device=dev),
-                            dim=1))
-    valid = torch.rand((B, n), generator=gen, device=dev) > 0.1
-    valid[0] = False
-    valid[0, :k - 3] = True
-    cand = torch.where(valid | (cand % 2 == 0), cand, -1).contiguous()
+    B, n = cand.shape
+    D = C_dce.shape[-1]
+    dev = C_dce.device
     args = (C_dce, cand, T, valid, k)
     ids, wins = dce_comp.refine_topk(*args, return_wins=True)
     ids_p, wins_p = dce_comp.plain_refine_topk(*args, return_wins=True)
     Cc = C_dce[cand]
     z_k = dce_comp.batched_z_matrix(Cc, T)
+    from_z = torch.equal(wins, batched_wins(z_k, valid))
     z_p = dce_comp.plain_batched_z_matrix(Cc, T)
     torch.cuda.synchronize()
-    pairs = valid[:, :, None] & valid[:, None, :] & ~torch.eye(
+    ok = (torch.ones((B, n), dtype=torch.bool, device=dev) if valid is None
+          else valid)
+    pairs = ok[:, :, None] & ok[:, None, :] & ~torch.eye(
         n, dtype=torch.bool, device=dev)[None]
     zmax = float(z_p[pairs].abs().max())
+    err = float((z_k - z_p).abs()[pairs].max())
     unsure = pairs & (z_p.abs() <= Z_RTOL * zmax)
-    sure_row = ~unsure.any(-1) & valid
+    del z_k, z_p
+    sure_row = ~unsure.any(-1) & ok
     sure_query = ~unsure.any(-1).any(-1)
-    from_z = torch.equal(wins, batched_wins(z_k, valid))
     wins_ok = bool((wins == wins_p)[sure_row].all())
     ids_ok = bool((ids == ids_p)[sure_query].all())
     if not (from_z and wins_ok and ids_ok):
@@ -662,30 +705,61 @@ def check_refine(B: int, n: int, d: int, k: int, gen, home: str) -> dict:
     flops = 4.0 * B * n * n * D + 2.0 * B * n * D + B * n * n
     nbytes = 4.0 * (B * n * 4 * D + B * D) + 9.0 * B * n + 8.0 * B * k
     b_ms, b_by = bound(flops, nbytes)
-    err = (z_k - z_p).abs()[pairs]
+    return {"max_abs_err": err, "max_rel_err": err / zmax,
+            "wins_equal_z_entry": from_z,
+            "wins_agreement": float((wins == wins_p).float().mean()),
+            "id_agreement": float((ids == ids_p).float().mean()),
+            "unsure_rows": int((~sure_row & ok).sum()),
+            "unsure_queries": int((~sure_query).sum()),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library": lambda: torch.baddbmm(torch.bmm(L1, R3), L2, R4,
+                                             beta=1.0, alpha=-1.0)}
+
+
+def refine_record(C_dce, cand, T, valid, k: int, home: str,
+                  reps: int = 30) -> dict:
+    """`refine_against_plain`, then device ms of the kernel, its plain
+    version and the library's Z alone."""
+    from repro_torch.kernels.dce_comp import dce_comp
+    checked = refine_against_plain(C_dce, cand, T, valid, k)
+    library = checked.pop("library")
+    B, n = cand.shape
+    args = (C_dce, cand, T, valid, k)
     return {
-        "name": f"dce_comp.refine_topk[B={B},n={n},D={D},k={k}]",
+        "name": f"dce_comp.refine_topk[B={B},n={n},D={C_dce.shape[-1]},"
+                f"k={k}]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/dce_comp.cu",
         "replaces": "src/repro/kernels/dce_comp/dce_comp.py:131",
-        "home": home,
-        "max_abs_err": float(err.max()),
-        "max_rel_err": float(err.max()) / zmax,
-        "wins_equal_z_entry": from_z,
-        "wins_agreement": float((wins == wins_p).float().mean()),
-        "id_agreement": float((ids == ids_p).float().mean()),
-        "unsure_rows": int((~sure_row & valid).sum()),
-        "unsure_queries": int((~sure_query).sum()),
-        "invalid_slots": int((~valid).sum()),
-        "ms": device_ms(lambda: dce_comp.refine_topk(*args)),
-        "plain_ms": device_ms(lambda: dce_comp.plain_refine_topk(*args)),
-        "library_ms": device_ms(
-            lambda: torch.baddbmm(torch.bmm(L1, R3), L2, R4,
-                                  beta=1.0, alpha=-1.0)),
+        "home": home, **checked,
+        "ms": device_ms(lambda: dce_comp.refine_topk(*args), reps=reps),
+        "plain_ms": device_ms(lambda: dce_comp.plain_refine_topk(*args),
+                              reps=reps),
+        "library_ms": device_ms(library, reps=reps),
         "library_call": "torch.baddbmm(torch.bmm(L1, R3), L2, R4, alpha=-1)"
                         " on gathered, pre-scaled L1, L2 (Z alone)",
-        "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def check_refine(B: int, n: int, d: int, k: int, gen, home: str) -> dict:
+    """The fused refine against its plain version (`refine_record`) on
+    real DCE ciphertexts read through a shuffled cand: ~10% of slots
+    invalid (half of them with id -1, as the graph filter leaves them),
+    query 0 with fewer valid slots than k."""
+    import torch
+    C, T = dce_inputs(B, n, d, gen)
+    D = C.shape[-1]
+    C_dce = C.reshape(B * n, 4, D)
+    dev = C.device
+    cand = (torch.arange(B, device=dev)[:, None] * n
+            + torch.argsort(torch.rand((B, n), generator=gen, device=dev),
+                            dim=1))
+    valid = torch.rand((B, n), generator=gen, device=dev) > 0.1
+    valid[0] = False
+    valid[0, :k - 3] = True
+    cand = torch.where(valid | (cand % 2 == 0), cand, -1).contiguous()
+    return dict(refine_record(C_dce, cand, T, valid, k, home),
+                invalid_slots=int((~valid).sum()))
 
 
 def graph_inputs(R: int, M0: int, d: int, nq: int, gen):
@@ -3379,6 +3453,33 @@ def decode_step_bytes(model, cache) -> dict:
     return out
 
 
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a nested dict (a host int counts none)."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.nbytes if isinstance(tree, torch.Tensor) else 0
+
+
+def decode_step_memory(model, token, cache) -> dict:
+    """One decode step's arguments on the card (the weights, the cache,
+    the token) and the max_memory_allocated increment over the step:
+    their sum is the step's measured peak, which phase 11 (a) holds the
+    dry run's against."""
+    import torch
+    args = (tensor_bytes(dict(model.named_parameters()))
+            + tensor_bytes(cache) + token.nbytes)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.decode_step(token, cache)
+    torch.cuda.synchronize()
+    incr = torch.cuda.max_memory_allocated() - base
+    return {"decode_step_argument_bytes": args,
+            "decode_step_peak_increment_bytes": incr,
+            "decode_step_peak_bytes": args + incr}
+
+
 def lm_generate(fp32, bf16, gen, card: str) -> dict:
     """`LMServer.generate` in bf16 at the reference CLI's batch, prompt
     and new tokens: times, greedy agreement with the fp32 model's
@@ -3409,6 +3510,7 @@ def lm_generate(fp32, bf16, gen, card: str) -> dict:
         step_ms.append(s * 1e3)
     at = dict(cache, pos=LM_PROMPT)                # rewrites one row
     step_bytes = decode_step_bytes(bf16, at)
+    step_memory = decode_step_memory(bf16, out[:, :1], at)
     prof = profile_steps(lambda i: bf16.decode_step(out[:, :1], at), 4,
                          unit="step")
 
@@ -3432,7 +3534,7 @@ def lm_generate(fp32, bf16, gen, card: str) -> dict:
            "decode_ms_per_step": step_ms,
            "decode_bound_ms": step_bytes["total"] / PEAK_BYTES_PER_S * 1e3,
            "decode_bound_by": "bytes over 3.35 TB/s",
-           "decode_step_bytes": step_bytes,
+           "decode_step_bytes": step_bytes, **step_memory,
            "decode_profile": prof,
            "greedy_equal_fp32_share": (None if same32 is None
                                        else float(same32.mean())),
@@ -3745,9 +3847,9 @@ def family_paths(card: str) -> dict:
     return on_serve
 
 
-def lm_paths(card: str) -> dict:
+def lm_paths(card: str) -> tuple[dict, dict]:
     """Phase 9: the LM server and its encrypted kNN-LM retrieval on the
-    card.  -> launches by path."""
+    card.  -> (launches by path, (a)'s bf16 `generate` record)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -3774,7 +3876,8 @@ def lm_paths(card: str) -> dict:
     free_card()
     bf16 = Model(cfg, device="cuda", dtype=torch.bfloat16, seed=None)
     bf16.load_state_dict(fp32.state_dict())
-    log(json.dumps(lm_generate(fp32, bf16, gen, card)))
+    rec_a = lm_generate(fp32, bf16, gen, card)
+    log(json.dumps(rec_a))
     del fp32
     free_card()
     rec_b, on_knn = knn_lm(bf16, gen, card)
@@ -3788,7 +3891,7 @@ def lm_paths(card: str) -> dict:
     log(json.dumps({"phase": "lm_done", "card": card,
                     "wall_s": time.perf_counter() - t_start}))
     return {"knn_lm": on_knn, "lm_serve": {
-        k: on_serve[k] + on_families.get(k, 0) for k in on_serve}}
+        k: on_serve[k] + on_families.get(k, 0) for k in on_serve}}, rec_a
 
 
 # -------------------------------------------------------------- phase 10
@@ -3805,7 +3908,6 @@ MICRO_WEIGHT_ATOL = 5e-3
 # the bars the CPU tests hold the port to against jax.grad
 # (tests/test_torch_train_parity.py)
 GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-5
-PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense bf16 on the tensor cores
 RING_DEVICES = 4
 
 
@@ -4011,12 +4113,11 @@ def train_step_split(model, opt, state, batch, reps: int = 3) -> dict:
     return out
 
 
-def train_run(card: str, tmp: Path) -> None:
+def train_run(card: str, tmp: Path) -> dict:
     """Phase 10 (c) and (d): qwen3-1.7b in bf16 at full width and depth,
     adamw with fp32 moments, B 8 x S 512, 20 steps on the Markov corpus,
     a checkpoint at step 10 restored into a fresh state whose step 11
-    must equal the uninterrupted run's bit for bit."""
-    import shutil
+    must equal the uninterrupted run's bit for bit.  -> (c)'s record."""
     import torch
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
@@ -4045,15 +4146,29 @@ def train_run(card: str, tmp: Path) -> None:
             _, save_s = sync_s(lambda: save_checkpoint(
                 str(tmp), i, state_tree(state), extra={"arch": cfg.name}))
         b = on_card(b)
+        if i == 0:
+            # step 0's arguments and its max_memory_allocated increment:
+            # the measured peak phase 11 (a) holds the dry run's against
+            step0 = {"step0_argument_bytes": tensor_bytes(state)
+                     + tensor_bytes(b)}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            pre_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, b)
         loss = float(m["loss"])
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            incr = torch.cuda.max_memory_allocated() - base
+            step0 |= {"step0_peak_increment_bytes": incr,
+                      "step0_peak_bytes": step0["step0_argument_bytes"]
+                      + incr}
         losses.append(loss)
         if i == TRAIN_SAVE_AT:
             after, loss_after = state["params"], m["loss"]
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(pre_peak, torch.cuda.max_memory_allocated())
     batch = on_card(batches[-1])
     prof = profile_steps(lambda i: step_fn(state, batch), 1, unit="step")
     split = train_step_split(model, opt, state, batch)
@@ -4073,7 +4188,7 @@ def train_run(card: str, tmp: Path) -> None:
            "loss_last5_mean": statistics.mean(losses[-5:]),
            "step_ms": step_ms, "step_ms_p50": p50,
            "tokens_per_s": TRAIN_B * TRAIN_S / p50 * 1e3,
-           "peak_allocated_bytes": peak, **fl,
+           "peak_allocated_bytes": peak, **step0, **fl,
            "bound_ms": bound_ms, "bound_by": "operations (bf16 peak)",
            "optimizer_bytes_bound_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
            "share_of_bound": bound_ms / p50, **split, **prof}
@@ -4094,6 +4209,7 @@ def train_run(card: str, tmp: Path) -> None:
     equal = all(torch.equal(state["params"][k], w) for k, w in after.items())
     ckpt_bytes = sum(f.stat().st_size
                      for f in (tmp / f"step_{TRAIN_SAVE_AT:08d}").iterdir())
+    rec_c = rec
     rec = {"phase": "train", "step": "d_checkpoint", "card": card,
            "saved_at_step": TRAIN_SAVE_AT, "entries": len(manifest["entries"]),
            "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free,
@@ -4105,6 +4221,7 @@ def train_run(card: str, tmp: Path) -> None:
     log(json.dumps(rec))
     if not (equal and rec["loss_bit_equal"] and fresh["step"] == 10):
         raise AssertionError(f"resume differs from the run: {rec}")
+    return rec_c
 
 
 def train_cli(card: str, tmp: Path) -> None:
@@ -4165,9 +4282,10 @@ def train_ring(card: str) -> None:
         raise AssertionError(f"int8 ring: card differs from host: {out}")
 
 
-def train_paths(card: str) -> dict:
-    """Phase 10: training on the card.  -> the six kernels' launches in
-    it (none: training runs no kernel of the search path)."""
+def train_paths(card: str) -> tuple[dict, dict]:
+    """Phase 10: training on the card.  -> (the six kernels' launches in
+    it (none: training runs no kernel of the search path), (c)'s
+    record)."""
     import tempfile
     import torch
     from repro_torch.device import full_fp32
@@ -4182,7 +4300,7 @@ def train_paths(card: str) -> dict:
         walls[name] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         t0 = time.perf_counter()
-        train_run(card, Path(tmp) / "run")
+        rec_c = train_run(card, Path(tmp) / "run")
         free_card()
         walls["c_d"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4199,7 +4317,319 @@ def train_paths(card: str) -> dict:
                     "peak_allocated_bytes": torch.cuda.max_memory_allocated()}))
     if any(launches.values()):
         raise AssertionError(f"training launched search kernels: {launches}")
-    return launches
+    return launches, rec_c
+
+
+# -------------------------------------------------------------- phase 11
+
+DRYRUN_JOBS = 4                 # cells the background dry run traces at once
+DRYRUN_WAIT_S = 300             # the longest phase 11 waits for it
+PEAK_REL_BAR = 0.15             # (a): dry-run peak against the card's
+SCAN_SEED = 23                  # (b): the ciphertext-shaped random data
+LIB_ROWS = 1 << 17              # (b): rows of a library chunk
+
+
+def start_dryrun() -> dict:
+    """Phase 1: `python -m repro_torch.launch.dryrun --all --both-meshes
+    --mesh 1card_h100` in the background, niced, DRYRUN_JOBS cells at a
+    time, on the host (meta tensors: no card), its records and log in a
+    temporary directory.  Its process group is killed and the directory
+    removed at exit."""
+    from repro_torch.launch import dryrun
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    out = tmp / "records"
+    with open(tmp / "dryrun.log", "w") as log_f:
+        proc = subprocess.Popen(
+            ["nice", "-n", "10", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--all", "--both-meshes",
+             "--mesh", "1card_h100", "--jobs", str(DRYRUN_JOBS),
+             "--out", str(out)],
+            cwd=ROOT / "src", stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    log(json.dumps({"phase": "dryrun", "step": "started",
+                    "cells": len(dryrun.all_cells()),
+                    "meshes": list(dryrun.MESH_NAMES),
+                    "jobs": DRYRUN_JOBS}))
+    return {"proc": proc, "out": out, "log": tmp / "dryrun.log",
+            "t0": time.perf_counter()}
+
+
+def dryrun_records(dry: dict) -> dict:
+    """Phase 11's wait for the background run; every cell must have an
+    ok record on all three meshes.  -> {(arch, shape, mesh): record}."""
+    from repro_torch.launch import dryrun, roofline
+    running = dry["proc"].poll() is None
+    t0 = time.perf_counter()
+    try:
+        rc = dry["proc"].wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(
+            f"the dry run did not end within {DRYRUN_WAIT_S} s of phase "
+            f"11 ({time.perf_counter() - dry['t0']:.0f} s since its "
+            f"start):\n{dry['log'].read_text()[-3000:]}") from None
+    waited = time.perf_counter() - t0
+    text = dry["log"].read_text()
+    recs, bad = {}, []
+    for arch, shape in dryrun.all_cells():
+        for mesh in dryrun.MESH_NAMES:
+            fn = dry["out"] / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(fn.read_text()) if fn.exists() else None
+            if not (rec and rec.get("ok")):
+                bad.append((arch, shape, mesh,
+                            rec and rec.get("error", "")[:200]))
+            recs[(arch, shape, mesh)] = rec
+    summary = [ln for ln in text.splitlines() if "[dryrun] all:" in ln]
+    log(json.dumps({"phase": "dryrun", "step": "records", "rc": rc,
+                    "records": len(recs), "not_ok": len(bad),
+                    "running_at_phase_11": running, "waited_s": waited,
+                    "since_start_s": time.perf_counter() - dry["t0"],
+                    "summary": summary[-1] if summary else None}))
+    if rc != 0 or bad:
+        raise AssertionError(f"dry run: rc {rc}, not ok {bad[:10]}\n"
+                             f"{text[-3000:]}")
+    for arch, shape in dryrun.all_cells():
+        one = recs[(arch, shape, "1card_h100")]
+        rows = {m: roofline.analyze_record(recs[(arch, shape, m)])
+                for m in ("1card_h100", "1pod_256")}
+        log(json.dumps({
+            "phase": "dryrun", "step": "cell", "arch": arch, "shape": shape,
+            "argument_bytes_1card": one["memory"]["argument_bytes"],
+            "peak_bytes_1card": one["memory"]["peak_bytes"],
+            "fits_one_card": one["fits_one_card"],
+            "trace_s": one.get("trace_s"),
+            **{f"roofline_{m}_s": {"compute": r.compute_s,
+                                   "memory": r.memory_s,
+                                   "collective": r.collective_s,
+                                   "dominant": r.dominant}
+               for m, r in rows.items()}}))
+    return recs
+
+
+def dryrun_phase_cells(card: str, lm_rec: dict, train_rec: dict) -> None:
+    """(a) the cells phases 9 and 10 ran, dry-run on 1card_h100 as
+    ShapeConfigs of their sizes: argument bytes equal to the bytes the
+    phase allocated, the peak within PEAK_REL_BAR of the phase's measured
+    one (arguments + the max_memory_allocated increment of one step);
+    FLOPs and the roofline bound beside the measured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models.config import ShapeConfig
+    cells = [
+        ("train", TRAIN_ARCH, ShapeConfig("phase10_train", "train", TRAIN_S,
+                                          TRAIN_B),
+         dict(opt="adamw", state_dtype="float32", n_micro=1,
+              accum="float32"),
+         train_rec["step0_argument_bytes"], train_rec["step0_peak_bytes"],
+         train_rec["step_ms_p50"], train_rec["flops"]),
+        ("decode", LM_ARCH, ShapeConfig("phase9_decode", "decode",
+                                        LM_PROMPT + LM_NEW, LM_BATCH), None,
+         lm_rec["decode_step_argument_bytes"],
+         lm_rec["decode_step_peak_bytes"],
+         lm_rec["decode_ms_per_step_median"], None)]
+    for what, arch, sc, ts, args, peak, step_ms, flops in cells:
+        cfg = get_config(arch)
+        rec = dryrun.cell_record(arch, sc.name, "1card_h100", cfg=cfg, sc=sc,
+                                 train_settings=ts)
+        if not rec["ok"]:
+            raise AssertionError(f"dry run of phase {what}: {rec['error']}")
+        mem = rec["memory"]
+        comp = (roofline.exec_flops(cfg, sc)["total"]
+                / roofline.PEAK_BF16_FLOPS)
+        mem_s = roofline.exec_bytes(cfg, sc, arch)["total"] / roofline.HBM_BW
+        bound_ms = max(comp, mem_s) * 1e3
+        out = {"phase": "dryrun", "step": "a", "cell": what, "card": card,
+               "arch": arch, "dtype": cfg.dtype, "batch": sc.global_batch,
+               "seq": sc.seq_len, "train_settings": ts,
+               "argument_bytes_dryrun": mem["argument_bytes"],
+               "argument_bytes_card": args,
+               "argument_bytes_equal": mem["argument_bytes"] == args,
+               "peak_bytes_dryrun": mem["peak_bytes"],
+               "peak_bytes_card": peak,
+               "peak_rel_gap": (mem["peak_bytes"] - peak) / peak,
+               "temp_bytes_dryrun": mem["temp_bytes"],
+               "temp_bytes_card": peak - args,
+               "flops_dryrun": rec["cost"]["flops"],
+               "flops_phase_model": flops,
+               "roofline_compute_ms": comp * 1e3,
+               "roofline_memory_ms": mem_s * 1e3,
+               "roofline_bound_ms": bound_ms, "step_ms_card": step_ms,
+               "share_of_bound": bound_ms / step_ms,
+               "trace_s": rec["trace_s"], "bar": PEAK_REL_BAR}
+        log(json.dumps(out))
+        if not (out["argument_bytes_equal"]
+                and abs(out["peak_rel_gap"]) <= PEAK_REL_BAR):
+            raise AssertionError(f"dry run against phase {what}: {out}")
+
+
+def scan_k1_record(Q, X, kp: int, home: str) -> dict:
+    """K1 at a (b) shape against its plain version
+    (`knn_against_plain`), device ms (median of 5; plain: one call), and
+    the library's addmm + topk over LIB_ROWS-row chunks with a topk over
+    the chunks' candidates, summed: the (nq, n) matrix does not fit
+    beside the ciphertexts."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_topk
+    nq, d = Q.shape
+    n = X.shape[0]
+    checked = knn_against_plain(Q, X, kp)
+    qn = (Q * Q).sum(1)
+
+    def library():
+        best_d, best_i = [], []
+        for s in range(0, n, LIB_ROWS):
+            Xc = X[s:s + LIB_ROWS]
+            v, i = torch.topk(torch.addmm(qn[:, None] + (Xc * Xc).sum(1),
+                                          Q, Xc.T, beta=1.0, alpha=-2.0),
+                              kp, dim=1, largest=False)
+            best_d.append(v)
+            best_i.append(i + s)
+        v, pos = torch.topk(torch.cat(best_d, 1), kp, dim=1, largest=False)
+        return v, torch.gather(torch.cat(best_i, 1), 1, pos)
+
+    return {
+        "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={kp}]",
+        "route": "cuda", "source": "src/repro_torch/csrc/l2_topk.cu",
+        "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77", **checked,
+        "ms": device_ms(lambda: l2_topk.knn(Q, X, kp), reps=5, warmup=1),
+        "plain_ms": device_ms(lambda: l2_topk.plain_knn(Q, X, kp), reps=1,
+                              warmup=0),
+        "plain_reps": 1,
+        "library_ms": device_ms(library, reps=3, warmup=1),
+        "library_call": f"torch.addmm(qn+xn, Q, X.T, alpha=-2) + "
+                        f"torch.topk over {-(-n // LIB_ROWS)} chunks of "
+                        f"{LIB_ROWS} rows, then torch.topk over their "
+                        f"candidates, summed (a ({nq}, {n}) fp32 matrix "
+                        f"does not fit beside the ciphertexts)",
+        "home": home}
+
+
+def dryrun_scan(card: str, recs: dict) -> tuple[dict, list]:
+    """(b) the paper's cell on one card: the first PPANNS_CELLS entry
+    whose 1card_h100 record fits, on ciphertext-shaped random fp32 data
+    drawn in place on the card; the sharded step over CARD_SHARDS logical
+    shards against the global one (ids equal in 100% of slots, K1 and K2
+    launched), device ms beside the roofline row; K1 and K2 at its
+    shapes against their plain versions.  -> ({cell name: launches on
+    its path}, kernel records)."""
+    import torch
+    from repro_torch.device import full_fp32
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.serving.secure_scan import (build_secure_scan_step,
+                                                 build_secure_scan_step_gspmd)
+    fits = [name for name in dryrun.PPANNS_CELLS
+            if recs[("ppanns-scan", name, "1card_h100")]["fits_one_card"]]
+    if not fits:
+        raise AssertionError("no scan cell fits one card by its dry run")
+    name = fits[0]
+    cell = dryrun.PPANNS_CELLS[name]
+    one = recs[("ppanns-scan", name, "1card_h100")]
+    n, d, B, k, kp = (cell["n"], cell["d"], cell["batch"], cell["k"],
+                      cell["k_prime"])
+    D = 2 * d + 16
+    full_fp32()
+    free_card()
+    free_before = torch.cuda.mem_get_info()[0]
+    gen = torch.Generator(device="cuda").manual_seed(SCAN_SEED)
+    t0 = time.perf_counter()
+    data = {}
+    for key, shape in (("C_sap", (n, d)), ("C_dce", (n, 4, D)),
+                       ("Q_sap", (B, d)), ("T_q", (B, D))):
+        data[key] = torch.empty(shape, device="cuda").normal_(generator=gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    args = tuple(data[key] for key in ("C_sap", "C_dce", "Q_sap", "T_q"))
+    arg_bytes = sum(t.nbytes for t in args)
+    devices = [torch.device("cuda", 0)] * dryrun.CARD_SHARDS
+    sharded = build_secure_scan_step(devices, k=k, k_prime=kp)
+    gspmd = build_secure_scan_step_gspmd(devices[:1], k=k, k_prime=kp)
+    reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ids_s, cand_s = sharded(*args, with_candidates=True)
+    torch.cuda.synchronize()
+    peak = arg_bytes + torch.cuda.max_memory_allocated() - base
+    on_sharded = kernel_launches()
+    reset_launches()
+    ids_g, cand_g = gspmd(*args, with_candidates=True)
+    torch.cuda.synchronize()
+    on_gspmd = kernel_launches()
+    launches = {kk: on_sharded[kk] + on_gspmd[kk] for kk in on_sharded}
+    with untallied():
+        ms_s = device_ms(lambda: sharded(*args), reps=5, warmup=1)
+        ms_g = device_ms(lambda: gspmd(*args), reps=5, warmup=1)
+    row = roofline.analyze_record(one)
+    rec = {"phase": "dryrun", "step": "b", "card": card, "cell": name,
+           "why": (f"the first PPANNS_CELLS entry whose 1card_h100 record "
+                   f"fits: peak {one['memory']['peak_bytes']} of "
+                   f"{roofline.H100_MEMORY_BYTES} bytes"),
+           "n": n, "d": d, "batch": B, "k": k, "k_prime": kp,
+           "shards": dryrun.CARD_SHARDS, "operand_dtype": "float32",
+           "free_bytes_before": free_before, "draw_s": draw_s,
+           "argument_bytes_card": arg_bytes,
+           "argument_bytes_dryrun": one["memory"]["argument_bytes"],
+           "peak_bytes_card": peak,
+           "peak_bytes_dryrun": one["memory"]["peak_bytes"],
+           "ids_equal_gspmd": float((ids_s == ids_g).float().mean()),
+           "candidates_equal_gspmd": float((cand_s == cand_g).float().mean()),
+           "launches_sharded": on_sharded, "launches_gspmd": on_gspmd,
+           "sharded_device_ms": ms_s, "gspmd_device_ms": ms_g,
+           "roofline_1card_ms": {"compute": row.compute_s * 1e3,
+                                 "memory": row.memory_s * 1e3,
+                                 "collective": row.collective_s * 1e3,
+                                 "dominant": row.dominant},
+           "share_of_roofline_sharded": max(row.compute_s, row.memory_s)
+           * 1e3 / ms_s,
+           "share_of_roofline_gspmd": max(row.compute_s, row.memory_s)
+           * 1e3 / ms_g}
+    log(json.dumps(rec))
+    if not (rec["ids_equal_gspmd"] == 1.0
+            and arg_bytes == one["memory"]["argument_bytes"]
+            and on_sharded["l2_topk.knn"] == dryrun.CARD_SHARDS
+            and on_gspmd["l2_topk.knn"] == 1
+            and on_sharded["dce_comp.refine_topk"] == 1
+            and on_gspmd["dce_comp.refine_topk"] == 1):
+        raise AssertionError(f"the scan cell on the card: {rec}")
+    del ids_s, ids_g, cand_s
+    free_card()
+    per = n // dryrun.CARD_SHARDS
+    kernels = [scan_k1_record(data["Q_sap"], data["C_sap"], kp, name),
+               scan_k1_record(data["Q_sap"], data["C_sap"][:per], kp, name),
+               refine_record(data["C_dce"], cand_g, data["T_q"], None, k,
+                             name, reps=10)]
+    for r in kernels:
+        log(json.dumps(dict(r, card=card)))
+    del data, args, cand_g
+    free_card()
+    return {name: launches}, kernels
+
+
+def dryrun_paths(card: str, dry: dict, lm_rec: dict,
+                 train_rec: dict) -> tuple[dict, list]:
+    """Phase 11: the dry run held against the card.  -> ({(b)'s cell:
+    launches on its path}, its kernel records)."""
+    import torch
+    from repro_torch.launch import roofline
+    t_start = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if total != roofline.H100_MEMORY_BYTES:
+        raise AssertionError(f"the card holds {total} bytes; the dry run's "
+                             f"H100_MEMORY_BYTES is "
+                             f"{roofline.H100_MEMORY_BYTES}")
+    recs = dryrun_records(dry)
+    dryrun_phase_cells(card, lm_rec, train_rec)
+    on_scan, kernels = dryrun_scan(card, recs)
+    log(json.dumps({"phase": "dryrun_done", "card": card,
+                    "total_memory": total, "kernel_launches": on_scan,
+                    "wall_s": time.perf_counter() - t_start}))
+    return on_scan, kernels
 
 
 def main() -> int:
@@ -4217,7 +4647,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
     # phase 1 -------------------------------------------------------
@@ -4232,6 +4661,7 @@ def main() -> int:
     for line in Path(str(lib) + ".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
+    dry = start_dryrun()            # phase 11's records, on the host
 
     # the pool's exit terminates the workers, also on a failure: the
     # owner's global HNSW, phase 8's per-shard subgraphs and phase 4's
@@ -4326,10 +4756,10 @@ def main() -> int:
         on_sharded, rec_sharded_graph = sharded_paths(corpus, graph)
 
         # phase 9 ---------------------------------------------------
-        on_lm = lm_paths(card)
+        on_lm, lm_rec = lm_paths(card)
 
         # phase 10 --------------------------------------------------
-        on_train = train_paths(card)
+        on_train, train_rec = train_paths(card)
 
         # phase 4's pq8 engine, after the worker's codebook ------------
         phase4("adc_pq8", "pq8", "flat")
@@ -4344,8 +4774,14 @@ def main() -> int:
                         "recall@10_sharded": rec_sharded_graph["recall@10"],
                         "recall@10_global_graph": graph["recall_global"]}))
 
+    # phase 11, last, on an emptied card -------------------------------
+    del graph
+    free_card()
+    on_scan, scan_records = dryrun_paths(card, dry, lm_rec, train_rec)
+    records += scan_records
+
     paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
-             **on_api, **on_sharded, **on_lm, "train": on_train}
+             **on_api, **on_sharded, **on_lm, "train": on_train, **on_scan}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",

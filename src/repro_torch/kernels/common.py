@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["next_bucket", "running_topk_scan", "top_positions", "pad_to",
-           "padded_size", "on_cpu", "pass_sizes", "floor_passes"]
+           "padded_size", "on_cpu", "on_meta", "pass_sizes", "floor_passes"]
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -24,6 +24,14 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"tensors on mixed devices: "
                      f"{[str(t.device) for t in tensors]}")
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True iff every tensor is a `meta` tensor (shape and dtype, no
+    storage: the dry run's stand-ins), for which a wrapper makes its
+    kernel's outputs and device buffers, of the shapes the card would
+    allocate, and launches nothing."""
+    return all(t.device.type == "meta" for t in tensors)
 
 
 def next_bucket(n: int, minimum: int = 1, maximum: int | None = None) -> int:

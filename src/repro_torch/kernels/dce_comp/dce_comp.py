@@ -12,7 +12,8 @@ The kernels (`csrc/dce_comp.cu`) replace both Pallas TPU kernels of
       and a per-query ranking, counted as one in `launches`.
 
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
-they run the plain versions beside them.
+they run the plain versions beside them; for `meta` tensors
+`refine_topk` makes the outputs a launch would allocate.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..common import on_cpu
+from ..common import on_cpu, on_meta
 from .ref import batched_z_matrix as plain_batched_z_matrix
 from .ref import refine_topk as plain_refine_topk
 
@@ -123,7 +124,8 @@ def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
     tensors must be contiguous, float32 (C_dce, T) and int64 (cand); the
     kernels run on the current stream without synchronizing."""
     tensors = (C_dce, cand, T) if valid is None else (C_dce, cand, T, valid)
-    if on_cpu(*tensors):
+    meta = on_meta(*tensors)
+    if not meta and on_cpu(*tensors):
         return plain_refine_topk(C_dce, cand, T, valid, k,
                                  return_wins=return_wins)
     if (C_dce.dim() != 3 or C_dce.shape[1] != 4 or cand.dim() != 2
@@ -150,7 +152,7 @@ def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
     dev = C_dce.device
     out = torch.empty((B, max(k, 0)), dtype=torch.int64, device=dev)
     wins = torch.empty((B, n), dtype=torch.int32, device=dev)
-    if k > 0 and B > 0:
+    if k > 0 and B > 0 and not meta:
         fn = _build.function("repro_dce_refine_topk", _REFINE_ARGTYPES)
         vptr = 0 if valid is None else valid.view(torch.uint8).data_ptr()
         err = fn(C_dce.data_ptr(), C_dce.shape[0], cand.data_ptr(),

@@ -12,7 +12,8 @@ loop of its wrapper `repro/kernels/l2_topk/ops.py :: knn`:
 
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
 they run the plain versions beside them, `plain_pairwise_sq_dists` and
-`plain_knn` (the chunked merge over plain tiles).
+`plain_knn` (the chunked merge over plain tiles); for `meta` tensors
+`knn` makes the outputs and buffers a launch would allocate.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import floor_passes, on_cpu
+from ..common import floor_passes, on_cpu, on_meta, pass_sizes
 from .ref import pairwise_sq_dists as plain_pairwise_sq_dists
 from .ref import scan_knn as plain_knn
 
@@ -38,6 +39,7 @@ MAX_KP = 1024                   # the fused scan's largest top-k a pass
 # are cut into chunks.
 _ROWS = 512
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
+_SMS = 132                      # H100 SXM streaming multiprocessors
 
 _TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
 _KNN_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
@@ -94,11 +96,41 @@ def _plan(nq: int, n: int, k: int, dev):
         raise ValueError(f"the fused l2 scan needs {need} bytes of shared "
                          f"memory a block at k={k}; the card has {limit}")
     qb = _build.function("repro_l2_knn_queries_per_block", [_build.INT])(k)
+    return _chunks(nq, n, qb, props.multi_processor_count)
+
+
+def _chunks(nq: int, n: int, qb: int, sms: int):
+    """(chunk_rows, G): the rows cut into G chunks of a multiple of _ROWS
+    rows, about one block per SM over the ceil(nq / qb) query groups."""
     groups = -(-nq // qb)
     tiles = -(-n // _ROWS)
-    G = min(tiles, max(1, -(-props.multi_processor_count // groups)))
+    G = min(tiles, max(1, -(-sms // groups)))
     chunk_rows = -(-tiles // G) * _ROWS
     return chunk_rows, -(-n // chunk_rows)
+
+
+def _meta_knn(Q: torch.Tensor, X: torch.Tensor, k: int):
+    """knn on `meta` tensors: each pass's outputs and its (nq, G, kp)
+    partial-result buffer, as the card allocates them (queries a block
+    as csrc/l2_topk.cu's queries_per_block, the H100's SMs)."""
+    nq, n = Q.shape[0], X.shape[0]
+    k = min(int(k), n)
+    if k <= 0 or nq == 0:
+        return (torch.empty((nq, max(k, 0)), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((nq, max(k, 0)), dtype=torch.int64,
+                            device="meta"))
+    dists, ids = [], []
+    for kp in pass_sizes(k, MAX_KP):
+        _, G = _chunks(nq, n, 32 if kp <= 256 else 8, _SMS)
+        part = torch.empty((nq, G, kp), dtype=torch.int64, device="meta")
+        dists.append(torch.empty((nq, kp), dtype=torch.float32,
+                                 device="meta"))
+        ids.append(torch.empty((nq, kp), dtype=torch.int64, device="meta"))
+        del part
+    if len(dists) == 1:
+        return dists[0], ids[0]
+    return torch.cat(dists, 1), torch.cat(ids, 1)
 
 
 def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
@@ -111,6 +143,9 @@ def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
     and contiguous; the kernels run on the current stream without
     synchronizing.  `chunk` is the plain version's block of rows (CPU
     tensors only)."""
+    if on_meta(Q, X):
+        _check_operands(Q, X, "knn")
+        return _meta_knn(Q, X, k)
     if on_cpu(Q, X):
         return plain_knn(Q, X, k, chunk=chunk)
     _check_operands(Q, X, "knn")

@@ -27,7 +27,7 @@ from . import transformer as T
 from .config import ModelConfig, ShapeConfig
 
 __all__ = ["Model", "batch_metas", "concrete_batch", "cache_metas",
-           "n_active_params"]
+           "n_params", "n_active_params"]
 
 
 # ------------------------------------------------------------ batch metas
@@ -119,6 +119,12 @@ def _meta_leaves(tree: dict, path: tuple = ()):
             yield from _meta_leaves(v, path + (name,))
 
 
+def n_params(cfg: ModelConfig) -> int:
+    """Parameters of the model, from the metas alone (no weight is
+    allocated): the reference's `Model.n_params`."""
+    return sum(math.prod(m.shape) for _, m in _meta_leaves(T.param_metas(cfg)))
+
+
 def n_active_params(cfg: ModelConfig) -> int:
     """Parameters touched per token, from the metas alone (no weight is
     allocated): for moe the expert stacks count k of their E experts;
@@ -174,8 +180,7 @@ class Model(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def n_meta_params(self) -> int:
-        return sum(math.prod(m.shape)
-                   for _, m in _meta_leaves(self.param_metas()))
+        return n_params(self.cfg)
 
     def n_active_params(self) -> int:
         """MoE: parameters touched per token (top-k of E experts)."""

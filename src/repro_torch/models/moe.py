@@ -48,7 +48,8 @@ def _assign(sel, E: int, C: int):
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     # rank of each assignment within its expert's group
-    counts = torch.bincount(se, minlength=E)                     # (E,)
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device)    # (E,)
+    counts.scatter_add_(0, se, torch.ones_like(se))   # bincount, meta too
     seg_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(se.shape[0], device=sel.device) - seg_start[se]
     keep = rank < C

@@ -76,7 +76,8 @@ def test_port_imports_without_jax():
             "repro_torch.training, repro_torch.training.optimizer, "
             "repro_torch.training.train_loop, repro_torch.data.loader, "
             "repro_torch.checkpoint, repro_torch.sharding.compression, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n")
