@@ -58,7 +58,18 @@ Phases, each of which fails the run (non-zero exit, no final line):
      dce_comp.z_matrix (K3, its column tiles split over more blocks):
      within the Z tolerance of the plain version, and bit-equal to the
      batched entry's Z of the same set;
-     the fused top-k scans also at k' 1600 (two passes of 800 each).
+     the fused top-k scans also at k' 1600 (two passes of 800 each);
+     16-bit rows read in place (bf16 and f16): l2_topk.knn at nq 32 x 1M
+     x d 128, k' 80 and dce_comp.refine_topk at B 32 x n 80 / 320, D 272
+     (rows and queries / trapdoors rounded to 16 bits), each held to
+     its plain version with the tolerances above and bit-equal (ids,
+     distances, wins) to the float32 kernel on float32 copies of the
+     same values; the library yardsticks upcast in the call; and, on no
+     path, the tile entry (nq 32, n 4096, d 128) and the Z entry (n 512
+     and 640, D 272: RI 2 and 3) on bf16 and f16 rows, held the same two
+     ways.  A record whose
+     shape no path runs (the f16 rows, K2 at n 320 in 16 bits) reports 0
+     launches on no path.
 3. The flat path: a synthetic SIFT-width corpus (clustered Gaussians)
    encrypted on the card by `DataOwner.encrypt_vectors`, queries
    encrypted by `User`, and `SecureSearchEngine(backend="flat")` on the
@@ -72,7 +83,14 @@ Phases, each of which fails the run (non-zero exit, no final line):
    small database is also searched on the card and on the host (plain
    versions) from the numpy encryption, through the flat, IVF, ADC
    (int8 / pq8, flat / IVF) and ADC graph filters: the ids must agree
-   as on the flat path.
+   as on the flat path.  Then the secure-scan step
+   (`build_secure_scan_step_gspmd`, batches of 32, k' 80) over the same
+   corpus with its four operands all float32, a bf16 filter (C_sap and
+   Q bf16, the refine float32) and all bf16 (the reference's bf16
+   cells), K1 and K2 reading the bf16 ones in place: recall@10 of
+   each (`scan_forms` line); the float32 form's ids = the flat engine's
+   in >= 99.9% of slots, the all-bf16 form's = the step's on float32
+   copies of the bf16 values in every slot.
 4. The ADC paths, after the flat engine is freed, on the same
    ciphertexts and queries: `SecureSearchEngine(backend="flat",
    quantization="int8" | "pq8")` (codebook trained on the host at
@@ -94,7 +112,11 @@ Phases, each of which fails the run (non-zero exit, no final line):
    limits as the flat path), and the per-query host walk
    (`HNSWGraphFilter`) on the first 64 queries.  `graph_breakdown`
    times the fused walk against the parent's torch descent and the
-   layer-0 entry alone, and the scan trace's download.
+   layer-0 entry alone, and the scan trace's download.  Then every
+   batch's walk again with C_SAP and the queries rounded to bf16 and to
+   f16 (paths graph_bf16 and graph_f16, one graph_walk a batch): beams,
+   distances, visited, hops and edges bit-equal to the float32 kernel on
+   float32 copies, beam ids = the plain walk's on 4 batches (>= 99.9%).
 
 6. The serving runtime (`serving/runtime`), run after phase 4's int8
    engines and before phase 5, on phase 3's ciphertexts and queries and
@@ -283,7 +305,21 @@ Phases, each of which fails the run (non-zero exit, no final line):
        rows and one shard) and K2 at its shapes against their plain
        versions, with the library over row chunks summed (a (1024, 2^24)
        matrix does not fit beside the ciphertexts).  Their launches join
-       the `kernels` line as `launches_by_path` scan_16m.
+       the `kernels` line as `launches_by_path` scan_16m;
+   (c) after (b) has freed its 81.6 GB, the reference's bf16 cells at
+       their sizes, nothing cut: scan_16m_bf16 (B 1024) and
+       scan_16m_bf16_b4096 (B 4096) over one corpus of 2^24 rows drawn
+       in place in bf16 (40.8 GB; bf16 queries and trapdoors a cell),
+       K1 and K2 reading it in place: sharded ids = global ids in 100%
+       of slots, K1 4 + 1 and K2 1 + 1 launches, device ms (median of 5;
+       3 at B 4096) beside the roofline row, argument bytes equal to the
+       dry run's and the peak within 1% of its peak (a float32 copy of
+       C_sap alone would add 8.6 GB); at B 1024 also K1 at one shard and
+       on all rows against its plain version (plain and library timed
+       at each), K1 on all rows bit-equal to the float32 kernel on a
+       float32 copy of C_sap, and K2 on the global
+       step's candidates bit-equal to the float32 kernel on their
+       float32 copy.
 
 The second-to-last line is the kernels' JSON record, the last line the
 device record.  Without a CUDA device the script exits 2 and prints no
@@ -328,6 +364,11 @@ L2_RTOL = 1e-5
 Z_RTOL = 1e-5
 MIN_ID_AGREEMENT = 0.999
 MAX_RECALL_GAP = 0.005
+HALF_DTYPES = ("bfloat16", "float16")   # the 16-bit rows the kernels read
+NO_PATH = "-"           # a record's home when no path runs its shape
+# the path whose launches a 16-bit kernel record reports (phase 3's
+# all-bf16 scan form; no path reads f16 ciphertexts)
+SCAN_HOME = {"bfloat16": "scan_1m_bf16", "float16": NO_PATH}
 GRAPH_RTOL = 1e-5
 OWNER_SEED = 0
 # graph path: the owner's HNSW build settings (those of BENCH_graph.json)
@@ -460,38 +501,58 @@ def untallied():
 
 # --------------------------------------------------------------- phase 2
 
-def check_l2(nq: int, n: int, d: int, gen) -> dict:
+def check_l2(nq: int, n: int, d: int, gen, dtype: str = "float32") -> dict:
+    """The tile entry against its plain version.  16-bit `dtype`: rows
+    and queries rounded to it and read in place, the output also
+    bit-equal to the entry's on float32 copies of the same values, on no
+    path (NO_PATH), and the library call upcasts the rows in the call."""
     import torch
     from repro_torch.kernels.l2_topk import l2_topk
     dev = torch.device("cuda")
+    t = getattr(torch, dtype)
     # DCPE-like magnitudes: s = 1024 times unit-scale coordinates
-    Q = 1024.0 * torch.randn((nq, d), generator=gen, device=dev)
-    X = 1024.0 * torch.randn((n, d), generator=gen, device=dev)
+    Q = (1024.0 * torch.randn((nq, d), generator=gen, device=dev)).to(t)
+    X = (1024.0 * torch.randn((n, d), generator=gen, device=dev)).to(t)
+    Q32, X32 = Q.float(), X.float()
     got = l2_topk.pairwise_sq_dists(Q, X)
     want = l2_topk.plain_pairwise_sq_dists(Q, X)
     torch.cuda.synchronize()
-    scale = (Q * Q).sum(1)[:, None] + (X * X).sum(1)[None, :]
+    scale = (Q32 * Q32).sum(1)[:, None] + (X32 * X32).sum(1)[None, :]
     err = (got - want).abs()
     rel = float((err / scale).max())
     if not torch.isfinite(got).all() or rel > L2_RTOL:
         raise AssertionError(f"l2 kernel disagrees at nq={nq} n={n} "
-                             f"d={d}: max rel err {rel:.3g}")
+                             f"d={d} {dtype}: max rel err {rel:.3g}")
+    half = {}
+    if dtype != "float32":
+        half = {"row_dtype": dtype, "home": NO_PATH,
+                "bit_equal_to_float32_kernel": bool(torch.equal(
+                    got, l2_topk.pairwise_sq_dists(Q32, X32))),
+                "ms_float32_copy": device_ms(
+                    lambda: l2_topk.pairwise_sq_dists(Q32, X32))}
+        if not half["bit_equal_to_float32_kernel"]:
+            raise AssertionError(f"l2 tiles on {dtype} rows differ from "
+                                 f"their float32 copy at nq={nq} n={n}")
     base = scale.clone()
-    Xt = X.T
     flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
-    nbytes = 4.0 * (nq * d + n * d + nq * n)
+    nbytes = Q.element_size() * nq * d + X.element_size() * n * d \
+        + 4.0 * nq * n
     b_ms, b_by = bound(flops, nbytes)
     return {
-        "name": f"l2_topk.pairwise_sq_dists[nq={nq},n={n},d={d}]",
+        "name": f"l2_topk.pairwise_sq_dists[nq={nq},n={n},d={d}"
+                + ("" if dtype == "float32" else f",{dtype}") + "]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/l2_topk.cu",
         "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77",
-        "max_abs_err": float(err.max()), "max_rel_err": rel,
+        "max_abs_err": float(err.max()), "max_rel_err": rel, **half,
         "ms": device_ms(lambda: l2_topk.pairwise_sq_dists(Q, X)),
         "plain_ms": device_ms(lambda: l2_topk.plain_pairwise_sq_dists(Q, X)),
         "library_ms": device_ms(
-            lambda: torch.addmm(base, Q, Xt, beta=1.0, alpha=-2.0)),
-        "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2)",
+            lambda: torch.addmm(base, Q.float(), X.float().T, beta=1.0,
+                                alpha=-2.0)),
+        "library_call": "torch.addmm(qn+xn, Q, X.T, alpha=-2)" + (
+            "" if dtype == "float32" else
+            f" on the {dtype} rows and queries upcast in the call"),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -501,7 +562,8 @@ def knn_against_plain(Q, X, k: int, exact: bool = False) -> dict:
     plain tiles) on the same rows: ids equal in >= MIN_ID_AGREEMENT of
     slots and distances within L2_RTOL * (||q||^2 + ||x||^2) where they
     agree (`exact`: in every slot, and equal).  Raises otherwise.  ->
-    the record's error fields and its bound."""
+    the record's error fields and its bound (Q and X counted in their own
+    element sizes: 16-bit rows move half the bytes)."""
     import torch
     from repro_torch.kernels.l2_topk import l2_topk
     nq, d = Q.shape
@@ -512,8 +574,9 @@ def knn_against_plain(Q, X, k: int, exact: bool = False) -> dict:
     kk = min(k, n)
     same = got[1] == want[1]
     agree = float(same.float().mean())
-    rows = X[want[1].clamp(min=0)]            # no (n, d) temporary
-    scale = (Q * Q).sum(1)[:, None] + (rows * rows).sum(-1)
+    rows = X[want[1].clamp(min=0)].float()    # no (n, d) temporary
+    Qf = Q.float()
+    scale = (Qf * Qf).sum(1)[:, None] + (rows * rows).sum(-1)
     err = (got[0] - want[0]).abs()[same]
     rel = float((err / scale[same]).max()) if err.numel() else 0.0
     if (got[1].shape != (nq, kk) or not torch.isfinite(got[0]).all()
@@ -522,7 +585,8 @@ def knn_against_plain(Q, X, k: int, exact: bool = False) -> dict:
         raise AssertionError(f"fused l2 scan disagrees at nq={nq} n={n} "
                              f"d={d} k={k}: ids {agree}, max rel err {rel}")
     flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d + 3.0 * nq * n
-    nbytes = 4.0 * (nq * d + n * d) + 12.0 * nq * kk
+    nbytes = (Q.element_size() * nq * d + X.element_size() * n * d
+              + 12.0 * nq * kk)
     b_ms, b_by = bound(flops, nbytes)
     return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
             "max_rel_err": rel, "id_agreement": agree,
@@ -588,10 +652,18 @@ def dce_inputs(B: int, n: int, d: int, gen):
             torch.as_tensor(T, device="cuda").contiguous())
 
 
-def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
+def check_z(B: int, n: int, d: int, gen, single: bool = False,
+            dtype: str = "float32") -> dict:
+    """The Z entries against their plain versions.  16-bit `dtype`:
+    ciphertexts and trapdoors rounded to it and read in place, Z also
+    bit-equal to the entry's on float32 copies of the same values, on no
+    path (NO_PATH), and the library call upcasts and scales in the
+    call."""
     import torch
     from repro_torch.kernels.dce_comp import dce_comp
+    t = getattr(torch, dtype)
     C, T = dce_inputs(B, n, d, gen)
+    C, T = C.to(t), T.to(t)
     D = C.shape[-1]
     if single:
         C, T = C[0].contiguous(), T[0].contiguous()
@@ -607,9 +679,9 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
     signs_ok = bool(((got < 0) == (want < 0))[sure].all())
     if not torch.isfinite(got).all() or float(err.max()) > Z_RTOL * zmax \
             or not signs_ok:
-        raise AssertionError(f"Z kernel disagrees at B={B} n={n} D={D}: "
-                             f"max err {float(err.max()):.3g} of max|Z| "
-                             f"{zmax:.3g}, signs ok {signs_ok}")
+        raise AssertionError(f"Z kernel disagrees at B={B} n={n} D={D} "
+                             f"{dtype}: max err {float(err.max()):.3g} of "
+                             f"max|Z| {zmax:.3g}, signs ok {signs_ok}")
     exact = {}
     if single:
         # K3's split plan against the batched entry's plan (32 copies of
@@ -620,29 +692,51 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
         exact["equal_to_batched_entry"] = bool(torch.equal(
             got, dce_comp.batched_z_matrix(Cb32, Tb32)[5]))
         Ci = torch.randint(-8, 9, C.shape, generator=gen,
-                           device="cuda").float()
+                           device="cuda").to(t)
         Ti = torch.randint(-3, 4, T.shape, generator=gen,
-                           device="cuda").float()
+                           device="cuda").to(t)
         exact["equal_to_plain_on_integers"] = bool(torch.equal(
             kern(Ci, Ti), plain(Ci, Ti)))
         exact["plan"] = dce_comp.z_plan(1, n)
-        if not all(v for k, v in exact.items() if k != "plan"):
-            raise AssertionError(f"z_matrix at n={n} D={D} is not "
-                                 f"bit-equal: {exact}")
+    C32, T32 = C.float(), T.float()
+    if dtype != "float32":
+        exact.update(row_dtype=dtype, home=NO_PATH,
+                     bit_equal_to_float32_kernel=bool(torch.equal(
+                         got, kern(C32, T32))),
+                     ms_float32_copy=device_ms(lambda: kern(C32, T32)))
+    if not all(v for k, v in exact.items()
+               if k not in ("plan", "row_dtype", "home", "ms_float32_copy")):
+        raise AssertionError(f"Z at B={B} n={n} D={D} {dtype} is not "
+                             f"bit-equal: {exact}")
     Cb = C if not single else C[None]
     Tb = T if not single else T[None]
-    L1 = (Cb[:, :, 0] * Tb[:, None]).contiguous()
-    L2 = (Cb[:, :, 1] * Tb[:, None]).contiguous()
-    R3 = Cb[:, :, 2].transpose(1, 2)
-    R4 = Cb[:, :, 3].transpose(1, 2)
     nb = Cb.shape[0]
+
+    if dtype == "float32":
+        L1 = (Cb[:, :, 0] * Tb[:, None]).contiguous()
+        L2 = (Cb[:, :, 1] * Tb[:, None]).contiguous()
+        R3 = Cb[:, :, 2].transpose(1, 2)
+        R4 = Cb[:, :, 3].transpose(1, 2)
+
+        def library():
+            return torch.baddbmm(torch.bmm(L1, R3), L2, R4, beta=1.0,
+                                 alpha=-1.0)
+    else:
+        def library():
+            Cf, Tf = Cb.float(), Tb.float()[:, None]
+            return torch.baddbmm(
+                torch.bmm(Cf[:, :, 0] * Tf, Cf[:, :, 2].transpose(1, 2)),
+                Cf[:, :, 1] * Tf, Cf[:, :, 3].transpose(1, 2), beta=1.0,
+                alpha=-1.0)
     flops = 4.0 * nb * n * n * D + 2.0 * nb * n * D + nb * n * n
-    nbytes = 4.0 * (nb * n * 4 * D + nb * D + nb * n * n)
+    nbytes = (C.element_size() * (nb * n * 4 * D + nb * D)
+              + 4.0 * nb * n * n)
     b_ms, b_by = bound(flops, nbytes)
     name = ("dce_comp.z_matrix" if single else "dce_comp.batched_z_matrix")
     shape = f"n={n},D={D}" if single else f"B={B},n={n},D={D}"
     return {
-        "name": f"{name}[{shape}]",
+        "name": f"{name}[{shape}"
+                + ("" if dtype == "float32" else f",{dtype}") + "]",
         "route": "cuda",
         "source": "src/repro_torch/csrc/dce_comp.cu",
         "replaces": ("src/repro/kernels/dce_comp/dce_comp.py:67" if single
@@ -651,11 +745,11 @@ def check_z(B: int, n: int, d: int, gen, single: bool = False) -> dict:
         "max_rel_err": float(err.max()) / zmax, **exact,
         "ms": device_ms(lambda: kern(C, T)),
         "plain_ms": device_ms(lambda: plain(C, T)),
-        "library_ms": device_ms(
-            lambda: torch.baddbmm(torch.bmm(L1, R3), L2, R4,
-                                  beta=1.0, alpha=-1.0)),
+        "library_ms": device_ms(library),
         "library_call": "torch.baddbmm(torch.bmm(L1, R3), L2, R4, alpha=-1)"
-                        " on pre-scaled L1, L2",
+                        + (" on pre-scaled L1, L2" if dtype == "float32" else
+                           f"; the {dtype} rows upcast and scaled in the "
+                           f"call"),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -667,7 +761,8 @@ def refine_against_plain(C_dce, cand, T, valid, k: int) -> dict:
     every pair of valid slots has |Z_plain| > Z_RTOL * max|Z|; the rest
     is reported.  valid None: every slot.  Raises otherwise.  -> the
     record's check fields and its bound, and Z alone by `bmm` +
-    `baddbmm` on the gathered, pre-scaled rows (the library call)."""
+    `baddbmm` on the gathered, pre-scaled rows (the library call; for
+    16-bit rows the upcast of the gathered rows and the scaling too)."""
     import torch
     from repro_torch.kernels.dce_comp import dce_comp
     from repro_torch.kernels.dce_comp.ref import batched_wins
@@ -698,22 +793,36 @@ def refine_against_plain(C_dce, cand, T, valid, k: int) -> dict:
         raise AssertionError(f"fused refine disagrees at B={B} n={n} D={D}: "
                              f"wins = Z entry's {from_z}, = plain on sure "
                              f"rows {wins_ok}, ids on sure queries {ids_ok}")
-    L1 = (Cc[:, :, 0] * T[:, None]).contiguous()
-    L2 = (Cc[:, :, 1] * T[:, None]).contiguous()
-    R3 = Cc[:, :, 2].transpose(1, 2)
-    R4 = Cc[:, :, 3].transpose(1, 2)
     flops = 4.0 * B * n * n * D + 2.0 * B * n * D + B * n * n
-    nbytes = 4.0 * (B * n * 4 * D + B * D) + 9.0 * B * n + 8.0 * B * k
+    nbytes = (C_dce.element_size() * B * n * 4 * D + T.element_size() * B * D
+              + 9.0 * B * n + 8.0 * B * k)
     b_ms, b_by = bound(flops, nbytes)
+    if C_dce.dtype == torch.float32:
+        L1 = (Cc[:, :, 0] * T[:, None]).contiguous()
+        L2 = (Cc[:, :, 1] * T[:, None]).contiguous()
+        R3 = Cc[:, :, 2].transpose(1, 2)
+        R4 = Cc[:, :, 3].transpose(1, 2)
+
+        def library():
+            return torch.baddbmm(torch.bmm(L1, R3), L2, R4, beta=1.0,
+                                 alpha=-1.0)
+    else:
+        Tf = T.float()
+
+        def library():
+            Cf = Cc.float()
+            return torch.baddbmm(
+                torch.bmm(Cf[:, :, 0] * Tf[:, None],
+                          Cf[:, :, 2].transpose(1, 2)),
+                Cf[:, :, 1] * Tf[:, None], Cf[:, :, 3].transpose(1, 2),
+                beta=1.0, alpha=-1.0)
     return {"max_abs_err": err, "max_rel_err": err / zmax,
             "wins_equal_z_entry": from_z,
             "wins_agreement": float((wins == wins_p).float().mean()),
             "id_agreement": float((ids == ids_p).float().mean()),
             "unsure_rows": int((~sure_row & ok).sum()),
             "unsure_queries": int((~sure_query).sum()),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library": lambda: torch.baddbmm(torch.bmm(L1, R3), L2, R4,
-                                             beta=1.0, alpha=-1.0)}
+            "bound_ms": b_ms, "bound_by": b_by, "library": library}
 
 
 def refine_record(C_dce, cand, T, valid, k: int, home: str,
@@ -725,9 +834,11 @@ def refine_record(C_dce, cand, T, valid, k: int, home: str,
     library = checked.pop("library")
     B, n = cand.shape
     args = (C_dce, cand, T, valid, k)
+    dt = str(C_dce.dtype).removeprefix("torch.")
     return {
         "name": f"dce_comp.refine_topk[B={B},n={n},D={C_dce.shape[-1]},"
-                f"k={k}]",
+                f"k={k}" + ("" if dt == "float32" else f",{dt}") + "]",
+        "row_dtype": dt,
         "route": "cuda",
         "source": "src/repro_torch/csrc/dce_comp.cu",
         "replaces": "src/repro/kernels/dce_comp/dce_comp.py:131",
@@ -737,7 +848,9 @@ def refine_record(C_dce, cand, T, valid, k: int, home: str,
                               reps=reps),
         "library_ms": device_ms(library, reps=reps),
         "library_call": "torch.baddbmm(torch.bmm(L1, R3), L2, R4, alpha=-1)"
-                        " on gathered, pre-scaled L1, L2 (Z alone)",
+                        " on gathered, pre-scaled L1, L2 (Z alone)" + (
+                            "" if dt == "float32" else
+                            f"; the {dt} rows upcast and scaled in the call"),
     }
 
 
@@ -762,6 +875,91 @@ def check_refine(B: int, n: int, d: int, k: int, gen, home: str) -> dict:
                 invalid_slots=int((~valid).sum()))
 
 
+def equal_outputs(got, want) -> bool:
+    """Every output tensor equal, dtype and bits."""
+    import torch
+    return all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def check_knn_16(nq: int, n: int, d: int, k: int, gen, dtype: str,
+                 home: str) -> dict:
+    """K1 reading 16-bit rows in place: DCPE-like rows and queries (1%
+    of rows duplicated) rounded to `dtype`; ids against the plain version
+    (`knn_against_plain`'s tolerances), and ids and distances bit-equal
+    to the float32 kernel on float32 copies of the same values.  The
+    library yardstick upcasts the rows in the call."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_topk
+    dev = torch.device("cuda")
+    t = getattr(torch, dtype)
+    Q = (1024.0 * torch.randn((nq, d), generator=gen, device=dev)).to(t)
+    X = (1024.0 * torch.randn((n, d), generator=gen, device=dev)).to(t)
+    dup = n // 100
+    X[n - dup:] = X[:dup]
+    checked = knn_against_plain(Q, X, k)
+    Q32, X32 = Q.float(), X.float()
+    bit_equal = equal_outputs(l2_topk.knn(Q, X, k), l2_topk.knn(Q32, X32, k))
+    if not bit_equal:
+        raise AssertionError(f"K1 on {dtype} rows differs from K1 on their "
+                             f"float32 copy at nq={nq} n={n} d={d} k={k}")
+    ms32 = device_ms(lambda: l2_topk.knn(Q32, X32, k))
+    base = (Q32 * Q32).sum(1)[:, None] + (X32 * X32).sum(1)[None, :]
+    del X32
+    kk = min(k, n)
+    return {
+        "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={k},{dtype}]",
+        "row_dtype": dtype, "route": "cuda",
+        "source": "src/repro_torch/csrc/l2_topk.cu",
+        "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77", **checked,
+        "bit_equal_to_float32_kernel": bit_equal, "duplicated_rows": dup,
+        "ms": device_ms(lambda: l2_topk.knn(Q, X, k)),
+        "ms_float32_copy": ms32,
+        "plain_ms": device_ms(lambda: l2_topk.plain_knn(Q, X, k),
+                              reps=10, warmup=2),
+        "library_ms": device_ms(lambda: torch.topk(
+            torch.addmm(base, Q32, X.float().T, beta=1.0, alpha=-2.0), kk,
+            dim=1, largest=False)),
+        "library_call": f"X.float() (the {dtype} rows upcast), "
+                        f"torch.addmm(qn+xn, Q, X.T, alpha=-2), "
+                        f"torch.topk(largest=False)",
+        "home": home}
+
+
+def check_refine_16(B: int, n: int, d: int, k: int, gen, dtype: str,
+                    home: str) -> dict:
+    """K2 reading 16-bit ciphertexts in place: `check_refine`'s inputs
+    with C_dce and T rounded to `dtype`; wins and ids against the plain
+    version (`refine_against_plain`'s rules), and wins and ids bit-equal
+    to the float32 kernel on float32 copies of the same values."""
+    import torch
+    from repro_torch.kernels.dce_comp import dce_comp
+    t = getattr(torch, dtype)
+    C, T = dce_inputs(B, n, d, gen)
+    D = C.shape[-1]
+    C_dce = C.reshape(B * n, 4, D).to(t)
+    T = T.to(t)
+    dev = C.device
+    cand = (torch.arange(B, device=dev)[:, None] * n
+            + torch.argsort(torch.rand((B, n), generator=gen, device=dev),
+                            dim=1))
+    valid = torch.rand((B, n), generator=gen, device=dev) > 0.1
+    cand = torch.where(valid | (cand % 2 == 0), cand, -1).contiguous()
+    bit_equal = equal_outputs(
+        dce_comp.refine_topk(C_dce, cand, T, valid, k, return_wins=True),
+        dce_comp.refine_topk(C_dce.float(), cand, T.float(), valid, k,
+                             return_wins=True))
+    if not bit_equal:
+        raise AssertionError(f"K2 on {dtype} rows differs from K2 on their "
+                             f"float32 copy at B={B} n={n} D={D}")
+    C32, T32 = C_dce.float(), T.float()
+    rec = refine_record(C_dce, cand, T, valid, k, home)
+    return dict(rec, bit_equal_to_float32_kernel=bit_equal,
+                ms_float32_copy=device_ms(
+                    lambda: dce_comp.refine_topk(C32, cand, T32, valid, k)),
+                invalid_slots=int((~valid).sum()))
+
+
 def graph_inputs(R: int, M0: int, d: int, nq: int, gen):
     """A synthetic layer-0 graph: random ids with ~10% -1 slots, ~2% of
     rows with ok = 0, integer-valued rows and queries in [-8, 8] (every
@@ -783,8 +981,8 @@ def graph_inputs(R: int, M0: int, d: int, nq: int, gen):
 
 
 def graph_expand_bound(hops, edges, R: int, M0: int, d: int, ef_cap: int,
-                       up_hops=None, up_edges=None,
-                       M: int = 0) -> tuple[float, str]:
+                       up_hops=None, up_edges=None, M: int = 0,
+                       esize: int = 4) -> tuple[float, str]:
     """K6's bound from what this run's walks needed: per layer-0 hop the
     M0 ids of the expanded row; per scored edge (a fresh neighbour:
     valid, ok, not yet visited) its row of d floats and its ok flag, and
@@ -793,14 +991,14 @@ def graph_expand_bound(hops, edges, R: int, M0: int, d: int, ef_cap: int,
     the visited words).  Padding slots, rows with ok = 0 and neighbours
     already visited need no row.  With the upper layers' steps (up_hops,
     up_edges: valid neighbours scored), M ids a step and the same per
-    edge."""
+    edge.  `esize`: bytes of a row element (2 for 16-bit rows)."""
     nq = hops.shape[0]
     n_hops, n_edges = int(hops.sum()), int(edges.sum())
     u_hops = int(up_hops.sum()) if up_hops is not None else 0
     u_edges = int(up_edges.sum()) if up_edges is not None else 0
     nbytes = (n_hops * M0 * 4.0 + u_hops * M * 4.0
-              + (n_edges + u_edges) * (4.0 * d + 1.0)
-              + nq * (4.0 * d + 8.0)
+              + (n_edges + u_edges) * (esize * d + 1.0)
+              + nq * (esize * d + 8.0)
               + nq * (ef_cap * 8.0 + 8.0 + ((R + 31) // 32) * 4.0))
     return bound((n_edges + u_edges) * 3.0 * d, nbytes)
 
@@ -1416,6 +1614,81 @@ def main_path(ctx: dict) -> dict:
     return launches, on_k1600, ctx
 
 
+# The secure-scan step's operand forms on phase 3's corpus: the dtype of
+# (C_sap, C_dce, Q_sap, T_q).  The reference's bf16 cells round all four.
+SCAN_FORMS = {"scan_1m_float32": ("float32",) * 4,
+              "scan_1m_filter_bf16": ("bfloat16", "float32", "bfloat16",
+                                      "float32"),
+              "scan_1m_bf16": ("bfloat16",) * 4}
+
+
+def scan_forms(ctx: dict) -> dict:
+    """Phase 3's corpus through the secure-scan step
+    (`build_secure_scan_step_gspmd`: one K1 over the 1M rows and one K2 a
+    batch of 32, k' 80) with its operands in each of SCAN_FORMS, K1 and K2
+    reading the 16-bit ones in place: recall@10 of each.  The float32
+    form's ids must equal the flat engine's in >= MIN_ID_AGREEMENT of
+    slots; the all-bf16 form's must equal the float32 step's on float32
+    copies of the bf16 values in every slot (the same fp32 arithmetic).
+    -> {form: launches on its run}."""
+    import torch
+    from repro_torch.data import synth
+    from repro_torch.serving.secure_scan import build_secure_scan_step_gspmd
+    ds, C_sap, C_dce, Q, T = (ctx[k] for k in ("ds", "C_sap", "C_dce",
+                                               "Q", "T"))
+    dev = torch.device("cuda", 0)
+    step = build_secure_scan_step_gspmd([dev], k=K, k_prime=K * RATIO_K)
+    ops = [torch.as_tensor(C_sap, device=dev),
+           torch.as_tensor(C_dce, device=dev),
+           torch.as_tensor(Q, device=dev), torch.as_tensor(T, device=dev)]
+
+    def run(args):
+        ids = [step(args[0], args[1], args[2][s:s + BATCH],
+                    args[3][s:s + BATCH])
+               for s in range(0, Q.shape[0], BATCH)]
+        return torch.cat(ids).cpu().numpy()
+
+    on, out, ids_by = {}, {"phase": "scan_forms", "n": ds.n, "d": ds.d,
+                           "queries": Q.shape[0], "batch": BATCH, "k": K,
+                           "k_prime": K * RATIO_K}, {}
+    for form, dts in SCAN_FORMS.items():
+        args = [a if dt == "float32" else a.to(getattr(torch, dt))
+                for a, dt in zip(ops, dts)]
+        reset_launches()
+        t0 = time.perf_counter()
+        ids = run(args)
+        out[f"wall_s_{form}"] = time.perf_counter() - t0
+        on[form] = kernel_launches()
+        ids_by[form] = ids
+        out[f"recall@10_{form}"] = synth.recall_at_k(ids, ds.gt, K)
+        out[f"operand_dtypes_{form}"] = dict(zip(
+            ("C_sap", "C_dce", "Q_sap", "T_q"), dts))
+        out[f"operand_bytes_{form}"] = sum(a.nbytes for a in args)
+        if form == "scan_1m_bf16":
+            with untallied():
+                ids_up = run([a.float() for a in args])
+            out["bf16_ids_equal_float32_copy"] = float(
+                (ids == ids_up).mean())
+        del args
+    nb = -(-Q.shape[0] // BATCH)
+    out["id_agreement_float32_vs_engine"] = float(
+        (ids_by["scan_1m_float32"] == ctx["ids"]).mean())
+    for form in SCAN_FORMS:
+        out[f"final_ids_shared_with_float32_{form}"] = float(np.mean([
+            len(set(a) & set(b)) / K for a, b in zip(
+                ids_by[form].tolist(), ids_by["scan_1m_float32"].tolist())]))
+    out["launches"] = on
+    log(json.dumps(out))
+    bad = [f for f, c in on.items() if c["l2_topk.knn"] != nb
+           or c["dce_comp.refine_topk"] != nb]
+    if (bad or out["id_agreement_float32_vs_engine"] < MIN_ID_AGREEMENT
+            or out["bf16_ids_equal_float32_copy"] != 1.0
+            or any((i < 0).any() or (i >= ds.n).any()
+                   for i in ids_by.values())):
+        raise AssertionError(f"scan forms on phase 3's corpus: {out}")
+    return on
+
+
 # --------------------------------------------------------------- phase 4
 
 @contextlib.contextmanager
@@ -1639,19 +1912,97 @@ def graph_index(g: dict):
 @contextlib.contextmanager
 def recorded_walks(out: list):
     """Keep each batch's per-query hop and edge counts (device tensors,
-    no sync) from the graph walk's entry point."""
+    no sync) and its arguments, (hops, edges, a, kw), from the graph
+    walk's entry point."""
     from repro_torch.kernels.graph_expand import ops as graph_ops
     inner = graph_ops.graph_topk
 
     def record(*a, **kw):
         res = inner(*a, **kw)
-        out.append((res[3], res[4]))
+        out.append((res[3], res[4], a, kw))
         return res
     graph_ops.graph_topk = record
     try:
         yield
     finally:
         graph_ops.graph_topk = inner
+
+
+GRAPH_PLAIN_BATCHES = 4         # 16-bit walks held against the plain walk
+
+
+def graph_walk_16(calls: list, dtype: str) -> tuple[dict, dict]:
+    """K6 reading 16-bit rows in place, on the real graph: every batch's
+    walk of the graph path (its arguments as the engine passed them) with
+    C_SAP and the queries rounded to `dtype`.  Beams, distances, visited,
+    hops and edges must be bit-equal to the float32 kernel on float32
+    copies of the same values, and the beam ids of the first
+    GRAPH_PLAIN_BATCHES batches equal to the plain walk's in >=
+    MIN_ID_AGREEMENT of slots (fp32 sums in another order).  -> (the
+    launches of the 16-bit run, its kernel record)."""
+    import torch
+    from repro_torch.graph import traverse
+    from repro_torch.kernels.graph_expand import graph_expand
+    t = getattr(torch, dtype)
+    (n0, up, ok, (C,), _, entry, ef), kw = calls[0][0][:7], calls[0][1]
+    walk_kw = dict(ef_cap=kw["ef_cap"], max_hops=kw["max_hops"])
+    C16 = C.to(t)
+    C32 = C16.float()
+    queries = [a[4].to(t) for a, _ in calls]
+    reset_launches()
+    outs = [graph_expand.graph_walk(n0, up, ok, C16, Q16, entry, ef,
+                                    **walk_kw) for Q16 in queries]
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    with untallied():
+        bit_equal = all(equal_outputs(o, graph_expand.graph_walk(
+            n0, up, ok, C32, Q16.float(), entry, ef, **walk_kw))
+            for o, Q16 in zip(outs, queries))
+        plain = [graph_expand.plain_graph_walk(n0, up, ok, C16, Q16, entry,
+                                               ef, **walk_kw)
+                 for Q16 in queries[:GRAPH_PLAIN_BATCHES]]
+        agree = float(torch.cat([(o[0] == w[0]).float().flatten()
+                                 for o, w in zip(outs, plain)]).mean())
+        Q0 = queries[0]
+        ms = device_ms(lambda: graph_expand.graph_walk(
+            n0, up, ok, C16, Q0, entry, ef, **walk_kw))
+        ms32 = device_ms(lambda: graph_expand.graph_walk(
+            n0, up, ok, C32, Q0.float(), entry, ef, **walk_kw))
+        plain_ms = device_ms(lambda: graph_expand.plain_graph_walk(
+            n0, up, ok, C16, Q0, entry, ef, **walk_kw), reps=3, warmup=1)
+    if not bit_equal or agree < MIN_ID_AGREEMENT:
+        raise AssertionError(f"K6 on {dtype} rows of the real graph: "
+                             f"bit-equal to the float32 kernel {bit_equal}, "
+                             f"beam ids = plain walk's in {agree}")
+    hops, edges = outs[0][3], outs[0][4]
+    _, _, up_hops, up_edges = traverse.upper_entry(up, ok, (C16,), Q0, entry)
+    R, M0 = n0.shape
+    M = up.shape[2] if up.dim() == 3 and up.shape[0] else 0
+    d = C.shape[1]
+    b_ms, b_by = graph_expand_bound(hops - up_hops, edges - up_edges, R, M0,
+                                    d, walk_kw["ef_cap"], up_hops, up_edges,
+                                    M, esize=C16.element_size())
+    nq = Q0.shape[0]
+    rec = {"name": f"graph_expand.graph_walk[nq={nq},R={R},M0={M0},M={M},"
+                   f"LU={up.shape[0]},d={d},ef={ef},"
+                   f"ef_cap={walk_kw['ef_cap']},{dtype}]",
+           "row_dtype": dtype, "route": "cuda",
+           "source": "src/repro_torch/csrc/graph_expand.cu",
+           "replaces": "src/repro/kernels/graph_expand/graph_expand.py:234",
+           "also_replaces": "src/repro/graph/traverse.py:141",
+           "graph": "the graph path's HNSW over its C_SAP", "batches":
+           len(calls), "bit_equal_to_float32_kernel": bit_equal,
+           "plain_batches": len(plain), "beam_id_agreement_plain": agree,
+           "max_abs_err": float((outs[0][1] - plain[0][1]).abs()[
+               torch.isfinite(plain[0][1])].max()),
+           "max_hops_per_query": int(hops.max()),
+           "mean_hops_per_query": float(hops.float().mean()),
+           "ms": ms, "ms_float32_copy": ms32, "plain_ms": plain_ms,
+           "plain_reps": 3, "library_ms": None,
+           "library_call": "none (no PyTorch call runs a graph walk)",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "home": f"graph_{'bf16' if dtype == 'bfloat16' else 'f16'}"}
+    return launches, rec
 
 
 def graph_breakdown(eng, Q, T, reps: int = 10) -> dict:
@@ -1807,8 +2158,8 @@ def graph_path(g: dict) -> dict:
                                   T[:ORACLE_QUERIES])
     t_oracle = time.perf_counter() - t0
 
-    hops = torch.cat([h for h, _ in walks]).cpu().numpy()
-    edges = torch.cat([e for _, e in walks]).cpu().numpy()
+    hops = torch.cat([w[0] for w in walks]).cpu().numpy()
+    edges = torch.cat([w[1] for w in walks]).cpu().numpy()
     rec = synth.recall_at_k(ids, ds.gt, K)
     rec_plain = synth.recall_at_k(ids_plain, ds.gt, K)
     agree = float((ids == ids_plain).mean())
@@ -1865,6 +2216,12 @@ def graph_path(g: dict) -> dict:
     if agree < MIN_ID_AGREEMENT or abs(rec - rec_plain) > MAX_RECALL_GAP:
         raise AssertionError(f"kernel and plain runs disagree: ids "
                              f"{agree}, recall {rec} vs {rec_plain}")
+    # K6 reading 16-bit rows of the same graph: paths graph_bf16, graph_f16
+    g["half_paths"], g["half_records"] = {}, []
+    for dtype in HALF_DTYPES:
+        on16, rec16 = graph_walk_16([w[2:] for w in walks], dtype)
+        g["half_paths"][rec16["home"]] = on16
+        g["half_records"].append(rec16)
     return launches
 
 
@@ -4478,15 +4835,17 @@ def scan_k1_record(Q, X, kp: int, home: str) -> dict:
     from repro_torch.kernels.l2_topk import l2_topk
     nq, d = Q.shape
     n = X.shape[0]
+    dt = str(X.dtype).removeprefix("torch.")
     checked = knn_against_plain(Q, X, kp)
-    qn = (Q * Q).sum(1)
+    Qf = Q.float()
+    qn = (Qf * Qf).sum(1)
 
     def library():
         best_d, best_i = [], []
         for s in range(0, n, LIB_ROWS):
-            Xc = X[s:s + LIB_ROWS]
+            Xc = X[s:s + LIB_ROWS].float()
             v, i = torch.topk(torch.addmm(qn[:, None] + (Xc * Xc).sum(1),
-                                          Q, Xc.T, beta=1.0, alpha=-2.0),
+                                          Qf, Xc.T, beta=1.0, alpha=-2.0),
                               kp, dim=1, largest=False)
             best_d.append(v)
             best_i.append(i + s)
@@ -4494,7 +4853,9 @@ def scan_k1_record(Q, X, kp: int, home: str) -> dict:
         return v, torch.gather(torch.cat(best_i, 1), 1, pos)
 
     return {
-        "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={kp}]",
+        "name": f"l2_topk.knn[nq={nq},n={n},d={d},k={kp}"
+                + ("" if dt == "float32" else f",{dt}") + "]",
+        "row_dtype": dt,
         "route": "cuda", "source": "src/repro_torch/csrc/l2_topk.cu",
         "replaces": "src/repro/kernels/l2_topk/l2_topk.py:77", **checked,
         "ms": device_ms(lambda: l2_topk.knn(Q, X, kp), reps=5, warmup=1),
@@ -4502,7 +4863,9 @@ def scan_k1_record(Q, X, kp: int, home: str) -> dict:
                               warmup=0),
         "plain_reps": 1,
         "library_ms": device_ms(library, reps=3, warmup=1),
-        "library_call": f"torch.addmm(qn+xn, Q, X.T, alpha=-2) + "
+        "library_call": ("" if dt == "float32" else
+                         f"each chunk of {dt} rows upcast, ")
+                        + f"torch.addmm(qn+xn, Q, X.T, alpha=-2) + "
                         f"torch.topk over {-(-n // LIB_ROWS)} chunks of "
                         f"{LIB_ROWS} rows, then torch.topk over their "
                         f"candidates, summed (a ({nq}, {n}) fp32 matrix "
@@ -4611,6 +4974,173 @@ def dryrun_scan(card: str, recs: dict) -> tuple[dict, list]:
     return {name: launches}, kernels
 
 
+SCAN16_REPS = {"scan_16m_bf16": 5, "scan_16m_bf16_b4096": 3}
+PEAK_SCAN_BAR = 0.01            # (c): the card's peak against the dry run's
+
+
+def dryrun_scan_16(card: str, recs: dict) -> tuple[dict, list]:
+    """(c) the reference's bf16 cells at their sizes, nothing cut: one
+    ciphertext-shaped corpus of 2^24 rows drawn in place in bf16 (C_sap
+    and C_dce, 40.8 GB), bf16 queries and trapdoors a cell; the sharded
+    step over CARD_SHARDS logical shards against the global one (ids
+    equal in 100% of slots, K1 4 + 1 and K2 1 + 1 launches), device ms
+    (median of SCAN16_REPS) beside the roofline row, argument bytes equal
+    to the dry run's and the card's peak within PEAK_SCAN_BAR of its peak
+    (a float32 copy of C_sap alone would add 8.6 GB).  For scan_16m_bf16
+    also: K1 at one shard against its plain version; K1 on all rows
+    against the float32 kernel on a float32 copy of C_sap (ids and
+    distances bit-equal); K2 on the gathered candidates against their
+    float32 copy (wins and ids bit-equal).  -> ({cell: launches on its
+    path}, kernel records)."""
+    import torch
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.serving.secure_scan import (build_secure_scan_step,
+                                                 build_secure_scan_step_gspmd)
+    names = list(SCAN16_REPS)
+    cells = {nm: dryrun.PPANNS_CELLS[nm] for nm in names}
+    n, d = cells[names[0]]["n"], cells[names[0]]["d"]
+    assert all((c["n"], c["d"], c["dtype"]) == (n, d, "bfloat16")
+               for c in cells.values())
+    D = 2 * d + 16
+    free_card()
+    free_before = torch.cuda.mem_get_info()[0]
+    gen = torch.Generator(device="cuda").manual_seed(SCAN_SEED + 1)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    C_sap = torch.empty((n, d), dtype=bf16, device="cuda").normal_(
+        generator=gen)
+    C_dce = torch.empty((n, 4, D), dtype=bf16, device="cuda").normal_(
+        generator=gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    devices = [torch.device("cuda", 0)] * dryrun.CARD_SHARDS
+    on_paths, kernels = {}, []
+    for name in names:
+        cell, one = cells[name], recs[("ppanns-scan", name, "1card_h100")]
+        B, k, kp = cell["batch"], cell["k"], cell["k_prime"]
+        Q = torch.empty((B, d), dtype=bf16, device="cuda").normal_(
+            generator=gen)
+        T = torch.empty((B, D), dtype=bf16, device="cuda").normal_(
+            generator=gen)
+        args = (C_sap, C_dce, Q, T)
+        arg_bytes = sum(t.nbytes for t in args)
+        sharded = build_secure_scan_step(devices, k=k, k_prime=kp)
+        gspmd = build_secure_scan_step_gspmd(devices[:1], k=k, k_prime=kp)
+        reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ids_s, cand_s = sharded(*args, with_candidates=True)
+        torch.cuda.synchronize()
+        peak = arg_bytes + torch.cuda.max_memory_allocated() - base
+        on_sharded = kernel_launches()
+        reset_launches()
+        ids_g, cand_g = gspmd(*args, with_candidates=True)
+        torch.cuda.synchronize()
+        on_gspmd = kernel_launches()
+        on_paths[name] = {kk: on_sharded[kk] + on_gspmd[kk]
+                          for kk in on_sharded}
+        reps = SCAN16_REPS[name]
+        with untallied():
+            ms_s = device_ms(lambda: sharded(*args), reps=reps, warmup=1)
+            ms_g = device_ms(lambda: gspmd(*args), reps=reps, warmup=1)
+        row = roofline.analyze_record(one)
+        dry_peak = one["memory"]["peak_bytes"]
+        rec = {"phase": "dryrun", "step": "c", "card": card, "cell": name,
+               "n": n, "d": d, "batch": B, "k": k, "k_prime": kp,
+               "shards": dryrun.CARD_SHARDS, "operand_dtype": "bfloat16",
+               "record_operand_dtype": one.get("operand_dtype"),
+               "free_bytes_before": free_before, "draw_s": draw_s,
+               "argument_bytes_card": arg_bytes,
+               "argument_bytes_dryrun": one["memory"]["argument_bytes"],
+               "peak_bytes_card": peak, "peak_bytes_dryrun": dry_peak,
+               "peak_rel_gap": (peak - dry_peak) / dry_peak,
+               "peak_bar": PEAK_SCAN_BAR,
+               "ids_equal_gspmd": float((ids_s == ids_g).float().mean()),
+               "candidates_equal_gspmd": float(
+                   (cand_s == cand_g).float().mean()),
+               "launches_sharded": on_sharded, "launches_gspmd": on_gspmd,
+               "sharded_device_ms": ms_s, "gspmd_device_ms": ms_g,
+               "reps": reps,
+               "roofline_1card_ms": {"compute": row.compute_s * 1e3,
+                                     "memory": row.memory_s * 1e3,
+                                     "collective": row.collective_s * 1e3,
+                                     "dominant": row.dominant},
+               "share_of_roofline_sharded": max(row.compute_s, row.memory_s)
+               * 1e3 / ms_s,
+               "share_of_roofline_gspmd": max(row.compute_s, row.memory_s)
+               * 1e3 / ms_g}
+        log(json.dumps(rec))
+        if not (rec["ids_equal_gspmd"] == 1.0
+                and arg_bytes == one["memory"]["argument_bytes"]
+                and one.get("operand_dtype") == "bfloat16"
+                and abs(rec["peak_rel_gap"]) <= PEAK_SCAN_BAR
+                and on_sharded["l2_topk.knn"] == dryrun.CARD_SHARDS
+                and on_gspmd["l2_topk.knn"] == 1
+                and on_sharded["dce_comp.refine_topk"] == 1
+                and on_gspmd["dce_comp.refine_topk"] == 1):
+            raise AssertionError(f"the bf16 scan cell on the card: {rec}")
+        del ids_s, ids_g, cand_s
+        if name == "scan_16m_bf16":
+            kernels += scan_16_kernels(name, C_sap, C_dce, Q, T, cand_g, k,
+                                       kp)
+        del args, Q, T, cand_g
+        free_card()
+    for r in kernels:
+        log(json.dumps(dict(r, card=card)))
+    del C_sap, C_dce
+    free_card()
+    return on_paths, kernels
+
+
+def scan_16_kernels(name, C_sap, C_dce, Q, T, cand, k: int,
+                    kp: int) -> list:
+    """(c)'s kernel checks at scan_16m_bf16's shapes: K1 at one shard and
+    on all 2^24 bf16 rows against its plain version (`scan_k1_record`,
+    each timed with its plain and library runs), and on all rows against
+    the float32 kernel on a float32 copy of C_sap (8.6 GB, beside the
+    40.8 GB corpus): ids and distances bit-equal; K2 on the
+    global step's candidates against the float32 kernel on the gathered
+    rows' float32 copy: wins and ids bit-equal."""
+    import torch
+    from repro_torch.kernels.dce_comp import dce_comp
+    from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.launch import dryrun
+    per = C_sap.shape[0] // dryrun.CARD_SHARDS
+    shard = scan_k1_record(Q, C_sap[:per], kp, name)
+    whole = scan_k1_record(Q, C_sap, kp, name)
+    got = l2_topk.knn(Q, C_sap, kp)
+    X32 = C_sap.float()
+    want = l2_topk.knn(Q.float(), X32, kp)
+    whole["bit_equal_to_float32_kernel"] = k1_equal = equal_outputs(got,
+                                                                   want)
+    del got, want
+    whole["ms_float32_copy"] = device_ms(
+        lambda: l2_topk.knn(Q.float(), X32, kp), reps=5, warmup=1)
+    del X32
+    free_card()
+    args = (C_dce, cand, T, None, k)
+    ids, wins = dce_comp.refine_topk(*args, return_wins=True)
+    Cc = C_dce[cand].float().reshape(-1, 4, C_dce.shape[-1])
+    local = torch.arange(Cc.shape[0], device=Cc.device).reshape(cand.shape)
+    ids32, wins32 = dce_comp.refine_topk(Cc, local, T.float(), None, k,
+                                         return_wins=True)
+    k2_equal = (torch.equal(wins, wins32)
+                and torch.equal(ids, torch.gather(cand, 1, ids32 - local[:, :1])))
+    ms32_k2 = device_ms(lambda: dce_comp.refine_topk(Cc, local, T.float(),
+                                                      None, k), reps=10)
+    del Cc, local
+    refine = dict(refine_record(*args, name, reps=10),
+                  bit_equal_to_float32_kernel=k2_equal,
+                  ms_float32_copy=ms32_k2)
+    if not (k1_equal and k2_equal):
+        raise AssertionError(f"(c) bit-equality with the float32 kernels: "
+                             f"K1 {k1_equal}, K2 {k2_equal}")
+    return [shard, whole, refine]
+
+
 def dryrun_paths(card: str, dry: dict, lm_rec: dict,
                  train_rec: dict) -> tuple[dict, list]:
     """Phase 11: the dry run held against the card.  -> ({(b)'s cell:
@@ -4626,6 +5156,9 @@ def dryrun_paths(card: str, dry: dict, lm_rec: dict,
     recs = dryrun_records(dry)
     dryrun_phase_cells(card, lm_rec, train_rec)
     on_scan, kernels = dryrun_scan(card, recs)
+    on_16, kernels_16 = dryrun_scan_16(card, recs)
+    on_scan.update(on_16)
+    kernels += kernels_16
     log(json.dumps({"phase": "dryrun_done", "card": card,
                     "total_memory": total, "kernel_launches": on_scan,
                     "wall_s": time.perf_counter() - t_start}))
@@ -4722,7 +5255,21 @@ def main() -> int:
                    check_knn(LM_BATCH, KNN_N, 2048, KNN_K * RATIO_K, gen,
                              home="knn_lm"),
                    check_refine(LM_BATCH, KNN_K * RATIO_K, 2048, KNN_K,
-                                gen, "knn_lm")]
+                                gen, "knn_lm"),
+                   # 16-bit rows read in place (phase 3's scan forms run
+                   # them): the flat path's K1 and the refines' K2 shapes
+                   *[check_knn_16(32, 1_000_000, 128, K * RATIO_K, gen, dt,
+                                  SCAN_HOME[dt]) for dt in HALF_DTYPES],
+                   *[check_refine_16(32, n, 128, K, gen, dt,
+                                     SCAN_HOME[dt] if n == K * RATIO_K
+                                     else NO_PATH)
+                     for dt in HALF_DTYPES for n in (80, 320)],
+                   # the tile and Z entries on 16-bit rows (no path); the
+                   # Z entry at n 512 (RI 2) and n 640 (RI 3, whose 16-bit
+                   # build spills 4 bytes)
+                   *[check_l2(32, 4096, 128, gen, dt) for dt in HALF_DTYPES],
+                   *[check_z(1, n, 128, gen, single=True, dtype=dt)
+                     for dt in HALF_DTYPES for n in (512, 640)]]
         for r in records:
             log(json.dumps(dict(r, card=card)))
         gc.collect()
@@ -4733,6 +5280,9 @@ def main() -> int:
         flat, flat_k1600, corpus = main_path(corpus)
         gc.collect()                    # the flat engine is gone: free
         torch.cuda.empty_cache()        # its 4.9 GB before the ADC paths
+        on_forms = scan_forms(corpus)
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # phase 4, its pq8 engine last (below) --------------------
         on_adc = {"flat_k1600": flat_k1600}
@@ -4769,19 +5319,24 @@ def main() -> int:
 
         # phase 5 ---------------------------------------------------
         on_graph = graph_path(graph)
+        for r in graph["half_records"]:
+            log(json.dumps(dict(r, card=card)))
+        records += graph["half_records"]
         log(json.dumps({"phase": "sharded_path", "step": "e_recall",
                         "path": "sharded_graph",
                         "recall@10_sharded": rec_sharded_graph["recall@10"],
                         "recall@10_global_graph": graph["recall_global"]}))
 
     # phase 11, last, on an emptied card -------------------------------
+    on_graph16 = graph["half_paths"]
     del graph
     free_card()
     on_scan, scan_records = dryrun_paths(card, dry, lm_rec, train_rec)
     records += scan_records
 
     paths = {"flat": flat, "graph": on_graph, **on_adc, **on_runtime,
-             **on_api, **on_sharded, **on_lm, "train": on_train, **on_scan}
+             **on_api, **on_sharded, **on_lm, "train": on_train, **on_scan,
+             **on_forms, **on_graph16}
     # launches: on the path the kernel was ported for (or the record's
     # own, where its shape is another path's); launches_by_path: on each
     home = {"l2_topk.knn": "flat", "l2_topk.pairwise_sq_dists": "flat",
@@ -4796,8 +5351,11 @@ def main() -> int:
         kern = {"dce_comp.z_matrix": "dce_comp.batched_z_matrix"}.get(
             kern, kern)                  # z_matrix is the B = 1 kernel
         path = r.pop("home", home[kern])
-        r["launches"] = paths[path][kern]
-        r["launches_on"] = path
+        r.setdefault("row_dtype", {"adc_topk.sq_adc_topk": "int8",
+                                   "adc_topk.pq_adc_topk": "uint8"}.get(
+                                       kern, "float32"))
+        r["launches"] = 0 if path == NO_PATH else paths[path][kern]
+        r["launches_on"] = None if path == NO_PATH else path
         r["launches_by_path"] = {p: c[kern] for p, c in paths.items()}
     log(json.dumps({"phase": "done",
                     "wall_s": time.perf_counter() - t_start}))

@@ -56,9 +56,26 @@
 //     columns and is never split.
 // Ragged n and D, and candidate ids outside [0, N) (the slots a filter
 // marks invalid), are read as zeros; nothing is padded or copied.
+//
+// 16-bit rows.  The reference casts C to float32 before its kernel
+// computes; here C (or C_dce) may be float32, bfloat16 or float16 and is
+// read in place (T is float32: the wrapper converts it, as it is small).
+// 16-bit stages land by 8-byte cp.async (D % 4 == 0 and an 8-byte
+// aligned C; else plain loads, as cp.async has no 2-byte size) in a
+// staging ring of STAGES laid out as the float32 stages; once a stage has
+// landed, each thread converts the chunks it copied itself to float32 and
+// writes them, components 0 and 1 scaled by T_b, into one of two float32
+// stages the FMA loop reads.  The fp32 stage of item `it` was last read
+// at item it - 2, before the barrier of item it - 1, so the conversion
+// needs no barrier of its own.  bf16 and f16 values are exact in float32,
+// so C o T_b, Z and the win counts are bit-equal to the float32 kernel's
+// on a float32 copy of the rows.  Shared memory: 2 float32 stages + 4
+// 16-bit ones, the float32 kernel's 4 float32 stages.
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+
+#include "row_elements.cuh"
 
 namespace {
 
@@ -74,15 +91,17 @@ constexpr int RANK_TILE = 1024;                 // wins staged per rank step
 
 // The rows a (query, slot) pair reads: slot i of query b is row cand[b, i]
 // of C_dce (refine) or row b * n + i of C (Z entry); rows outside
-// [0, N) and slots past n read as zeros.
+// [0, N) and slots past n read as zeros.  T: the rows' element type.
+template <typename T>
 struct Rows {
-  const float* C;
+  const T* C;
   const long long* cand;     // nullptr: the Z entry's rows
   long long N;
   int n, D;
-  bool vec;                  // 16-byte loads: D % 4 == 0, C and T aligned
+  bool vec;                  // whole-chunk copies: D % 4 == 0 and C
+                             // aligned to a chunk (16 B; 8 B if 16-bit)
 
-  __device__ const float* row(int b, int i) const {
+  __device__ const T* row(int b, int i) const {
     if (i >= n) return nullptr;
     const long long r = cand ? cand[(size_t)b * n + i] : (long long)b * n + i;
     if (r < 0 || r >= N) return nullptr;
@@ -90,7 +109,7 @@ struct Rows {
   }
 
   // Component `comp` of a row from `row` (nullptr stays nullptr).
-  __device__ const float* comp(const float* row, int c) const {
+  __device__ const T* comp(const T* row, int c) const {
     return row ? row + (size_t)c * D : nullptr;
   }
 };
@@ -123,6 +142,13 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
                "l"(gmem), "r"(full ? 4 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 8 : 0));
+}
+
 // Elements k .. k+3 of the D-vector at p into shared memory at dst, zero
 // past D or if p is null.
 __device__ __forceinline__ void copy4(float* dst, const float* p, int k,
@@ -133,6 +159,21 @@ __device__ __forceinline__ void copy4(float* dst, const float* p, int k,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       cp_async4(dst + e, p && k + e < D ? p + k + e : any, p && k + e < D);
+  }
+}
+
+// The same for 16-bit elements: one 8-byte cp.async, or plain loads (the
+// staging slot is free: its last reader was this thread).
+template <typename T>
+__device__ __forceinline__ void copy4(T* dst, const T* p, int k, int D,
+                                      bool vec, const T* any) {
+  if (vec) {
+    cp_async8(dst, p && k < D ? p + k : any, p && k < D);
+  } else {
+    unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+    const unsigned short* p16 = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d16[e] = p && k + e < D ? p16[k + e] : 0;
   }
 }
 
@@ -147,20 +188,24 @@ __host__ __device__ constexpr int stage_floats(int ri) {
 // j-tile).  Stages of DK depth (rows i of components 0
 // and 1, rows j of components 2 and 3) stream through a ring of STAGES
 // in shared memory by cp.async; a thread scales the component-0/1 chunks
-// it copied itself by T_b once they have landed.  REFINE counts wins into
-// `wins` (B, n); otherwise Z (B, n, n) is stored.
-template <int RI, bool REFINE>
+// it copied itself by T_b once they have landed (16-bit rows: converts
+// its chunks into a float32 stage, scaling those).  REFINE counts wins
+// into `wins` (B, n); otherwise Z (B, n, n) is stored.
+template <typename E, int RI, bool REFINE>
 __global__ void __launch_bounds__(THREADS)
-z_kernel(Rows rows, const float* __restrict__ T,
+z_kernel(Rows<E> rows, const float* __restrict__ T,
          const unsigned char* __restrict__ valid, float* __restrict__ Z,
          int* __restrict__ wins) {
+  constexpr bool WIDE = sizeof(E) == 4;           // float32 rows
+  constexpr int CBUF = WIDE ? STAGES : 2;         // float32 stages
   constexpr int TI = GROUPS * RI;
   constexpr int P = DK / 4;                         // float4s of a row
   constexpr int LCHUNKS = TI * P * 2;               // float4s of L1, L2
   constexpr int RCHUNKS = TJ * P * 2;               // float4s of R3, R4
   constexpr int LPT = (LCHUNKS + THREADS - 1) / THREADS;
   constexpr int RPT = (RCHUNKS + THREADS - 1) / THREADS;
-  extern __shared__ __align__(16) float ring[];     // [STAGES][stage], T_b
+  // [CBUF][stage] float32, T_b, then (16-bit rows) [STAGES][stage] of E
+  extern __shared__ __align__(16) float ring[];
 
   const int tid = threadIdx.x;
   const int ig = tid / GROUPS, jg = tid % GROUPS;
@@ -174,19 +219,29 @@ z_kernel(Rows rows, const float* __restrict__ T,
   const int per = REFINE ? njt : (njt + gridDim.z - 1) / gridDim.z;
   const int jt0 = REFINE ? 0 : blockIdx.z * per;
   const int total = REFINE ? njt * nk : max(0, min(per, njt - jt0)) * nk;
-  float* Ts = ring + STAGES * stage_floats(RI);     // T_b, zero past D
+  float* Ts = ring + CBUF * stage_floats(RI);      // T_b, zero past D
+  E* stg = reinterpret_cast<E*>(Ts + nk * DK);      // 16-bit staging ring
   for (int k = tid; k < nk * DK; k += THREADS) Ts[k] = k < D ? Tb[k] : 0.f;
   __syncthreads();
 
   // L1 [TI][DKP], L2 [TI][DKP], R3 [TJ][DKP], R4 [TJ][DKP] of a stage;
-  // a chunk is 4 floats of one row: c -> (component, row, k-part).
-  auto L = [&](int st, int comp) {
-    return ring + st * stage_floats(RI) + comp * TI * DKP;
+  // a chunk is 4 elements of one row: c -> (component, row, k-part).
+  // Offsets within a stage, the same in the float32 and staging stages:
+  auto Lo = [&](int comp) { return comp * TI * DKP; };
+  auto Ro = [&](int comp) { return 2 * TI * DKP + comp * TJ * DKP; };
+  // the copies' destination (stage st of the ring they land in) and the
+  // float32 stage the FMA loop reads for item `it`
+  auto dst = [&](int st, int off) {
+    if constexpr (WIDE) return ring + st * stage_floats(RI) + off;
+    else return stg + st * stage_floats(RI) + off;
   };
-  auto R = [&](int st, int comp) {
-    return ring + st * stage_floats(RI) + 2 * TI * DKP + comp * TJ * DKP;
+  auto L = [&](int it, int comp) {
+    return ring + (it % CBUF) * stage_floats(RI) + Lo(comp);
   };
-  const float* lrow[LPT];                  // this thread's L rows (fixed)
+  auto R = [&](int it, int comp) {
+    return ring + (it % CBUF) * stage_floats(RI) + Ro(comp);
+  };
+  const E* lrow[LPT];                      // this thread's L rows (fixed)
 #pragma unroll
   for (int u = 0; u < LPT; ++u) {
     const int c = tid + u * THREADS;
@@ -200,8 +255,8 @@ z_kernel(Rows rows, const float* __restrict__ T,
       const int c = tid + u * THREADS;
       if (c < LCHUNKS) {
         const int comp = c / (TI * P), r = (c % (TI * P)) / P, part = c % P;
-        copy4(L(st, comp) + r * DKP + part * 4, rows.comp(lrow[u], comp),
-              k0 + part * 4, D, rows.vec, rows.C);
+        copy4(dst(st, Lo(comp) + r * DKP + part * 4),
+              rows.comp(lrow[u], comp), k0 + part * 4, D, rows.vec, rows.C);
       }
     }
 #pragma unroll
@@ -209,21 +264,44 @@ z_kernel(Rows rows, const float* __restrict__ T,
       const int c = tid + u * THREADS;
       if (c >= RCHUNKS) break;
       const int comp = c / (TJ * P), r = (c % (TJ * P)) / P, part = c % P;
-      copy4(R(st, comp) + r * DKP + part * 4,
+      copy4(dst(st, Ro(comp) + r * DKP + part * 4),
             rows.comp(rows.row(b, j0 + r), 2 + comp), k0 + part * 4, D,
             rows.vec, rows.C);
     }
   };
-  auto scale_own = [&](int item) {         // fused o T_b, after landing
+  // After landing: the fused o T_b of this thread's L chunks; 16-bit rows
+  // also convert this thread's chunks into the float32 stage.
+  auto land = [&](int item) {
     const int st = item % STAGES, k0 = (item % nk) * DK;
+    float* fs = ring + (item % CBUF) * stage_floats(RI);
 #pragma unroll
     for (int u = 0; u < LPT; ++u) {
       const int c = tid + u * THREADS;
-      if (c < LCHUNKS && lrow[u]) {
+      if (c < LCHUNKS) {
         const int comp = c / (TI * P), r = (c % (TI * P)) / P, part = c % P;
-        float4* p = reinterpret_cast<float4*>(L(st, comp) + r * DKP +
-                                              part * 4);
-        *p = scale4(*p, *reinterpret_cast<const float4*>(Ts + k0 + part * 4));
+        const int off = Lo(comp) + r * DKP + part * 4;
+        float4* p = reinterpret_cast<float4*>(fs + off);
+        float4 v;
+        if constexpr (WIDE) {
+          if (!lrow[u]) continue;
+          v = *p;
+        } else {
+          v = elem::load4(stg + st * stage_floats(RI) + off);
+        }
+        if (lrow[u])
+          v = scale4(v, *reinterpret_cast<const float4*>(Ts + k0 + part * 4));
+        *p = v;
+      }
+    }
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int c = tid + u * THREADS;
+        if (c >= RCHUNKS) break;
+        const int comp = c / (TJ * P), r = (c % (TJ * P)) / P, part = c % P;
+        const int off = Ro(comp) + r * DKP + part * 4;
+        *reinterpret_cast<float4*>(fs + off) =
+            elem::load4(stg + st * stage_floats(RI) + off);
       }
     }
   };
@@ -244,16 +322,16 @@ z_kernel(Rows rows, const float* __restrict__ T,
   }
   for (int it = 0; it < total; ++it) {
     cp_async_wait<STAGES - 2>();
-    scale_own(it);
-    // stage `it` has landed and is scaled, and every thread is done with
-    // stage it - 1, which the next copies overwrite
+    land(it);
+    // stage `it` has landed and is scaled (and converted), and every
+    // thread is done with stage it - 1, which the next copies overwrite
     __syncthreads();
     if (it + STAGES - 1 < total) issue(it + STAGES - 1);
     cp_async_commit();
-    const float* L1 = L(it % STAGES, 0);
-    const float* L2 = L(it % STAGES, 1);
-    const float* R3 = R(it % STAGES, 0);
-    const float* R4 = R(it % STAGES, 1);
+    const float* L1 = L(it, 0);
+    const float* L2 = L(it, 1);
+    const float* R3 = R(it, 0);
+    const float* R4 = R(it, 1);
     // the two products one after the other: half the operand registers
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -363,23 +441,32 @@ int rows_per_thread(int B, int n, int device) {
   return MAX_RI;
 }
 
-template <int RI, bool REFINE>
-cudaError_t launch_ri(dim3 grid, const Rows& rows, const float* T,
+// Shared memory of a block: the float32 stages, T_b, and for 16-bit rows
+// the staging ring.
+template <typename E>
+size_t z_smem(int ri, int D) {
+  const size_t stage = stage_floats(ri);
+  const size_t tb = (size_t)(D + DK - 1) / DK * DK * 4;
+  if (sizeof(E) == 4) return STAGES * stage * 4 + tb;
+  return 2 * stage * 4 + tb + STAGES * stage * sizeof(E);
+}
+
+template <typename E, int RI, bool REFINE>
+cudaError_t launch_ri(dim3 grid, const Rows<E>& rows, const float* T,
                       const unsigned char* valid, float* Z, int* wins,
                       cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)STAGES * stage_floats(RI) + (rows.D + DK - 1) / DK * DK) * 4;
+  const size_t smem = z_smem<E>(RI, rows.D);
   const cudaError_t err = cudaFuncSetAttribute(
-      z_kernel<RI, REFINE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      z_kernel<E, RI, REFINE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  z_kernel<RI, REFINE><<<grid, THREADS, smem, stream>>>(rows, T, valid, Z,
-                                                         wins);
+  z_kernel<E, RI, REFINE><<<grid, THREADS, smem, stream>>>(rows, T, valid,
+                                                            Z, wins);
   return cudaGetLastError();
 }
 
-template <bool REFINE>
-cudaError_t launch_z(const Rows& rows, const float* T,
+template <typename E, bool REFINE>
+cudaError_t launch_z(const Rows<E>& rows, const float* T,
                      const unsigned char* valid, float* Z, int* wins, int B,
                      int ri, int splits, cudaStream_t stream) {
   const int njt = (rows.n + TJ - 1) / TJ;
@@ -387,58 +474,104 @@ cudaError_t launch_z(const Rows& rows, const float* T,
   const dim3 grid((rows.n + GROUPS * ri - 1) / (GROUPS * ri), B,
                   (njt + per - 1) / per);
   switch (ri) {
-    case 1: return launch_ri<1, REFINE>(grid, rows, T, valid, Z, wins, stream);
-    case 2: return launch_ri<2, REFINE>(grid, rows, T, valid, Z, wins, stream);
-    case 3: return launch_ri<3, REFINE>(grid, rows, T, valid, Z, wins, stream);
-    case 4: return launch_ri<4, REFINE>(grid, rows, T, valid, Z, wins, stream);
-    default: return launch_ri<5, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 1:
+      return launch_ri<E, 1, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 2:
+      return launch_ri<E, 2, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 3:
+      return launch_ri<E, 3, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    case 4:
+      return launch_ri<E, 4, REFINE>(grid, rows, T, valid, Z, wins, stream);
+    default:
+      return launch_ri<E, 5, REFINE>(grid, rows, T, valid, Z, wins, stream);
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The rows at C (`N` of them; cand or nullptr) as element type E, with
+// whole-chunk copies where D and C's alignment allow.
+template <typename E>
+Rows<E> make_rows(const void* C, const long long* cand, long long N, int n,
+                  int D, const float* T) {
+  const bool vec = D % 4 == 0 &&
+                   (sizeof(E) == 4 ? aligned(C, 16) && aligned(T, 16)
+                                   : aligned(C, 8));
+  return Rows<E>{static_cast<const E*>(C), cand, N, n, D, vec};
+}
+
+template <typename E>
+cudaError_t batched_z(const void* C, const float* T, float* Z, int B, int n,
+                      int D, int ri, int splits, cudaStream_t stream) {
+  return launch_z<E, false>(make_rows<E>(C, nullptr, (long long)B * n, n,
+                                         D, T),
+                            T, nullptr, Z, nullptr, B, ri, splits, stream);
+}
+
+template <typename E>
+cudaError_t refine_wins(const void* C, long long N, const long long* cand,
+                        const float* T, const unsigned char* valid,
+                        int* wins, int B, int n, int D, int ri,
+                        cudaStream_t stream) {
+  return launch_z<E, true>(make_rows<E>(C, cand, N, n, D, T), T, valid,
+                           nullptr, wins, B, ri, 1, stream);
 }
 
 }  // namespace
 
-// C (B, n, 4, D), T (B, D), Z (B, n, n): float32, contiguous, all on
+// C (B, n, 4, D) of element type `dtype` (0 float32, 1 bfloat16, 2
+// float16), T (B, D) float32, Z (B, n, n) float32: contiguous, all on
 // `device`.  B <= 65535 (one grid y-slice per query).  ri (1..5) rows a
 // thread and the j-tiles cut into `splits` ranges: the wrapper's plan
 // (`dce_comp.z_plan`).  Launches on `stream` and returns
 // cudaGetLastError().
-extern "C" int repro_dce_batched_z(const float* C, const float* T, float* Z,
+extern "C" int repro_dce_batched_z(const void* C, const float* T, float* Z,
                                    int B, int n, int D, int ri, int splits,
-                                   int device, cudaStream_t stream) {
+                                   int dtype, int device,
+                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || n == 0) return cudaSuccess;
   if (B > 65535 || D < 1 || ri < 1 || ri > MAX_RI || splits < 1 ||
-      splits > (n + TJ - 1) / TJ || splits > 65535)
+      splits > (n + TJ - 1) / TJ || splits > 65535 || dtype < 0 ||
+      dtype > 2)
     return cudaErrorInvalidValue;
-  const Rows rows{C, nullptr, (long long)B * n, n, D,
-                  D % 4 == 0 && aligned16(C) && aligned16(T)};
-  return launch_z<false>(rows, T, nullptr, Z, nullptr, B, ri, splits,
-                         stream);
+  if (dtype == 1)
+    return batched_z<__nv_bfloat16>(C, T, Z, B, n, D, ri, splits, stream);
+  if (dtype == 2)
+    return batched_z<__half>(C, T, Z, B, n, D, ri, splits, stream);
+  return batched_z<float>(C, T, Z, B, n, D, ri, splits, stream);
 }
 
-// C_dce (N, 4, D) float32, cand (B, n) int64 row ids, T (B, D) float32,
+// C_dce (N, 4, D) of element type `dtype` (0 float32, 1 bfloat16, 2
+// float16), cand (B, n) int64 row ids, T (B, D) float32,
 // valid (B, n) uint8 or nullptr (all valid), wins (B, n) int32 scratch
 // (the win counts, -1 for invalid slots, are left there), out (B, k)
 // int64; all contiguous on `device`.  1 <= k <= n, B <= 65535.  Launches
 // both stages on `stream` and returns cudaGetLastError().
-extern "C" int repro_dce_refine_topk(const float* C_dce, long long N,
+extern "C" int repro_dce_refine_topk(const void* C_dce, long long N,
                                      const long long* cand, const float* T,
                                      const unsigned char* valid, int* wins,
                                      long long* out, int B, int n, int D,
-                                     int k, int device, cudaStream_t stream) {
+                                     int k, int dtype, int device,
+                                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
-  if (B > 65535 || D < 1 || k < 1 || k > n) return cudaErrorInvalidValue;
-  const Rows rows{C_dce, cand, N, n, D,
-                  D % 4 == 0 && aligned16(C_dce) && aligned16(T)};
-  err = launch_z<true>(rows, T, valid, nullptr, wins, B,
-                       rows_per_thread(B, n, device), 1, stream);
+  if (B > 65535 || D < 1 || k < 1 || k > n || dtype < 0 || dtype > 2)
+    return cudaErrorInvalidValue;
+  const int ri = rows_per_thread(B, n, device);
+  if (dtype == 1)
+    err = refine_wins<__nv_bfloat16>(C_dce, N, cand, T, valid, wins, B, n,
+                                     D, ri, stream);
+  else if (dtype == 2)
+    err = refine_wins<__half>(C_dce, N, cand, T, valid, wins, B, n, D, ri,
+                              stream);
+  else
+    err = refine_wins<float>(C_dce, N, cand, T, valid, wins, B, n, D, ri,
+                             stream);
   if (err != cudaSuccess) return err;
   rank_kernel<<<B, THREADS, 0, stream>>>(wins, cand, out, n, k);
   return cudaGetLastError();

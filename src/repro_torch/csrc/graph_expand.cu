@@ -72,9 +72,23 @@
 // steps a hop (score, ranks, merge), longer than the memory round trip.
 // An L2 prefetch of the next hop's rows (its entry is known once a hop is
 // scored) saved less wait than it cost to issue, and is not kept.
+//
+// 16-bit rows.  The reference casts C to float32 before its kernel
+// computes; here C may be float32, bfloat16 or float16 and is read in
+// place (Q is float32: the wrapper converts it, as it is small).  A row
+// lands in its staging slot as it is, by one bulk copy of 2d bytes where
+// 2d is a multiple of 16 and C is 16-byte aligned (else plain loads:
+// cp.async has no 2-byte size), and the scorers convert each value to
+// float32 as they read it (8-byte reads of 4 values).  bf16 and f16
+// values are exact in float32, so every difference and sum is the one the
+// float32 kernel computes on a float32 copy of the rows, in the same
+// order: beams, distances, hops, edges and visited bits are bit-equal to
+// it.
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+
+#include "row_elements.cuh"
 
 namespace {
 
@@ -153,7 +167,7 @@ struct Args {
   const int* neigh0;           // (R, M0)
   const int* neigh_up;         // (LU, R, M) or nullptr
   const unsigned char* ok;     // (R,)
-  const float* C;              // (R, d)
+  const void* C;               // (R, d) of the kernel's element type
   const float* Q;              // (nq, d)
   const int* ep;               // (nq,) layer-0 entries, or nullptr
   const float* ep_d;
@@ -180,9 +194,11 @@ __device__ __forceinline__ int row_stride(int dpad, int lpr) {
   return 4 * (units + (((lpr - units) % 8) + 8) % 8);
 }
 
-template <bool POOL, bool SVIS>
+// E: the element type of C's rows (float, __nv_bfloat16 or __half).
+template <typename E, bool POOL, bool SVIS>
 struct Walk {
   const Args a;
+  const E* C;
   int lane, dpad, pr;
   float* qs;
   float* rows;
@@ -199,7 +215,7 @@ struct Walk {
   unsigned bar, phase;         // the copies' mbarrier and its phase
 
   __device__ Walk(const Args& args, unsigned char* smem, int q)
-      : a(args), lane(threadIdx.x & 31) {
+      : a(args), C(static_cast<const E*>(args.C)), lane(threadIdx.x & 31) {
     dpad = (a.d + 3) & ~3;
     pr = (a.M0 + 3) & ~3;
     const Layout L = layout(a.ef, a.M0, a.M, dpad, a.G, POOL, SVIS, a.RW);
@@ -238,12 +254,19 @@ struct Walk {
     __syncwarp();
   }
 
+  // Row id of C into the staging slot at dst, as it is: 16-byte cp.async
+  // where vecC, else 4-byte cp.async (float32) or plain loads (16-bit).
   __device__ void copy_row(float* dst, int id) const {
-    const float* src = a.C + (size_t)id * a.d;
+    constexpr int VEC = 16 / sizeof(E);
+    const E* src = C + (size_t)id * a.d;
+    E* out = reinterpret_cast<E*>(dst);
     if (a.vecC) {
-      for (int c = lane; c < a.d / 4; c += WARP) cp_async16(dst + 4 * c, src + 4 * c);
+      for (int c = lane; c < a.d / VEC; c += WARP)
+        cp_async16(out + VEC * c, src + VEC * c);
+    } else if constexpr (sizeof(E) == 4) {
+      for (int c = lane; c < a.d; c += WARP) cp_async4(out + c, src + c);
     } else {
-      for (int c = lane; c < a.d; c += WARP) cp_async4(dst + c, src + c);
+      for (int c = lane; c < a.d; c += WARP) out[c] = src[c];
     }
   }
 
@@ -282,7 +305,7 @@ struct Walk {
       if (wanted && (bulk_rows || bulk_adj)) {
         if (lane == 0) {
           const unsigned n = __popc(wanted);
-          const unsigned bytes = (bulk_rows ? n * 4u * a.d : 0u) +
+          const unsigned bytes = (bulk_rows ? n * sizeof(E) * a.d : 0u) +
                                  (bulk_adj ? n * 4u * a.M0 : 0u);
           asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], "
                        "%1;\n" ::"r"(bar), "r"(bytes)
@@ -291,8 +314,8 @@ struct Walk {
         __syncwarp();
         if (want) {
           if (bulk_rows)
-            bulk_copy(rows + (size_t)lane * rs, a.C + (size_t)my_id * a.d,
-                      4u * a.d, bar);
+            bulk_copy(rows + (size_t)lane * rs, C + (size_t)my_id * a.d,
+                      (unsigned)sizeof(E) * a.d, bar);
           if (bulk_adj)
             bulk_copy(pool + (size_t)my_stage * pr,
                       a.neigh0 + (size_t)my_id * a.M0, 4u * a.M0, bar);
@@ -329,12 +352,12 @@ struct Walk {
         // four partial sums, one per component: short dependent chains
         float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
         if (r < gc && ((wanted >> r) & 1u)) {
-          const float4* x4 = reinterpret_cast<const float4*>(rows + (size_t)r * rs);
+          const E* xr = reinterpret_cast<const E*>(rows + (size_t)r * rs);
           const float4* q4 = reinterpret_cast<const float4*>(qs);
           const int whole = a.d >> 2;             // float4s inside d
 #pragma unroll 4
           for (int k = sub; k < whole; k += lpr) {
-            const float4 x = x4[k], y = q4[k];
+            const float4 x = elem::load4(xr + 4 * k), y = q4[k];
             const float e0 = x.x - y.x, e1 = x.y - y.y;
             const float e2 = x.z - y.z, e3 = x.w - y.w;
             s0 = fmaf(e0, e0, s0);
@@ -344,7 +367,7 @@ struct Walk {
           }
           if (whole < dpad / 4 && whole % lpr == sub) {
             // ragged d: the copies wrote [0, d) only
-            const float4 x = x4[whole], y = q4[whole];
+            const float4 x = elem::load4(xr + 4 * whole), y = q4[whole];
             const int past = a.d - 4 * whole;   // 1, 2 or 3 valid
             const float e0 = x.x - y.x;
             const float e1 = past > 1 ? x.y - y.y : 0.f;
@@ -565,14 +588,14 @@ struct Walk {
   }
 };
 
-template <bool POOL, bool SVIS>
+template <typename E, bool POOL, bool SVIS>
 __global__ void __launch_bounds__(WARP)
 walk_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q = blockIdx.x;
   const int lane = threadIdx.x;
   const float INF = __int_as_float(0x7f800000);
-  Walk<POOL, SVIS> w(a, smem, q);
+  Walk<E, POOL, SVIS> w(a, smem, q);
   int hops = 0, edges = 0;
   int e;
   float e_d;
@@ -601,22 +624,34 @@ walk_kernel(Args a) {
   }
 }
 
-template <bool POOL, bool SVIS>
+template <typename E, bool POOL, bool SVIS>
 cudaError_t launch(const Args& a, int nq, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      walk_kernel<POOL, SVIS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      walk_kernel<E, POOL, SVIS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  walk_kernel<POOL, SVIS><<<nq, WARP, smem, stream>>>(a);
+  walk_kernel<E, POOL, SVIS><<<nq, WARP, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-int run(Args a, int nq, int pool, int svis, int device, cudaStream_t stream) {
+template <typename E>
+cudaError_t launch(const Args& a, int nq, int pool, int svis, size_t smem,
+                   cudaStream_t stream) {
+  if (pool && svis) return launch<E, true, true>(a, nq, smem, stream);
+  if (pool) return launch<E, true, false>(a, nq, smem, stream);
+  if (svis) return launch<E, false, true>(a, nq, smem, stream);
+  return launch<E, false, false>(a, nq, smem, stream);
+}
+
+// dtype: C's element type (0 float32, 1 bfloat16, 2 float16).
+int run(Args a, int nq, int pool, int svis, int dtype, int device,
+        cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
   if (a.ef < 1 || a.ef > a.ef_cap || a.M0 < 1 || a.d < 1 || a.G < 1 ||
-      a.G > WARP || a.max_hops < 0 || (a.neigh_up && a.M < 1) || a.R < 1)
+      a.G > WARP || a.max_hops < 0 || (a.neigh_up && a.M < 1) || a.R < 1 ||
+      dtype < 0 || dtype > 2)
     return cudaErrorInvalidValue;
   const int dpad = (a.d + 3) & ~3;
   const size_t smem =
@@ -631,12 +666,14 @@ int run(Args a, int nq, int pool, int svis, int device, cudaStream_t stream) {
                           stream);
     if (err != cudaSuccess) return err;
   }
-  a.vecC = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.C) % 16 == 0;
+  // 16-byte copies of a row: 4 float32 or 8 16-bit values
+  a.vecC = a.d % (dtype ? 8 : 4) == 0 &&
+           reinterpret_cast<uintptr_t>(a.C) % 16 == 0;
   a.vecN = a.M0 % 4 == 0 && reinterpret_cast<uintptr_t>(a.neigh0) % 16 == 0;
-  if (pool && svis) return launch<true, true>(a, nq, smem, stream);
-  if (pool) return launch<true, false>(a, nq, smem, stream);
-  if (svis) return launch<false, true>(a, nq, smem, stream);
-  return launch<false, false>(a, nq, smem, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(a, nq, pool, svis, smem, stream);
+  if (dtype == 2) return launch<__half>(a, nq, pool, svis, smem, stream);
+  return launch<float>(a, nq, pool, svis, smem, stream);
 }
 
 }  // namespace
@@ -651,7 +688,8 @@ extern "C" long long repro_graph_walk_smem(int ef, int M0, int M, int d,
 }
 
 // neigh0 (R, M0) int32 (-1 padded); neigh_up (LU, R, M) int32; ok (R,)
-// bytes 0/1; C (R, d) float32; Q (nq, d) float32.  Outputs: beam_i
+// bytes 0/1; C (R, d) of element type `dtype` (0 float32, 1 bfloat16, 2
+// float16); Q (nq, d) float32.  Outputs: beam_i
 // (nq, ef_cap) int32, beam_d (nq, ef_cap) float32, vis (nq, ceil(R/32))
 // uint32 words, hops, edges (nq,) int32: the walk from `entry` (-1: an
 // empty graph).  pool, svis and G are the wrapper's plan.  All contiguous
@@ -659,28 +697,28 @@ extern "C" long long repro_graph_walk_smem(int ef, int M0, int M, int d,
 // cudaGetLastError().
 extern "C" int repro_graph_walk(
     const int* neigh0, const int* neigh_up, const unsigned char* ok,
-    const float* C, const float* Q, int* beam_i, float* beam_d,
+    const void* C, const float* Q, int* beam_i, float* beam_d,
     unsigned* vis, int* hops, int* edges, int nq, int R, int M0, int M,
     int LU, int d, int entry, int ef, int ef_cap, int max_hops, int G,
-    int pool, int svis, int device, cudaStream_t stream) {
+    int pool, int svis, int dtype, int device, cudaStream_t stream) {
   Args a{neigh0, neigh_up, ok, C, Q, nullptr, nullptr, beam_i, beam_d, vis,
          hops, edges, R, (R + 31) / 32, M0, M, LU, d, ef, ef_cap, max_hops,
          entry, G, 0, 0};
   if (LU > 0 && !neigh_up) return cudaErrorInvalidValue;
   if (LU == 0) a.neigh_up = nullptr;
-  return run(a, nq, pool, svis, device, stream);
+  return run(a, nq, pool, svis, dtype, device, stream);
 }
 
 // The layer-0 search alone, from ep (nq,) int32 (-1: an empty graph's
 // query) at ep_d (nq,) float32; the hops and edges are layer 0's.
 extern "C" int repro_graph_expand_layer0(
-    const int* neigh0, const unsigned char* ok, const float* C,
+    const int* neigh0, const unsigned char* ok, const void* C,
     const float* Q, const int* ep, const float* ep_d, int* beam_i,
     float* beam_d, unsigned* vis, int* hops, int* edges, int nq, int R,
     int M0, int d, int ef, int ef_cap, int max_hops, int G, int pool,
-    int svis, int device, cudaStream_t stream) {
+    int svis, int dtype, int device, cudaStream_t stream) {
   Args a{neigh0, nullptr, ok, C, Q, ep, ep_d, beam_i, beam_d, vis, hops,
          edges, R, (R + 31) / 32, M0, 0, 0, d, ef, ef_cap, max_hops, -1, G,
          0, 0};
-  return run(a, nq, pool, svis, device, stream);
+  return run(a, nq, pool, svis, dtype, device, stream);
 }

@@ -53,14 +53,31 @@
 // the passes' lists joined are the first k' keys; one comparison an offer,
 // in a kernel variant of its own.  Ragged nq, n and d are masked in the
 // loads (zero fill) and in the offers; nothing is padded or copied.
+//
+// 16-bit rows.  The reference casts X to float32 before its kernel
+// computes; here X may be float32, bfloat16 or float16 and is read in
+// place (Q is float32: the wrapper converts it, as it is small).  A 16-bit
+// slice lands in shared memory as it is: 16-byte cp.async copies carry 8
+// values (d % 8 == 0 and a 16-byte aligned X; else plain loads, as
+// cp.async has no 2-byte size), rows keep a 48-byte stride (the 8-byte
+// reads of a warp's 8 rows meet no bank twice), and the FMA loop and the
+// ||x||^2 sums convert each value to float32 as they read it.  bf16 and
+// f16 values are exact in float32, so every product and sum is the one
+// the float32 kernel computes on a float32 copy of the rows, in the same
+// order: distances and ids are bit-equal to it.  The slices take 24 KB a
+// stage instead of 40 KB; the bytes bound halves, the operations bound
+// does not (the FMAs are fp32 on the CUDA cores).
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
 
+#include "row_elements.cuh"
 #include "topk_select.cuh"
 
 namespace {
 
+using elem::load4;
+using elem::zero;
 using topk::EMPTY;
 using topk::FLOAT_INF_BITS;
 using topk::order_float;
@@ -75,7 +92,7 @@ constexpr int QSTEP = 4;           // a thread's queries are QSTEP apart
 constexpr int RSTEP = 8;           // and its rows RSTEP apart
 constexpr int NR = ROWS / THREADS; // rows whose ||x||^2 a thread sums
 constexpr int BK = 16;             // depth per staged slice
-constexpr int BKP = BK + 4;        // padded slice row stride: 80 B
+constexpr int BKP = BK + 4;        // padded float32 slice row stride: 80 B
 constexpr int DEEP = 3;            // stages of the ring while k' <= 128
 constexpr int SHALLOW = 2;         // stages where the selection needs room
 constexpr int MAX_KP = 1024;
@@ -95,16 +112,24 @@ __host__ __device__ inline int scan_sort_len(int kp) {
   return topk::pow2_at_least(topk::state_len(kp) + MIN_BUFFER);
 }
 
-// Staged slices, ||q||^2 and ||x||^2 of a block of qb queries.
-__host__ __device__ inline size_t tile_smem(int qb, int stages) {
-  return (size_t)stages * (ROWS + qb) * BKP * 4 + (size_t)qb * 4 +
-         (size_t)ROWS * 4;
+// A row's padded stride (elements) in a staged X slice, by element size:
+// 80 B for float32 (conflict-free 16-byte reads), 48 B for 16-bit values
+// (conflict-free 8-byte reads, 16-byte aligned cp.async destinations).
+__host__ __device__ constexpr int x_stride(int esize) {
+  return esize == 4 ? BKP : BK + 8;
 }
 
-__host__ __device__ inline size_t knn_smem(int kp) {
+// Staged X and Q slices, ||q||^2 and ||x||^2 of a block of qb queries,
+// for rows of `esize` bytes an element.
+__host__ __device__ inline size_t tile_smem(int qb, int stages, int esize) {
+  return (size_t)stages * ROWS * x_stride(esize) * esize +
+         (size_t)stages * qb * BKP * 4 + (size_t)qb * 4 + (size_t)ROWS * 4;
+}
+
+__host__ __device__ inline size_t knn_smem(int kp, int esize) {
   const int qb = queries_per_block(kp);
   return Select::bytes(qb, scan_sort_len(kp)) +
-         tile_smem(qb, scan_stages(kp));
+         tile_smem(qb, scan_stages(kp), esize);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -131,53 +156,53 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The tile main loop of both entries: a block of QB = 4 TQ queries walks
-// rows [r_begin, r_end) in tiles of ROWS rows and hands each tile's
-// distances (TQ x RT per thread, in registers) to `epilogue`.
+// rows [r_begin, r_end) of X (elements of type T) in tiles of ROWS rows
+// and hands each tile's distances (TQ x RT per thread, in registers) to
+// `epilogue`.
 //   warp w, lane l: queries l % 4 + 4 i, rows 64 w + l / 4 + 8 j.
-template <int TQ, int STAGES>
+template <typename T, int TQ, int STAGES>
 struct Tiles {
   static constexpr int QB = 4 * TQ;
-  float* Xs;     // [STAGES][ROWS][BKP]
+  static constexpr int XS = x_stride(sizeof(T));  // X slice row stride
+  static constexpr int VEC = 16 / sizeof(T);      // elements a 16-byte copy
+  T* Xs;         // [STAGES][ROWS][XS]
   float* Qs;     // [STAGES][QB][BKP]
   float* qn;     // [QB]
   float* xns;    // [ROWS]
   const float* Q;
-  const float* X;
+  const T* X;
   int nq, n, d, q0, nk;
-  bool vec;      // 16-byte copies: d % 4 == 0 and 16-byte aligned Q, X
+  bool vec;      // 16-byte copies: d % VEC == 0 and 16-byte aligned Q, X
 
-  __device__ Tiles(unsigned char* smem, const float* Q_, const float* X_,
+  __device__ Tiles(unsigned char* smem, const float* Q_, const T* X_,
                    int nq_, int n_, int d_, int q0_)
       : Q(Q_), X(X_), nq(nq_), n(n_), d(d_), q0(q0_) {
-    Xs = reinterpret_cast<float*>(smem);
-    Qs = Xs + STAGES * ROWS * BKP;
+    Xs = reinterpret_cast<T*>(smem);
+    Qs = reinterpret_cast<float*>(Xs + STAGES * ROWS * XS);
     qn = Qs + STAGES * QB * BKP;
     xns = qn + QB;
     nk = (d + BK - 1) / BK;
-    vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(Q) % 16 == 0 &&
+    vec = d % VEC == 0 && reinterpret_cast<uintptr_t>(Q) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(X) % 16 == 0;
   }
 
   // Issue the copies of depth slice ks of the tile at row r0 into stage st
-  // (rows past n and depth past d are zero-filled).
+  // (rows past n and depth past d are zero-filled).  Without 16-byte
+  // copies, float32 rows take 4-byte cp.async and 16-bit rows plain loads
+  // (the stage is free: every thread has passed the barrier after its
+  // last reads).
   __device__ void load(int r0, int ks, int st, int tid) const {
-    float* xs = Xs + st * ROWS * BKP;
+    T* xs = Xs + st * ROWS * XS;
     float* qs = Qs + st * QB * BKP;
     const int k0 = ks * BK;
     if (vec) {
 #pragma unroll
-      for (int it = 0; it < ROWS * (BK / 4) / THREADS; ++it) {
+      for (int it = 0; it < ROWS * (BK / VEC) / THREADS; ++it) {
         const int c = tid + it * THREADS;
-        const int row = c / (BK / 4), k = k0 + (c % (BK / 4)) * 4;
+        const int row = c / (BK / VEC), k = k0 + (c % (BK / VEC)) * VEC;
         const bool in = r0 + row < n && k < d;
-        cp_async16(xs + row * BKP + (k - k0),
+        cp_async16(xs + row * XS + (k - k0),
                    in ? X + (size_t)(r0 + row) * d + k : X, in);
-      }
-      if (tid < QB * (BK / 4)) {
-        const int q = tid / (BK / 4), k = k0 + (tid % (BK / 4)) * 4;
-        const bool in = q0 + q < nq && k < d;
-        cp_async16(qs + q * BKP + (k - k0),
-                   in ? Q + (size_t)(q0 + q) * d + k : Q, in);
       }
     } else {
 #pragma unroll
@@ -185,9 +210,22 @@ struct Tiles {
         const int e = tid + it * THREADS;
         const int row = e / BK, k = k0 + e % BK;
         const bool in = r0 + row < n && k < d;
-        cp_async4(xs + row * BKP + (k - k0),
-                  in ? X + (size_t)(r0 + row) * d + k : X, in);
+        if constexpr (sizeof(T) == 4)
+          cp_async4(xs + row * XS + (k - k0),
+                    in ? X + (size_t)(r0 + row) * d + k : X, in);
+        else
+          xs[row * XS + (k - k0)] =
+              in ? X[(size_t)(r0 + row) * d + k] : zero<T>();
       }
+    }
+    if (vec) {
+      if (tid < QB * (BK / 4)) {
+        const int q = tid / (BK / 4), k = k0 + (tid % (BK / 4)) * 4;
+        const bool in = q0 + q < nq && k < d;
+        cp_async16(qs + q * BKP + (k - k0),
+                   in ? Q + (size_t)(q0 + q) * d + k : Q, in);
+      }
+    } else {
       for (int e = tid; e < QB * BK; e += THREADS) {
         const int q = e / BK, k = k0 + e % BK;
         const bool in = q0 + q < nq && k < d;
@@ -229,7 +267,7 @@ struct Tiles {
         load(r_begin + (nxt / nk) * ROWS, nxt % nk, nxt % STAGES, tid);
       cp_async_commit();
 
-      const float* xs = Xs + (it % STAGES) * ROWS * BKP;
+      const T* xs = Xs + (it % STAGES) * ROWS * XS;
       const float* qs = Qs + (it % STAGES) * QB * BKP;
       if (it < nk && tid < QB) {               // ||q||^2, during tile 0
 #pragma unroll
@@ -247,8 +285,7 @@ struct Tiles {
       for (int r = 0; r < NR; ++r)             // ||x||^2 of rows tid + 256 r
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              xs + (tid + THREADS * r) * BKP + kk);
+          const float4 v = load4(xs + (tid + THREADS * r) * XS + kk);
           xn[r] = fmaf(v.x, v.x, xn[r]);
           xn[r] = fmaf(v.y, v.y, xn[r]);
           xn[r] = fmaf(v.z, v.z, xn[r]);
@@ -256,13 +293,12 @@ struct Tiles {
         }
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 4) {
-        // a warp reads 8 rows and 4 queries per 16-byte load: one pass
-        // of shared memory each
+        // a warp reads 8 rows and 4 queries per 16-byte (X: 8-byte if
+        // 16-bit) load: one pass of shared memory each
         float xv[4][RT], qv[4][TQ];      // [depth][row or query]
 #pragma unroll
         for (int j = 0; j < RT; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              xs + (rloc + RSTEP * j) * BKP + kk);
+          const float4 v = load4(xs + (rloc + RSTEP * j) * XS + kk);
           xv[0][j] = v.x, xv[1][j] = v.y, xv[2][j] = v.z, xv[3][j] = v.w;
         }
 #pragma unroll
@@ -308,12 +344,13 @@ struct Tiles {
 };
 
 // repro_l2_sq_dists: grid (query groups, row tiles); one tile a block.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-l2_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
+l2_tile_kernel(const float* __restrict__ Q, const T* __restrict__ X,
                float* __restrict__ out, int nq, int n, int d) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  Tiles<8, DEEP> t(smem, Q, X, nq, n, d, blockIdx.x * 32);
+  Tiles<T, 8, DEEP> t(smem, Q, X, nq, n, d, blockIdx.x * 32);
   const int r0 = blockIdx.y * ROWS;
   t.run(r0, min(n, r0 + ROWS), tid,
         [&](int tile0, int qloc, int rloc, float (&dist)[8][RT]) {
@@ -334,9 +371,9 @@ l2_tile_kernel(const float* __restrict__ Q, const float* __restrict__ X,
 // segments hold 32 E keys and are sorted a warp each in registers.
 // FLOOR: a later pass of a call above MAX_KP, which offers only the keys
 // after its query's floor key (the last key of the pass before).
-template <int TQ, int STAGES, int E, bool FLOOR>
+template <typename T, int TQ, int STAGES, int E, bool FLOOR>
 __global__ void __launch_bounds__(THREADS, 1)
-l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
+l2_scan_kernel(const float* __restrict__ Q, const T* __restrict__ X,
                u64* __restrict__ part, const u64* __restrict__ floor, int nq,
                int n, int d, int kp, int chunk_rows, int G) {
   constexpr int QB = 4 * TQ;
@@ -344,15 +381,16 @@ l2_scan_kernel(const float* __restrict__ Q, const float* __restrict__ X,
   const int tid = threadIdx.x;
   const int S = scan_sort_len(kp);
   const int g = blockIdx.y;
-  Tiles<TQ, STAGES> t(smem + (size_t)QB * S * 8, Q, X, nq, n, d,
-                      blockIdx.x * QB);
+  Tiles<T, TQ, STAGES> t(smem + (size_t)QB * S * 8, Q, X, nq, n, d,
+                         blockIdx.x * QB);
   u64 lo[TQ];                                    // the floor keys
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
     const int q = t.q0 + (tid & 31) % QSTEP + QSTEP * i;
     lo[i] = FLOOR && q < nq ? floor[q] : 0;
   }
-  Select sel = Select::at(smem, QB, kp, S, tile_smem(QB, STAGES));
+  Select sel = Select::at(smem, QB, kp, S,
+                          tile_smem(QB, STAGES, sizeof(T)));
   auto flush = [&]() {
     if constexpr (E > 0) sel.template flush_warps<E>(tid);
     else sel.flush(tid);
@@ -438,38 +476,79 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <typename T>
+cudaError_t sq_dists(const float* Q, const void* X, float* out, int nq,
+                     int n, int d, cudaStream_t stream) {
+  const size_t smem = tile_smem(32, DEEP, sizeof(T));
+  cudaError_t err =
+      set_smem(reinterpret_cast<const void*>(l2_tile_kernel<T>), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + 31) / 32, (n + ROWS - 1) / ROWS);
+  l2_tile_kernel<T><<<grid, THREADS, smem, stream>>>(
+      Q, static_cast<const T*>(X), out, nq, n, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t scan(const float* Q, const void* Xv, u64* part,
+                 const u64* floor_in, int nq, int n, int d, int kp,
+                 int chunk_rows, int G, cudaStream_t stream) {
+  const T* X = static_cast<const T*>(Xv);
+  const int qb = queries_per_block(kp);
+  const size_t smem = knn_smem(kp, sizeof(T));
+  const dim3 grid((nq + qb - 1) / qb, G);
+  cudaError_t err;
+#define REPRO_L2_SCAN(TQ, STAGES, E, FLOOR)                                 \
+  do {                                                                       \
+    err = set_smem(reinterpret_cast<const void*>(                           \
+                       l2_scan_kernel<T, TQ, STAGES, E, FLOOR>), smem);      \
+    if (err != cudaSuccess) return err;                                      \
+    l2_scan_kernel<T, TQ, STAGES, E, FLOOR><<<grid, THREADS, smem, stream>>>( \
+        Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G);                  \
+  } while (0)
+  if (kp <= 128) REPRO_L2_SCAN(8, DEEP, 8, false);
+  else if (qb == 32) REPRO_L2_SCAN(8, SHALLOW, 16, false);
+  else if (floor_in) REPRO_L2_SCAN(2, SHALLOW, 0, true);
+  else REPRO_L2_SCAN(2, SHALLOW, 0, false);
+#undef REPRO_L2_SCAN
+  return cudaGetLastError();
+}
+
+int element_size(int dtype) { return dtype == 0 ? 4 : 2; }
+
 }  // namespace
 
-// Q (nq, d), X (n, d), out (nq, n): float32, row-major, contiguous, all on
-// `device`.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int repro_l2_sq_dists(const float* Q, const float* X, float* out,
-                                 int nq, int n, int d, int device,
+// Q (nq, d) float32, X (n, d) of element type `dtype` (0 float32, 1
+// bfloat16, 2 float16), out (nq, n) float32: row-major, contiguous, all
+// on `device`.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int repro_l2_sq_dists(const float* Q, const void* X, float* out,
+                                 int nq, int n, int d, int dtype, int device,
                                  cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0 || n == 0) return cudaSuccess;
-  if (d < 1 || (n + ROWS - 1) / ROWS > 65535) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem(32, DEEP);
-  err = set_smem(reinterpret_cast<const void*>(l2_tile_kernel), smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nq + 31) / 32, (n + ROWS - 1) / ROWS);
-  l2_tile_kernel<<<grid, THREADS, smem, stream>>>(Q, X, out, nq, n, d);
-  return cudaGetLastError();
+  if (d < 1 || (n + ROWS - 1) / ROWS > 65535 || dtype < 0 || dtype > 2)
+    return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return sq_dists<__nv_bfloat16>(Q, X, out, nq, n, d, stream);
+  if (dtype == 2) return sq_dists<__half>(Q, X, out, nq, n, d, stream);
+  return sq_dists<float>(Q, X, out, nq, n, d, stream);
 }
 
 // Queries a block of the fused scan takes at this kp (the wrapper cuts the
 // batch into groups of that many), and the shared memory (bytes) its stage
-// 1 needs; the wrapper refuses a call whose need exceeds the device's
-// per-block limit.
+// 1 needs for rows of element type `dtype`; the wrapper refuses a call
+// whose need exceeds the device's per-block limit.
 extern "C" int repro_l2_knn_queries_per_block(int kp) {
   return queries_per_block(kp);
 }
 
-extern "C" long long repro_l2_knn_smem(int kp) {
-  return (long long)knn_smem(kp);
+extern "C" long long repro_l2_knn_smem(int kp, int dtype) {
+  return (long long)knn_smem(kp, element_size(dtype));
 }
 
-// Q (nq, d), X (n, d) float32; part (nq, G, kp) uint64 scratch; out_d
+// Q (nq, d) float32, X (n, d) of element type `dtype` (0 float32, 1
+// bfloat16, 2 float16); part (nq, G, kp) uint64 scratch; out_d
 // (nq, kp) float32, out_i (nq, kp) int64; all contiguous on `device`.
 // Rows are split into G chunks of chunk_rows (a multiple of 512), one
 // block per (query group, chunk).  A call above MAX_KP runs in passes:
@@ -478,37 +557,29 @@ extern "C" long long repro_l2_knn_smem(int kp) {
 // it are offered; floor_out (or nullptr) gets this pass's last keys (it
 // may be floor_in: the scan has read it before the merge writes).
 // Launches both stages on `stream` and returns cudaGetLastError().
-extern "C" int repro_l2_knn(const float* Q, const float* X, u64* part,
+extern "C" int repro_l2_knn(const float* Q, const void* X, u64* part,
                             float* out_d, long long* out_i,
                             const u64* floor_in, u64* floor_out, int nq,
                             int n, int d, int kp, int chunk_rows, int G,
-                            int device, cudaStream_t stream) {
+                            int dtype, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nq == 0) return cudaSuccess;
   if (kp < 1 || kp > MAX_KP || kp > n || d < 1 || chunk_rows < ROWS ||
       chunk_rows % ROWS || (long long)chunk_rows * G < n ||
       (long long)chunk_rows * (G - 1) >= n || G > 65535 ||
-      (long long)G * kp > (1LL << 31) - 1)
+      (long long)G * kp > (1LL << 31) - 1 || dtype < 0 || dtype > 2)
     return cudaErrorInvalidValue;
-  const int qb = queries_per_block(kp);
-  if (floor_in && qb != 8) return cudaErrorInvalidValue;
-  const size_t smem = knn_smem(kp);
-  const dim3 grid((nq + qb - 1) / qb, G);
-#define REPRO_L2_SCAN(TQ, STAGES, E, FLOOR)                                \
-  do {                                                                      \
-    err = set_smem(reinterpret_cast<const void*>(                          \
-                       l2_scan_kernel<TQ, STAGES, E, FLOOR>), smem);        \
-    if (err != cudaSuccess) return err;                                     \
-    l2_scan_kernel<TQ, STAGES, E, FLOOR><<<grid, THREADS, smem, stream>>>(  \
-        Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G);                 \
-  } while (0)
-  if (kp <= 128) REPRO_L2_SCAN(8, DEEP, 8, false);
-  else if (qb == 32) REPRO_L2_SCAN(8, SHALLOW, 16, false);
-  else if (floor_in) REPRO_L2_SCAN(2, SHALLOW, 0, true);
-  else REPRO_L2_SCAN(2, SHALLOW, 0, false);
-#undef REPRO_L2_SCAN
-  err = cudaGetLastError();
+  if (floor_in && queries_per_block(kp) != 8) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    err = scan<__nv_bfloat16>(Q, X, part, floor_in, nq, n, d, kp,
+                              chunk_rows, G, stream);
+  else if (dtype == 2)
+    err = scan<__half>(Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G,
+                       stream);
+  else
+    err = scan<float>(Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G,
+                      stream);
   if (err != cudaSuccess) return err;
   const size_t msmem = Select::bytes(1, Select::merge_len(kp, G));
   err = set_smem(reinterpret_cast<const void*>(l2_merge_kernel), msmem);

@@ -19,7 +19,10 @@ from the same source and counts as one in `launches`:
 
 A kp above MAX_KP runs in passes of at most MAX_KP (`common.floor_passes`:
 each pass offers only the keys after its query's last key of the pass
-before), each pass counted in `launches`.
+before), each pass counted in `launches`.  The small operands are
+converted as the reference's `astype` converts them: K4's `cn` of any
+integer dtype to int32, K5's tables of any float dtype to float32.  For
+`meta` tensors the wrappers make the outputs a launch would allocate.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import floor_passes, on_cpu
+from ..common import (float_operand, floor_passes, int_operand, on_cpu,
+                      on_meta)
 from .ref import INT_BIG
 from .ref import pq_adc_topk as plain_pq_adc_topk
 from .ref import sq_adc_topk as plain_sq_adc_topk
@@ -108,27 +112,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+
 def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
                 ok: torch.Tensor, kp: int):
     """Fused int8 ADC scan + top-kp.
 
-    q8 (nq, d) int8, c8 (n, d) int8, cn (n,) int32, ok (n,) row validity
-    (nonzero = valid) -> (dists (nq, kp) int32 ascending, ids (nq, kp)
-    int64), ties to the lowest id; slots beyond the valid rows are
-    (INT_BIG, -1).  kp = min(kp, n).  CUDA tensors must have those dtypes
-    and be contiguous; the kernels run on the current stream without
-    synchronizing (a kp above MAX_KP waits for each pass's ids)."""
-    if on_cpu(q8, c8, cn, ok):
+    q8 (nq, d) int8, c8 (n, d) int8, cn (n,) any integer dtype (made
+    int32), ok (n,) row validity (nonzero = valid) -> (dists (nq, kp)
+    int32 ascending, ids (nq, kp) int64), ties to the lowest id; slots
+    beyond the valid rows are (INT_BIG, -1).  kp = min(kp, n).  CUDA
+    tensors must have those dtypes and be contiguous; the kernels run on
+    the current stream without synchronizing (a kp above MAX_KP waits for
+    each pass's ids)."""
+    meta = on_meta(q8, c8, cn, ok)
+    if not meta and on_cpu(q8, c8, cn, ok):
         return plain_sq_adc_topk(q8, c8, cn, ok, kp)
     if (q8.dim() != 2 or c8.dim() != 2 or q8.shape[1] != c8.shape[1]
             or cn.shape != (c8.shape[0],)):
         raise ValueError(f"sq_adc_topk needs q8 (nq, d), c8 (n, d), cn (n,); "
                          f"got {tuple(q8.shape)}, {tuple(c8.shape)}, "
                          f"{tuple(cn.shape)}")
-    if (q8.dtype != torch.int8 or c8.dtype != torch.int8
-            or cn.dtype != torch.int32):
-        raise TypeError(f"the int8 ADC kernel takes int8 q8 and c8 and int32 "
-                        f"cn; got {q8.dtype}, {c8.dtype}, {cn.dtype}")
+    if q8.dtype != torch.int8 or c8.dtype != torch.int8:
+        raise TypeError(f"the int8 ADC kernel takes int8 q8 and c8; got "
+                        f"{q8.dtype}, {c8.dtype}")
+    cn = int_operand(cn, "adc_topk.sq_adc_topk's cn")
     if not all(t.is_contiguous() for t in (q8, c8, cn)):
         raise ValueError("the int8 ADC kernel takes contiguous q8, c8, cn")
     nq, d = q8.shape
@@ -138,7 +145,7 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
     okb = _row_validity(ok, n)
     kp = min(int(kp), n)
     dev = q8.device
-    if kp <= 0 or nq == 0:
+    if meta or kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.int32, dev)
 
     def one_pass(kp, floor_in, floor_out):
@@ -161,22 +168,24 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
                 kp: int):
     """Fused PQ ADC scan + top-kp.
 
-    lut (nq, m, 256) float32 per-query tables, codes_t (m, n) uint8, ok
-    (n,) row validity -> (dists (nq, kp) float32 ascending, each summed
-    over j = 0..m-1 in that order; ids (nq, kp) int64), ties to the lowest
-    id; slots beyond the valid rows are (+inf, -1).  kp = min(kp, n).  An
-    m whose tables do not fit in shared memory is refused.  CUDA tensors
-    must have those dtypes and be contiguous."""
-    if on_cpu(lut, codes_t, ok):
+    lut (nq, m, 256) per-query tables of any float dtype (made float32),
+    codes_t (m, n) uint8, ok (n,) row validity -> (dists (nq, kp) float32
+    ascending, each summed over j = 0..m-1 in that order; ids (nq, kp)
+    int64), ties to the lowest id; slots beyond the valid rows are (+inf,
+    -1).  kp = min(kp, n).  An m whose tables do not fit in shared memory
+    is refused.  CUDA tensors must have those dtypes and be contiguous."""
+    meta = on_meta(lut, codes_t, ok)
+    if not meta and on_cpu(lut, codes_t, ok):
         return plain_pq_adc_topk(lut, codes_t, ok, kp)
     if (lut.dim() != 3 or lut.shape[2] != PQ_K or codes_t.dim() != 2
             or codes_t.shape[0] != lut.shape[1]):
         raise ValueError(f"pq_adc_topk needs lut (nq, m, {PQ_K}) and "
                          f"codes_t (m, n); got {tuple(lut.shape)}, "
                          f"{tuple(codes_t.shape)}")
-    if lut.dtype != torch.float32 or codes_t.dtype != torch.uint8:
-        raise TypeError(f"the PQ ADC kernel takes float32 lut and uint8 "
-                        f"codes_t; got {lut.dtype}, {codes_t.dtype}")
+    if codes_t.dtype != torch.uint8:
+        raise TypeError(f"the PQ ADC kernel takes uint8 codes_t; got "
+                        f"{codes_t.dtype}")
+    lut = float_operand(lut, "adc_topk.pq_adc_topk's lut")
     if not (lut.is_contiguous() and codes_t.is_contiguous()):
         raise ValueError("the PQ ADC kernel takes contiguous lut, codes_t")
     nq, m, _ = lut.shape
@@ -186,7 +195,7 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
     okb = _row_validity(ok, n)
     kp = min(int(kp), n)
     dev = lut.device
-    if kp <= 0 or nq == 0:
+    if meta or kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.float32, dev)
 
     def one_pass(kp, floor_in, floor_out):

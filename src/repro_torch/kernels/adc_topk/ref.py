@@ -42,7 +42,8 @@ def sq_dists(q8: torch.Tensor, c8: torch.Tensor,
 
 
 def pq_dists(lut: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
-    """(nq, m, 256) float32, (m, n) uint8 -> (nq, n) float32."""
+    """(nq, m, 256) float, (m, n) uint8 -> (nq, n) float32."""
+    lut = lut.to(torch.float32)
     out = torch.zeros((lut.shape[0], codes_t.shape[1]), dtype=torch.float32,
                       device=lut.device)
     for j in range(codes_t.shape[0]):

@@ -11,7 +11,46 @@ from __future__ import annotations
 import torch
 
 __all__ = ["next_bucket", "running_topk_scan", "top_positions", "pad_to",
-           "padded_size", "on_cpu", "on_meta", "pass_sizes", "floor_passes"]
+           "padded_size", "on_cpu", "on_meta", "pass_sizes", "floor_passes",
+           "ROW_DTYPES", "row_operand", "float_operand", "int_operand"]
+
+# The element types the float kernels read in place, and the code their C
+# entries take for each (csrc: 0 float, 1 __nv_bfloat16, 2 __half).  The
+# Pallas kernels cast any float operand to float32 before they compute;
+# bf16 and f16 values are exact in float32, so a kernel converts them in
+# registers or shared memory and does the same fp32 arithmetic.
+ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def row_operand(x: torch.Tensor, what: str) -> tuple[torch.Tensor, int]:
+    """A kernel's large operand (a corpus of rows) as it reads it:
+    float32, bfloat16 or float16 in place, with its element code; float64
+    rounded to float32, as the reference's `astype` rounds it.  Any other
+    dtype raises TypeError."""
+    if x.dtype == torch.float64:
+        x = x.to(torch.float32)
+    if x.dtype not in ROW_DTYPES:
+        raise TypeError(f"{what} takes a float32, bfloat16, float16 or "
+                        f"float64 operand, got {x.dtype}")
+    return x, ROW_DTYPES[x.dtype]
+
+
+def float_operand(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A kernel's small float operand (queries, trapdoors, tables) as
+    float32: the reference's `astype(float32)`.  Non-float dtypes raise
+    TypeError."""
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"{what} takes a float operand, got {x.dtype}")
+    return x.to(torch.float32)
+
+
+def int_operand(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A kernel's small integer operand as int32: the reference's
+    `astype(int32)`.  Float and bool dtypes raise TypeError."""
+    if x.dtype.is_floating_point or x.dtype.is_complex or \
+            x.dtype == torch.bool:
+        raise TypeError(f"{what} takes an integer operand, got {x.dtype}")
+    return x.to(torch.int32)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

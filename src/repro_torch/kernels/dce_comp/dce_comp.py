@@ -12,8 +12,11 @@ The kernels (`csrc/dce_comp.cu`) replace both Pallas TPU kernels of
       and a per-query ranking, counted as one in `launches`.
 
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
-they run the plain versions beside them; for `meta` tensors
-`refine_topk` makes the outputs a launch would allocate.
+they run the plain versions beside them; for `meta` tensors they make
+the outputs a launch would allocate.  The ciphertexts (C, C_dce) are
+read in place as float32, bfloat16 or float16 (float64 is rounded to
+float32) and T is made float32: the reference's kernels cast both to
+float32, and 16-bit values are exact in it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..common import on_cpu, on_meta
+from ..common import float_operand, on_cpu, on_meta, row_operand
 from .ref import batched_z_matrix as plain_batched_z_matrix
 from .ref import refine_topk as plain_refine_topk
 
@@ -36,13 +39,13 @@ __all__ = ["batched_z_matrix", "z_matrix", "refine_topk", "z_plan",
 launches = {"batched_z_matrix": 0, "refine_topk": 0}
 
 _MAX_BATCH = 65535          # one grid y-slice per query
-_Z_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 6 + [_build.PTR]
+_Z_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 7 + [_build.PTR]
 # Mirrors csrc/dce_comp.cu: row and column thread groups, columns of a
 # j-tile, the largest rows a thread.
 _GROUPS, _TJ, _MAX_RI = 16, 80, 5
 _SMS = 132                  # H100 SXM streaming multiprocessors
 _REFINE_ARGTYPES = ([_build.PTR, _build.LONG] + [_build.PTR] * 5
-                    + [_build.INT] * 5 + [_build.PTR])
+                    + [_build.INT] * 6 + [_build.PTR])
 
 
 def _stream(dev: torch.device) -> int:
@@ -68,32 +71,33 @@ def batched_z_matrix(C: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Per-query all-pairs Z tensors for a batch of candidate sets.
 
     C: (B, n, 4, D) candidate ciphertexts, T: (B, D) trapdoors ->
-    (B, n, n) float32.  CUDA tensors must be float32 and contiguous; the
+    (B, n, n) float32.  CUDA tensors must be contiguous, C float32,
+    bfloat16 or float16 (read in place), T any float (made float32); the
     output is allocated here and the kernel runs on the current stream
     without synchronizing."""
-    if on_cpu(C, T):
+    meta = on_meta(C, T)
+    if not meta and on_cpu(C, T):
         return plain_batched_z_matrix(C, T)
     if (C.dim() != 4 or C.shape[2] != 4 or T.dim() != 2
             or T.shape != (C.shape[0], C.shape[3])):
         raise ValueError(f"batched_z_matrix needs C (B, n, 4, D) and "
                          f"T (B, D), got {tuple(C.shape)} and "
                          f"{tuple(T.shape)}")
-    if C.dtype != torch.float32 or T.dtype != torch.float32:
-        raise TypeError(f"the dce_comp kernels take float32, got {C.dtype} "
-                        f"and {T.dtype}")
+    C, code = row_operand(C, "dce_comp.batched_z_matrix's C")
+    T = float_operand(T, "dce_comp.batched_z_matrix's T")
     if not (C.is_contiguous() and T.is_contiguous()):
         raise ValueError("the dce_comp kernels take contiguous C and T")
     B, n, _, D = C.shape
     if B > _MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {_MAX_BATCH}")
     Z = torch.empty((B, n, n), dtype=torch.float32, device=C.device)
-    if B == 0 or n == 0:
+    if B == 0 or n == 0 or meta:
         return Z
     ri, splits = z_plan(B, n, torch.cuda.get_device_properties(
         C.device).multi_processor_count)
     fn = _build.function("repro_dce_batched_z", _Z_ARGTYPES)
     err = fn(C.data_ptr(), T.data_ptr(), Z.data_ptr(), B, n, D, ri, splits,
-             C.device.index, _stream(C.device))
+             code, C.device.index, _stream(C.device))
     _build.check(err, "dce_comp.batched_z_matrix")
     launches["batched_z_matrix"] += 1
     return Z
@@ -121,8 +125,10 @@ def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
     where the selected slot is invalid; k = min(k, n).  A win of i over j
     is Z[b, i, j] < 0 with j != i and j valid; an invalid slot has -1
     wins.  With return_wins also the (B, n) int32 win counts.  CUDA
-    tensors must be contiguous, float32 (C_dce, T) and int64 (cand); the
-    kernels run on the current stream without synchronizing."""
+    tensors must be contiguous: C_dce float32, bfloat16 or float16 (read
+    in place; float64 is rounded to float32: the win counts are those of
+    a float32 copy), T any float (made float32), cand int64; the kernels
+    run on the current stream without synchronizing."""
     tensors = (C_dce, cand, T) if valid is None else (C_dce, cand, T, valid)
     meta = on_meta(*tensors)
     if not meta and on_cpu(*tensors):
@@ -136,13 +142,14 @@ def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
                          f"{tuple(C_dce.shape)}, {tuple(cand.shape)}, "
                          f"{tuple(T.shape)}, "
                          f"{None if valid is None else tuple(valid.shape)}")
-    if (C_dce.dtype != torch.float32 or T.dtype != torch.float32
-            or cand.dtype != torch.int64
-            or (valid is not None and valid.dtype != torch.bool)):
-        raise TypeError(f"the fused refine takes float32 C_dce and T, int64 "
-                        f"cand and bool valid; got {C_dce.dtype}, "
-                        f"{T.dtype}, {cand.dtype}, "
+    if cand.dtype != torch.int64 or (valid is not None
+                                     and valid.dtype != torch.bool):
+        raise TypeError(f"the fused refine takes int64 cand and bool valid; "
+                        f"got {cand.dtype}, "
                         f"{None if valid is None else valid.dtype}")
+    C_dce, code = row_operand(C_dce, "dce_comp.refine_topk's C_dce")
+    T = float_operand(T, "dce_comp.refine_topk's T")
+    tensors = (C_dce, cand, T) if valid is None else (C_dce, cand, T, valid)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the fused refine takes contiguous tensors")
     B, n = cand.shape
@@ -157,7 +164,7 @@ def refine_topk(C_dce: torch.Tensor, cand: torch.Tensor, T: torch.Tensor,
         vptr = 0 if valid is None else valid.view(torch.uint8).data_ptr()
         err = fn(C_dce.data_ptr(), C_dce.shape[0], cand.data_ptr(),
                  T.data_ptr(), vptr or None, wins.data_ptr(),
-                 out.data_ptr(), B, n, C_dce.shape[2], k, dev.index,
+                 out.data_ptr(), B, n, C_dce.shape[2], k, code, dev.index,
                  _stream(dev))
         _build.check(err, "dce_comp.refine_topk")
         launches["refine_topk"] += 1

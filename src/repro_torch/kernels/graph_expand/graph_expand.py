@@ -13,9 +13,13 @@ entries launch it:
       endpoints; plain version `ref.beam_layer0`.
 
 For CUDA tensors the wrappers launch the kernel (or raise); for CPU
-tensors they run the plain versions.  `walk_plan` picks the kernel's
-variant: the visited bitmap in shared memory where R allows, the
-adjacency pool where it fits, then the point rows staged a group.
+tensors they run the plain versions; for `meta` tensors they make the
+outputs a launch would allocate.  C is read in place as float32,
+bfloat16 or float16 (float64 is rounded to float32), Q is made float32:
+the reference's kernel casts both to float32, and 16-bit values are
+exact in it.  `walk_plan` picks the kernel's variant: the visited bitmap
+in shared memory where R allows, the adjacency pool where it fits, then
+the point rows staged a group.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from ...graph import traverse as _traverse
 from .. import _build
-from ..common import on_cpu
+from ..common import float_operand, on_cpu, on_meta, row_operand
 from . import ref as _ref
 
 __all__ = ["graph_walk", "expand_layer0", "plain_graph_walk",
@@ -41,8 +45,8 @@ SVIS_MAX_R = 2 ** 20            # the largest R whose bitmap goes on chip
 MAX_GROUP = 32                  # point rows staged a group: one per lane
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 
-_WALK_ARGTYPES = [_build.PTR] * 10 + [_build.INT] * 14 + [_build.PTR]
-_LAYER0_ARGTYPES = [_build.PTR] * 11 + [_build.INT] * 11 + [_build.PTR]
+_WALK_ARGTYPES = [_build.PTR] * 10 + [_build.INT] * 15 + [_build.PTR]
+_LAYER0_ARGTYPES = [_build.PTR] * 11 + [_build.INT] * 12 + [_build.PTR]
 
 
 def _up16(x: int) -> int:
@@ -109,7 +113,9 @@ def plain_graph_walk(neigh0, neigh_up, ok, C, Q, entry: int, ef: int, *,
 
 
 def _check(neigh0, ok, C, Q, ef: int, ef_cap: int, max_hops: int,
-           what: str) -> None:
+           what: str):
+    """The operands as the kernel takes them: -> (C read in place, its
+    element code, Q as float32)."""
     if (neigh0.dim() != 2 or C.dim() != 2 or Q.dim() != 2
             or C.shape[0] != neigh0.shape[0] or ok.shape != (C.shape[0],)
             or Q.shape[1] != C.shape[1]):
@@ -117,17 +123,18 @@ def _check(neigh0, ok, C, Q, ef: int, ef_cap: int, max_hops: int,
             f"{what} needs neigh0 (R, M0), ok (R,), C (R, d), Q (nq, d); "
             f"got {tuple(neigh0.shape)}, {tuple(ok.shape)}, "
             f"{tuple(C.shape)}, {tuple(Q.shape)}")
-    if (neigh0.dtype != torch.int32 or ok.dtype != torch.bool
-            or C.dtype != torch.float32 or Q.dtype != torch.float32):
-        raise TypeError(f"the graph walk kernel takes int32 neigh0, bool "
-                        f"ok, float32 C and Q; got {neigh0.dtype}, "
-                        f"{ok.dtype}, {C.dtype}, {Q.dtype}")
+    if neigh0.dtype != torch.int32 or ok.dtype != torch.bool:
+        raise TypeError(f"the graph walk kernel takes int32 neigh0 and "
+                        f"bool ok; got {neigh0.dtype}, {ok.dtype}")
+    C, code = row_operand(C, f"graph_expand.{what}'s C")
+    Q = float_operand(Q, f"graph_expand.{what}'s Q")
     if not all(t.is_contiguous() for t in (neigh0, ok, C, Q)):
         raise ValueError("the graph walk kernel takes contiguous "
                          "neigh0, ok, C and Q")
     if not 1 <= ef <= ef_cap or max_hops < 0:
         raise ValueError(f"need 1 <= ef={ef} <= ef_cap={ef_cap} and "
                          f"max_hops={max_hops} >= 0")
+    return C, code, Q
 
 
 def _outputs(nq: int, R: int, ef_cap: int, dev):
@@ -139,6 +146,8 @@ def _outputs(nq: int, R: int, ef_cap: int, dev):
 
 
 def _limit(dev) -> int:
+    if dev.type == "meta":
+        return _SHARED_LIMIT
     props = torch.cuda.get_device_properties(dev)
     return getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
 
@@ -149,17 +158,20 @@ def graph_walk(neigh0: torch.Tensor, neigh_up: torch.Tensor,
     """The batched f32 graph walk of `graph.traverse.traverse`, whole.
 
     neigh0 (R, M0) / neigh_up (LU, R, M) int32, -1 padded; ok (R,) bool;
-    C (R, d) float32; Q (nq, d) float32; entry the graph's entry point
-    (-1: empty); ef the effective beam width.  Returns (beam_i (nq,
-    ef_cap) int32 -1 fill, beam_d (nq, ef_cap) float32 +inf fill, visited
-    (nq, R) bool, hops (nq,) int32, edges (nq,) int32), the upper layers'
-    hops and edges included.  CUDA tensors must have those dtypes and be
-    contiguous; the kernel runs on the current stream without
-    synchronizing."""
-    if on_cpu(neigh0, neigh_up, ok, C, Q):
+    C (R, d) float32, bfloat16 or float16 (read in place; float64 is
+    rounded to float32); Q (nq, d) any float (made float32); entry the
+    graph's entry point (-1: empty); ef the effective beam width.  Returns
+    (beam_i (nq, ef_cap) int32 -1 fill, beam_d (nq, ef_cap) float32 +inf
+    fill, visited (nq, R) bool, hops (nq,) int32, edges (nq,) int32), the
+    upper layers' hops and edges included.  CUDA tensors must have those
+    dtypes and be contiguous; the kernel runs on the current stream
+    without synchronizing."""
+    meta = on_meta(neigh0, neigh_up, ok, C, Q)
+    if not meta and on_cpu(neigh0, neigh_up, ok, C, Q):
         return plain_graph_walk(neigh0, neigh_up, ok, C, Q, entry, ef,
                                 ef_cap=ef_cap, max_hops=max_hops)
-    _check(neigh0, ok, C, Q, ef, ef_cap, max_hops, "graph_walk")
+    C, code, Q = _check(neigh0, ok, C, Q, ef, ef_cap, max_hops,
+                        "graph_walk")
     if (neigh_up.dim() != 3 or neigh_up.shape[1] != neigh0.shape[0]
             or neigh_up.dtype != torch.int32
             or not neigh_up.is_contiguous()):
@@ -172,13 +184,16 @@ def graph_walk(neigh0: torch.Tensor, neigh_up: torch.Tensor,
     dev = Q.device
     G, pool, svis = walk_plan(R, M0, M if LU else 0, d, ef, _limit(dev))
     beam_i, beam_d, words, hops, edges = _outputs(nq, R, ef_cap, dev)
+    if meta:
+        return beam_i, beam_d, unpack_visited(words, R), hops, edges
     fn = _build.function("repro_graph_walk", _WALK_ARGTYPES)
     err = fn(neigh0.data_ptr(), neigh_up.data_ptr() if LU else None,
              ok.data_ptr(), C.data_ptr(), Q.data_ptr(), beam_i.data_ptr(),
              beam_d.data_ptr(), words.data_ptr(), hops.data_ptr(),
              edges.data_ptr(), nq, R, M0, M if LU else 0, LU, d,
              int(entry), int(ef), ef_cap, max_hops, G, int(pool),
-             int(svis), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+             int(svis), code, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "graph_expand.graph_walk")
     launches["graph_walk"] += 1
     return beam_i, beam_d, unpack_visited(words, R), hops, edges
@@ -190,8 +205,10 @@ def expand_layer0(neigh0: torch.Tensor, ok: torch.Tensor, C: torch.Tensor,
     """Batched layer-0 beam search (f32 scoring) from given endpoints.
 
     neigh0 (R, M0) int32 (-1 padded); ok (R,) bool row validity; C (R, d)
-    float32; Q (nq, d) float32; ep/ep_d (nq,) the upper-layer descent
-    endpoints (ep -1: empty graph); ef the effective beam width.
+    float32, bfloat16 or float16 (read in place; float64 is rounded to
+    float32); Q (nq, d) any float (made float32); ep/ep_d (nq,) the
+    upper-layer descent endpoints (ep -1: empty graph); ef the effective
+    beam width.
     Returns (beam_i (nq, ef_cap) int32, beam_d (nq, ef_cap) float32,
     visited (nq, R) bool, hops (nq,) int32, edges (nq,) int32): the
     contract of `ref.beam_layer0` before the kp slice, with the layer-0
@@ -200,10 +217,12 @@ def expand_layer0(neigh0: torch.Tensor, ok: torch.Tensor, C: torch.Tensor,
     CUDA tensors: neigh0, ok, C and Q must have those dtypes and be
     contiguous (no copy of the large arrays is made); the kernel runs on
     the current stream without synchronizing."""
-    if on_cpu(neigh0, ok, C, Q, ep, ep_d):
+    meta = on_meta(neigh0, ok, C, Q, ep, ep_d)
+    if not meta and on_cpu(neigh0, ok, C, Q, ep, ep_d):
         return plain_expand_layer0(neigh0, ok, C, Q, ep, ep_d, ef,
                                    ef_cap=ef_cap, max_hops=max_hops)
-    _check(neigh0, ok, C, Q, ef, ef_cap, max_hops, "expand_layer0")
+    C, code, Q = _check(neigh0, ok, C, Q, ef, ef_cap, max_hops,
+                        "expand_layer0")
     if ep.shape != (Q.shape[0],) or ep_d.shape != (Q.shape[0],):
         raise ValueError(f"expand_layer0 needs ep and ep_d (nq,); got "
                          f"{tuple(ep.shape)}, {tuple(ep_d.shape)}")
@@ -214,12 +233,14 @@ def expand_layer0(neigh0: torch.Tensor, ok: torch.Tensor, C: torch.Tensor,
     ep = ep.to(torch.int32).contiguous()
     ep_d = ep_d.to(torch.float32).contiguous()
     beam_i, beam_d, words, hops, edges = _outputs(nq, R, ef_cap, dev)
+    if meta:
+        return beam_i, beam_d, unpack_visited(words, R), hops, edges
     fn = _build.function("repro_graph_expand_layer0", _LAYER0_ARGTYPES)
     err = fn(neigh0.data_ptr(), ok.data_ptr(), C.data_ptr(), Q.data_ptr(),
              ep.data_ptr(), ep_d.data_ptr(), beam_i.data_ptr(),
              beam_d.data_ptr(), words.data_ptr(), hops.data_ptr(),
              edges.data_ptr(), nq, R, M0, d, int(ef), ef_cap, max_hops, G,
-             int(pool), int(svis), dev.index,
+             int(pool), int(svis), code, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "graph_expand.expand_layer0")
     launches["expand_layer0"] += 1

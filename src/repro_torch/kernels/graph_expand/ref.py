@@ -19,14 +19,17 @@ _INF = float("inf")
 def _score(quant: str, db, qd: torch.Tensor, ids: torch.Tensor):
     """Edge scores of `ids` (any (nq, W) int64, pre-clamped safe) for
     each query.  f32 is the host walk's exact formulation sum((x-q)^2)
-    (db (C,), qd the queries); int8 the float32 cn - 2 (q8 . c8), exact
+    in float32 (db (C,), qd the queries; 16-bit rows and queries are
+    upcast first, as the reference's kernel casts both to float32, so
+    the difference and its square are never rounded to 16 bits); int8
+    the float32 cn - 2 (q8 . c8), exact
     below 2^24 (db (c8, cn), qd the int8 queries); pq8 the table sum in
     ascending subspace order (db (codes_t,), qd the (nq, m, 256) tables).
     The ADC modes are rank surrogates, as in `repro.graph.traverse`."""
     if quant == "f32":
         (C,) = db
-        rows = C[ids]                                    # (nq, W, d)
-        diff = rows - qd[:, None, :]
+        rows = C[ids].to(torch.float32)                  # (nq, W, d)
+        diff = rows - qd.to(torch.float32)[:, None, :]
         return (diff * diff).sum(-1)
     if quant == "int8":
         c8, cn = db

@@ -13,7 +13,10 @@ loop of its wrapper `repro/kernels/l2_topk/ops.py :: knn`:
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
 they run the plain versions beside them, `plain_pairwise_sq_dists` and
 `plain_knn` (the chunked merge over plain tiles); for `meta` tensors
-`knn` makes the outputs and buffers a launch would allocate.
+they make the outputs and buffers a launch would allocate.  X is read in
+place as float32, bfloat16 or float16 (float64 is rounded to float32)
+and Q is made float32: the reference's kernel casts both to float32, and
+16-bit values are exact in it.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..common import floor_passes, on_cpu, on_meta, pass_sizes
+from ..common import (float_operand, floor_passes, on_cpu, on_meta,
+                      pass_sizes, row_operand)
 from .ref import pairwise_sq_dists as plain_pairwise_sq_dists
 from .ref import scan_knn as plain_knn
 
@@ -41,19 +45,22 @@ _ROWS = 512
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 _SMS = 132                      # H100 SXM streaming multiprocessors
 
-_TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
-_KNN_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 7 + [_build.PTR]
+_TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR]
+_KNN_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 8 + [_build.PTR]
 
 
-def _check_operands(Q: torch.Tensor, X: torch.Tensor, what: str) -> None:
+def _operands(Q: torch.Tensor, X: torch.Tensor, what: str):
+    """Q and X as the kernels take them: X read in place (float32,
+    bfloat16 or float16; float64 rounded), Q as float32 (the reference's
+    `astype`; it is small).  -> (Q, X, X's element code)."""
     if Q.dim() != 2 or X.dim() != 2 or Q.shape[1] != X.shape[1]:
         raise ValueError(f"{what} needs (nq, d) and (n, d), "
                          f"got {tuple(Q.shape)} and {tuple(X.shape)}")
-    if Q.dtype != torch.float32 or X.dtype != torch.float32:
-        raise TypeError(f"the l2 kernels take float32, got {Q.dtype} "
-                        f"and {X.dtype}")
+    X, code = row_operand(X, f"l2_topk.{what}'s X")
+    Q = float_operand(Q, f"l2_topk.{what}'s Q")
     if not (Q.is_contiguous() and X.is_contiguous()):
         raise ValueError("the l2 kernels take contiguous Q and X")
+    return Q, X, code
 
 
 def _stream(dev: torch.device) -> int:
@@ -63,33 +70,37 @@ def _stream(dev: torch.device) -> int:
 def pairwise_sq_dists(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """All-pairs ||q - x||^2.  Q: (nq, d), X: (n, d) -> (nq, n) float32.
 
-    CUDA tensors must be float32 and contiguous (row-major); the output
-    is allocated here and the kernel runs on the current stream without
-    synchronizing."""
-    if on_cpu(Q, X):
+    CUDA tensors must be contiguous (row-major); X float32, bfloat16 or
+    float16 (read in place; float64 is rounded to float32), Q any float
+    (made float32).  The output is allocated here and the kernel runs on
+    the current stream without synchronizing; `meta` tensors give the
+    output alone."""
+    if not on_meta(Q, X) and on_cpu(Q, X):
         return plain_pairwise_sq_dists(Q, X)
-    _check_operands(Q, X, "pairwise_sq_dists")
+    Q, X, code = _operands(Q, X, "pairwise_sq_dists")
     nq, d = Q.shape
     n = X.shape[0]
     out = torch.empty((nq, n), dtype=torch.float32, device=Q.device)
+    if on_meta(Q, X):
+        return out
     fn = _build.function("repro_l2_sq_dists", _TILE_ARGTYPES)
-    err = fn(Q.data_ptr(), X.data_ptr(), out.data_ptr(), nq, n, d,
+    err = fn(Q.data_ptr(), X.data_ptr(), out.data_ptr(), nq, n, d, code,
              Q.device.index, _stream(Q.device))
     _build.check(err, "l2_topk.pairwise_sq_dists")
     launches["pairwise_sq_dists"] += 1
     return out
 
 
-def _plan(nq: int, n: int, k: int, dev):
+def _plan(nq: int, n: int, k: int, code: int, dev):
     """Check a pass's k and the shared memory a block needs; cut the rows
     into G chunks of a multiple of _ROWS rows, one block per SM and query
-    group.  Returns (chunk_rows, G)."""
+    group (`code`: the rows' element type).  Returns (chunk_rows, G)."""
     if k > MAX_KP:
         raise ValueError(f"k={k} exceeds the fused l2 scan's limit of "
                          f"{MAX_KP} a pass")
-    smem_fn = _build.function("repro_l2_knn_smem", [_build.INT])
+    smem_fn = _build.function("repro_l2_knn_smem", [_build.INT] * 2)
     smem_fn.restype = ctypes.c_longlong
-    need = smem_fn(k)
+    need = smem_fn(k, code)
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
     if need > limit:
@@ -139,16 +150,18 @@ def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
 
     Q: (nq, d), X: (n, d)  ->  (dists (nq, k) float32 ascending, ids
     (nq, k) int64), ties to the lowest id; k = min(k, n).  Distances are
-    ||q||^2 - 2 q.x + ||x||^2 in true fp32.  CUDA tensors must be float32
-    and contiguous; the kernels run on the current stream without
-    synchronizing.  `chunk` is the plain version's block of rows (CPU
-    tensors only)."""
+    ||q||^2 - 2 q.x + ||x||^2 in true fp32.  CUDA tensors must be
+    contiguous; X float32, bfloat16 or float16, read in place (its values
+    are exact in float32, so the ids and distances are those of a float32
+    copy; float64 is rounded to float32), Q any float (made float32).
+    The kernels run on the current stream without synchronizing.  `chunk`
+    is the plain version's block of rows (CPU tensors only)."""
     if on_meta(Q, X):
-        _check_operands(Q, X, "knn")
+        Q, X, _ = _operands(Q, X, "knn")
         return _meta_knn(Q, X, k)
     if on_cpu(Q, X):
         return plain_knn(Q, X, k, chunk=chunk)
-    _check_operands(Q, X, "knn")
+    Q, X, code = _operands(Q, X, "knn")
     nq, d = Q.shape
     n = X.shape[0]
     k = min(int(k), n)
@@ -160,14 +173,14 @@ def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
     def one_pass(kp, floor_in, floor_out):
         out_d = torch.empty((nq, kp), dtype=torch.float32, device=dev)
         out_i = torch.empty((nq, kp), dtype=torch.int64, device=dev)
-        chunk_rows, G = _plan(nq, n, kp, dev)
+        chunk_rows, G = _plan(nq, n, kp, code, dev)
         part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
         fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
         err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(),
                  out_d.data_ptr(), out_i.data_ptr(),
                  None if floor_in is None else floor_in.data_ptr(),
                  None if floor_out is None else floor_out.data_ptr(), nq, n,
-                 d, kp, chunk_rows, G, dev.index, _stream(dev))
+                 d, kp, chunk_rows, G, code, dev.index, _stream(dev))
         _build.check(err, "l2_topk.knn")
         launches["knn"] += 1
         return out_d, out_i

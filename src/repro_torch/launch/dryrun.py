@@ -28,9 +28,9 @@ made from what the port has:
 
 The `ppanns-scan` cells trace the secure-scan step (`serving.
 secure_scan`, K1 and K2 through their meta branches) over CARD_SHARDS
-logical shards of the one card.  K1 and K2 take float32, so the
-reference's bf16 cells are traced with float32 operands (the record
-says so); their roofline keeps the reference's byte counts.
+logical shards of the one card, with the cell's operand dtype: the
+bf16 cells' four operands are bfloat16, as the reference's specs make
+them, and K1 and K2 read their rows in place.
 
 CLI:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
@@ -400,10 +400,11 @@ def _scan_record(shape_name: str, mesh_name: str, mesh, trace: bool) -> dict:
                                        secure_scan_input_specs,
                                        secure_scan_pspecs)
     cell = PPANNS_CELLS[shape_name]
+    dtype = cell.get("dtype", "float32")
     rec = {"model_flops": 2.0 * cell["n"] * cell["d"] * cell["batch"],
-           "n_params": 0, "cell_dtype": cell.get("dtype", "float32"),
-           "operand_dtype": "float32"}
-    specs = secure_scan_input_specs(cell["n"], cell["d"], cell["batch"])
+           "n_params": 0, "cell_dtype": dtype, "operand_dtype": dtype}
+    specs = secure_scan_input_specs(cell["n"], cell["d"], cell["batch"],
+                                    dtype=_dtype(dtype))
     split = secure_scan_pspecs(None)
     axes = tuple(mesh.shape)
     args = {k: shard_bytes(tuple(t.shape), t.dtype,

@@ -16,6 +16,14 @@ a batch of encrypted queries runs
 `build_secure_scan_step_gspmd` is the global formulation beside it: one
 K1 scan over all rows, then the same refine.  Both compute the same
 answer; they differ only in how the scan is cut.
+
+The operands may be float32, bfloat16 or float16, each on its own (the
+reference's bf16 cells round all four; a bf16 filter with a float32
+refine is the form that keeps DCE's exactness): K1 and K2 read C_sap and
+C_dce in place and compute in float32, as the reference's Pallas
+kernels do after their cast, so no float32 copy of a corpus is made.
+The reference's XLA filter inside its shard_map computes `Q @ C.T` in
+the operand dtype instead; the port follows the kernels.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ __all__ = ["build_secure_scan_step", "build_secure_scan_step_gspmd",
 
 def secure_scan_input_specs(n: int, d: int, batch: int, *,
                             dtype=torch.float32) -> dict:
-    """Shape-and-dtype stand-ins (meta-device tensors, no allocation)."""
+    """Shape-and-dtype stand-ins (meta-device tensors, no allocation),
+    all four of `dtype`, as the reference's specs make them."""
     Dd = 2 * d + 16
     return {
         "C_sap": torch.empty((n, d), dtype=dtype, device="meta"),

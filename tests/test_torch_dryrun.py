@@ -112,7 +112,9 @@ def test_argument_bytes_per_device_equal_the_references(mesh_name):
         got = rec["memory"]["argument_bytes"]
         if arch == "ppanns-scan":
             c = dryrun.PPANNS_CELLS[shape]
-            specs = secure_scan_input_specs(c["n"], c["d"], c["batch"])
+            specs = secure_scan_input_specs(
+                c["n"], c["d"], c["batch"],
+                dtype=jnp.dtype(c.get("dtype", "float32")))
             want = _ref_bytes(secure_scan_pspecs(mesh), specs, mesh)
         else:
             want = _ref_argument_bytes(arch, shape, mesh)
@@ -295,9 +297,15 @@ def test_scan_16m_on_one_card():
     assert 0 < mem["temp_bytes"] < 64 << 20
     assert rec["fits_one_card"] is True and rec["shards"] == dryrun.CARD_SHARDS
     assert rec["collectives"]["total"] == 0.0
-    bf16 = dryrun.cell_record("ppanns-scan", "scan_16m_bf16", "1card_h100")
-    assert bf16["ok"] and bf16["cell_dtype"] == "bfloat16"
-    assert bf16["operand_dtype"] == "float32"
+    # the bf16 cells trace bf16 operands, read in place by K1 and K2:
+    # half of scan_16m's argument bytes, no float32 copy in the peak
+    for name, want in (("scan_16m_bf16", 40_803_008_512),
+                       ("scan_16m_bf16_b4096", 40_805_466_112)):
+        bf16 = dryrun.cell_record("ppanns-scan", name, "1card_h100")
+        assert bf16["ok"] and bf16["cell_dtype"] == "bfloat16"
+        assert bf16["operand_dtype"] == "bfloat16"
+        assert bf16["memory"]["argument_bytes"] == want
+        assert 0 < bf16["memory"]["temp_bytes"] < 128 << 20
 
 
 def test_decode_32k_does_not_fit_one_card():
@@ -328,7 +336,7 @@ def test_kernel_meta_branches_match_the_plain_shapes():
     assert [(t.shape, t.dtype) for t in got] == \
         [(t.shape, t.dtype) for t in want]
     with pytest.raises(TypeError):
-        l2_topk.knn(Q.to("meta").double(), X.to("meta"), 3)
+        l2_topk.knn(Q.to("meta"), X.to("meta").int(), 3)
     assert (dict(l2_topk.launches), dict(dce_comp.launches)) == before
 
 

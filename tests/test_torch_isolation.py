@@ -732,19 +732,21 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_card()
     Q = torch.randn(4, 8, device="cuda")
     with pytest.raises(TypeError):
-        l2_topk.pairwise_sq_dists(Q.double(), Q.double())
+        l2_topk.pairwise_sq_dists(Q.int(), Q.int())
     with pytest.raises(ValueError):
         l2_topk.pairwise_sq_dists(Q, torch.randn(8, 4, device="cuda").T)
     X = torch.randn(2000, 8, device="cuda")
     with pytest.raises(TypeError):
-        l2_topk.knn(Q.double(), X.double(), 5)
+        l2_topk.knn(Q, X.long(), 5)
+    with pytest.raises(TypeError):
+        l2_topk.knn(Q.bool(), X, 5)
     with pytest.raises(ValueError, match="mixed devices"):
         l2_topk.knn(Q, X.cpu(), 5)
     C_dce, cand, T, valid = _refine_inputs("cuda", 2, 9, 8, seed=1)
     with pytest.raises(TypeError):
         dce_comp.refine_topk(C_dce, cand.int(), T, valid, 3)
     with pytest.raises(TypeError):
-        dce_comp.refine_topk(C_dce.double(), cand, T, valid, 3)
+        dce_comp.refine_topk(C_dce.int(), cand, T, valid, 3)
     with pytest.raises(ValueError):
         dce_comp.refine_topk(C_dce, cand, T[:1], valid, 3)
     with pytest.raises(ValueError, match="mixed devices"):
@@ -764,7 +766,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         graph_expand.graph_walk(n0, up.long(), ok, C, Qg, entry, 4,
                                 ef_cap=32, max_hops=8)
     with pytest.raises(TypeError):
-        graph_expand.graph_walk(n0, up, ok, C.double(), Qg, entry, 4,
+        graph_expand.graph_walk(n0, up, ok, C.int(), Qg, entry, 4,
                                 ef_cap=32, max_hops=8)
     with pytest.raises(ValueError, match="mixed devices"):
         graph_expand.graph_walk(n0, up.cpu(), ok, C, Qg, entry, 4,
@@ -772,6 +774,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     q8, c8, cn, ok = _sq_inputs("cuda", 2, 2000, 16)
     with pytest.raises(TypeError):
         adc_topk.sq_adc_topk(q8.int(), c8, cn, ok, 5)
+    with pytest.raises(TypeError):
+        adc_topk.sq_adc_topk(q8, c8, cn.float(), ok, 5)
     lut, codes_t, ok = _pq_inputs("cuda", 2, 2000, 256)
     with pytest.raises(ValueError, match="shared memory"):
         adc_topk.pq_adc_topk(lut, codes_t, ok, 1024)
@@ -960,3 +964,144 @@ def test_api_service_on_the_card_saves_what_the_host_loads(tmp_path, kind,
         (again,) = svc.save(tmp_path / "host")
     assert (card == host).mean() >= 0.99
     assert again.read_bytes() == path.read_bytes()
+
+
+# ------------------------------------------ 16-bit rows, on the card only
+
+_HALVES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALVES)
+@pytest.mark.parametrize("nq,n,d,k", [
+    (32, 20000, 128, 80),     # the flat path's widths: 16-byte copies
+    (5, 3000, 36, 200),       # d % 8 != 0: plain loads; 32 queries, E 16
+    (3, 5000, 40, 1100),      # 8 queries a block, a floor-key pass
+    (33, 1500, 13, 7)])       # ragged d and query group
+def test_l2_kernels_read_16bit_rows_as_float32_on_the_card(dtype, nq, n, d,
+                                                           k):
+    """K1 on bf16 / f16 rows (and queries) equals K1 on their float32
+    copies bit for bit (the values are exact in float32, the sums run in
+    the same order); on integer-valued rows its ids equal the plain
+    version's."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    X = torch.randn(n, d, device="cuda", generator=g).to(dtype)
+    Q = torch.randn(nq, d, device="cuda", generator=g).to(dtype)
+    before = l2_topk.launches["knn"]
+    dist, ids = l2_topk.knn(Q, X, k)
+    dist32, ids32 = l2_topk.knn(Q.float(), X.float(), k)
+    assert l2_topk.launches["knn"] > before
+    assert torch.equal(ids, ids32) and torch.equal(dist, dist32)
+    assert torch.equal(l2_topk.pairwise_sq_dists(Q, X),
+                       l2_topk.pairwise_sq_dists(Q.float(), X.float()))
+    Xi = torch.randint(-8, 9, (n, d), generator=g, device="cuda").to(dtype)
+    Qi = torch.randint(-8, 9, (nq, d), generator=g, device="cuda").to(dtype)
+    got, want = l2_topk.knn(Qi, Xi, k), l2_topk.plain_knn(Qi, Xi, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALVES)
+@pytest.mark.parametrize("B,n,d,k,invalid,offset", [
+    (32, 80, 128, 10, 0.1, 0),     # D 272: 8-byte copies
+    (32, 320, 128, 10, 0.0, 0),
+    (4, 50, 13, 5, 0.2, 0),        # D 42: plain loads
+    (3, 40, 16, 5, 0.0, 1)])       # C_dce 2 bytes off alignment
+def test_dce_kernels_read_16bit_rows_as_float32_on_the_card(
+        dtype, B, n, d, k, invalid, offset):
+    """K2 and K3 on bf16 / f16 ciphertexts (and trapdoors): win counts,
+    ids and Z bit-equal to the kernels on their float32 copies."""
+    _needs_card()
+    C_dce, cand, T, valid = _refine_inputs("cuda", B, n, d, seed=n + d,
+                                           invalid=invalid)
+    C16 = C_dce.to(dtype)
+    if offset:
+        C16 = torch.cat([C16.new_zeros(1), C16.reshape(-1)])[1:].view(
+            C16.shape)
+    T16 = T.to(dtype)
+    before = dce_comp.launches["refine_topk"]
+    ids, wins = dce_comp.refine_topk(C16, cand, T16, valid, k,
+                                     return_wins=True)
+    ids32, wins32 = dce_comp.refine_topk(C16.float(), cand, T16.float(),
+                                         valid, k, return_wins=True)
+    assert dce_comp.launches["refine_topk"] == before + 2
+    assert torch.equal(wins, wins32) and torch.equal(ids, ids32)
+    safe = cand.clamp(min=0)
+    Cc = C16[safe].contiguous()
+    assert torch.equal(dce_comp.batched_z_matrix(Cc, T16),
+                       dce_comp.batched_z_matrix(Cc.float(), T16.float()))
+    assert torch.equal(dce_comp.z_matrix(Cc[0], T16[0]),
+                       dce_comp.z_matrix(Cc[0].float(), T16[0].float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALVES)
+@pytest.mark.parametrize("nq,R,M0,M,LU,d,ef,ef_cap", [
+    (32, 4096, 16, 8, 8, 128, 96, 128),   # bulk copies of 256-byte rows
+    (5, 300, 7, 3, 4, 13, 20, 32),        # ragged d: plain loads
+    (3, 1000, 32, 16, 4, 36, 64, 64)])    # d % 8 != 0
+def test_graph_walk_reads_16bit_rows_as_float32_on_the_card(
+        dtype, nq, R, M0, M, LU, d, ef, ef_cap):
+    """K6 on bf16 / f16 rows (integer-valued, so exact in 16 bits): the
+    walk and the layer-0 entry equal the kernel on the float32 copy and
+    the plain walk, beams, distances, visited, hops and edges."""
+    _needs_card()
+    n0, up, ok, C, Q, e = _walk_inputs("cuda", nq, R, M0, M, LU, d, seed=R)
+    C16, Q16 = C.to(dtype), Q.to(dtype)
+    kw = dict(ef_cap=ef_cap, max_hops=4 * ef_cap)
+    before = graph_expand.launches["graph_walk"]
+    got = graph_expand.graph_walk(n0, up, ok, C16, Q16, e, ef, **kw)
+    assert graph_expand.launches["graph_walk"] == before + 1
+    for want in (graph_expand.graph_walk(n0, up, ok, C, Q, e, ef, **kw),
+                 graph_expand.plain_graph_walk(n0, up, ok, C16, Q16, e, ef,
+                                               **kw)):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    n0, ok, C, Q, ep, ep_d = _graph_inputs("cuda", nq, R, M0, d, seed=R)
+    got = graph_expand.expand_layer0(n0, ok, C.to(dtype), Q.to(dtype), ep,
+                                     ep_d, ef, **kw)
+    want = graph_expand.expand_layer0(n0, ok, C, Q, ep, ep_d, ef, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_adc_wrappers_convert_their_small_operands_on_the_card():
+    """K4 with an int64 cn and K5 with bf16 tables launch and equal the
+    int32 / float32 calls."""
+    _needs_card()
+    q8, c8, cn, ok = _sq_inputs("cuda", 3, 3000, 32)
+    assert all(torch.equal(a, b) for a, b in zip(
+        adc_topk.sq_adc_topk(q8, c8, cn.to(torch.int64), ok, 40),
+        adc_topk.sq_adc_topk(q8, c8, cn, ok, 40)))
+    lut, codes_t, ok = _pq_inputs("cuda", 3, 3000, 8)
+    lut16 = lut.to(torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(
+        adc_topk.pq_adc_topk(lut16, codes_t, ok, 40),
+        adc_topk.pq_adc_topk(lut16.float(), codes_t, ok, 40)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16)])
+def test_secure_scan_step_on_16bit_operands_on_the_card(dtypes):
+    """The sharded and the global secure-scan steps with a 16-bit filter
+    (and refine) equal each other and the steps on float32 copies."""
+    _needs_card()
+    from repro_torch.serving.secure_scan import (
+        build_secure_scan_step, build_secure_scan_step_gspmd)
+    filt, ref = dtypes
+    C_dce, _, T, _ = _refine_inputs("cuda", 4, 1024, 32, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    C_sap = torch.randn(C_dce.shape[0], 32, device="cuda", generator=g)
+    Q = torch.randn(4, 32, device="cuda", generator=g)
+    args = (C_sap.to(filt), C_dce.to(ref), Q.to(filt), T.to(ref))
+    devs = [torch.device("cuda", 0)] * 4
+    step = build_secure_scan_step(devs, k=10, k_prime=64)
+    glob = build_secure_scan_step_gspmd(devs[:1], k=10, k_prime=64)
+    ids = step(*args)
+    assert torch.equal(ids, glob(*args))
+    assert torch.equal(ids, step(*(a.float() for a in args)))
+
