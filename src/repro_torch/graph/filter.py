@@ -24,6 +24,7 @@ import torch
 from ..core import adc
 from ..core.hnsw import HNSW
 from ..device import resolve_device
+from ..obs.trace import child_span
 from .csr import CSRGraph
 from .traverse import beam_plan
 
@@ -132,9 +133,10 @@ class GraphFilter:
         g = self.csr
         kp2 = max(1, min(self.oversampled(kp), max(g.n, 1)))
         ef_eff, ef_cap, max_hops = beam_plan(kp2, max(ef_search, kp2))
+        with child_span("filter.query_prep"):
+            qd = torch.from_numpy(self._query_operand(Q)).to(self._ok.device)
         cand, _, visited, hops, edges = graph_ops.graph_topk(
-            self._neigh0, self._neigh_up, self._ok, self._db,
-            torch.from_numpy(self._query_operand(Q)).to(self._ok.device),
+            self._neigh0, self._neigh_up, self._ok, self._db, qd,
             g.entry, ef_eff, kp=kp2, ef_cap=ef_cap, max_hops=max_hops,
             quant=self.quant, oblivious=self.oblivious)
         valid = cand >= 0

@@ -10,9 +10,22 @@ When active, a call whose tensor arguments lie on the card is timed with
 CUDA events recorded on the device's current stream around it (the JAX
 package fences with `block_until_ready` instead): the interval is the
 device time from the call's first enqueued work to its last, plus any
-launch gaps the host leaves between them.  A call on CPU tensors is
-timed on the host clock.  The positional-argument `.nbytes` sum (tensors
-and numpy arrays) is recorded as bytes touched.
+launch gaps the host leaves between them.  The wrapper does not wait for
+them: it queues the two events, and `summary()` reads the queue after
+waiting once for the card, so host and device overlap as they do
+unprofiled.  A call on CPU tensors is timed on the host clock.  The
+positional-argument `.nbytes` sum (tensors and numpy arrays) is recorded
+as bytes touched.
+
+Spans opened with `obs.trace.child_span` while a profiler is active go
+to a table of their own (`summary().spans`): the calls and host seconds
+of each span name and, on a machine with a card, the synchronising CUDA
+calls made while it was open.  Those are counted by PyTorch's own sync
+check (`torch.cuda.set_sync_debug_mode("warn")`, on while the profiler
+is active): a blocking copy to or from the card, `.item()` and the
+like, a stream or device synchronisation.  Its warnings are counted and
+swallowed.  PyTorch documents the check as not covering every
+synchronising call (`torch.distributed`, `torch.sparse`).
 
 A call made while `torch.compiler.is_compiling()` is true is passed
 through unrecorded, as the JAX package skips calls whose arguments are
@@ -25,10 +38,11 @@ import contextlib
 import functools
 import threading
 import time
+import warnings
 
 import torch
 
-__all__ = ["KernelProfiler", "profile_kernels", "instrument",
+__all__ = ["KernelProfiler", "Summary", "profile_kernels", "instrument",
            "active_profiler"]
 
 # The single active profiler (None = disabled). One module-global read
@@ -36,30 +50,82 @@ __all__ = ["KernelProfiler", "profile_kernels", "instrument",
 _ACTIVE: "KernelProfiler | None" = None
 _ACTIVE_LOCK = threading.Lock()
 
+# PyTorch's warning for a synchronising CUDA call in "warn" sync mode.
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class Summary(dict):
+    """`KernelProfiler.summary()`: the kernel table, {kernel name:
+    {calls, total_s, total_bytes}} (device seconds of a card call, host
+    seconds of a CPU one), with the span table beside it as `.spans`,
+    {span name: {calls, total_s[, syncs]}} (host seconds; `syncs` only
+    where they were counted)."""
+
+    __slots__ = ("spans",)
+
+    def __init__(self, kernels, spans):
+        super().__init__(kernels)
+        self.spans = spans
+
 
 class KernelProfiler:
-    """Per-kernel call/time/bytes accumulator."""
+    """Per-kernel call/time/bytes accumulator, and per-span calls, host
+    seconds and synchronising CUDA calls."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._stats: dict[str, dict] = {}
+        self._queue: list[tuple] = []     # (name, start, end, nbytes)
+        self._spans: dict[str, dict] = {}
+        self.syncs: int | None = None     # counted while active on a card
 
     def record(self, name: str, seconds: float, nbytes: int):
         with self._lock:
-            s = self._stats.setdefault(
-                name, {"calls": 0, "total_s": 0.0, "total_bytes": 0})
+            self._record(name, seconds, nbytes)
+
+    def _record(self, name, seconds, nbytes):
+        s = self._stats.setdefault(
+            name, {"calls": 0, "total_s": 0.0, "total_bytes": 0})
+        s["calls"] += 1
+        s["total_s"] += seconds
+        s["total_bytes"] += nbytes
+
+    def defer(self, name: str, start, end, nbytes: int):
+        """Queue a card call's start and end CUDA events, unread until
+        `summary()`."""
+        with self._lock:
+            self._queue.append((name, start, end, nbytes))
+
+    def span(self, name: str, seconds: float, syncs: int | None):
+        """Add one closed span: its host seconds and, where counted, the
+        synchronising CUDA calls made while it was open."""
+        with self._lock:
+            s = self._spans.setdefault(name, {"calls": 0, "total_s": 0.0})
             s["calls"] += 1
             s["total_s"] += seconds
-            s["total_bytes"] += nbytes
+            if syncs is not None:
+                s["syncs"] = s.get("syncs", 0) + syncs
 
-    def summary(self) -> dict[str, dict]:
-        """{kernel name: {calls, total_s, total_bytes}} snapshot."""
+    def summary(self) -> Summary:
+        """Snapshot of the kernel table, the span table as its `.spans`.
+        Waits for the last queued card call to finish, then reads the
+        queue."""
         with self._lock:
-            return {k: dict(v) for k, v in self._stats.items()}
+            for n, s, e, b in self._queue:
+                e.synchronize()     # one stream: only the first waits long
+                self._record(n, s.elapsed_time(e) / 1e3, b)
+            self._queue.clear()
+            return Summary({k: dict(v) for k, v in self._stats.items()},
+                           {k: dict(v) for k, v in self._spans.items()})
 
     def reset(self):
+        """Forget every count, and the queued card calls unread."""
         with self._lock:
             self._stats.clear()
+            self._queue.clear()
+            self._spans.clear()
+            if self.syncs is not None:
+                self.syncs = 0
 
     def total_seconds(self, prefix: str = "") -> float:
         return sum(v["total_s"] for k, v in self.summary().items()
@@ -91,10 +157,43 @@ def profile_kernels(profiler: KernelProfiler | None = None):
         prev = _ACTIVE
         _ACTIVE = prof
     try:
-        yield prof
+        with _counting_syncs(prof):
+            yield prof
     finally:
         with _ACTIVE_LOCK:
             _ACTIVE = prev
+
+
+@contextlib.contextmanager
+def _counting_syncs(prof: KernelProfiler):
+    """On a machine with a card, count each synchronising CUDA call in
+    `prof.syncs`, from PyTorch's sync check in "warn" mode; its warnings,
+    and the one that turning it on gives, are swallowed, every other
+    warning is shown as before."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    if prof.syncs is None:
+        prof.syncs = 0
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        shown = warnings.showwarning
+        warnings.filterwarnings("always", message=_SYNC_WARNING)
+        warnings.filterwarnings("ignore", message="Synchronization debug")
+
+        def count(message, category, filename, lineno, file=None,
+                  line=None):
+            if str(message).startswith(_SYNC_WARNING):
+                prof.syncs += 1
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 def _args_nbytes(args) -> int:
@@ -136,8 +235,7 @@ def instrument(name: str, fn):
         start.record(stream)
         out = fn(*args, **kwargs)
         end.record(stream)
-        end.synchronize()
-        prof.record(name, start.elapsed_time(end) / 1e3, _args_nbytes(args))
+        prof.defer(name, start, end, _args_nbytes(args))
         return out
 
     wrapper.__wrapped__ = fn

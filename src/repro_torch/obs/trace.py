@@ -7,6 +7,17 @@ one trace per request (`request` root with `queue`/`flush`|`slot`/
 root with `filter`/`refine` children, linked to the requests that rode
 it by a `batch` attribute), one trace per ingest operation.
 
+A span opened with `child_span` feeds up to three sinks, each only
+while it is active: the ambient `TraceRecorder` (the span tree), a
+torch.profiler recording (a `record_function` range of the span's
+name, so the span sits on the profiler's clock beside the device's
+events), and the active `obs.profiler.KernelProfiler` (its span table:
+the span's calls, host seconds and the synchronising CUDA calls made
+inside it, apart from the kernels' device times).  A recorder span
+can also carry the device interval of its work (`device_open` /
+`device_close` / `device_resolve`: two CUDA events on the current
+stream, read once the host has waited past them).
+
 Three properties the rest of the repo depends on:
 
   * **Deterministic under `VirtualClock`** — the recorder never reads
@@ -14,9 +25,10 @@ Three properties the rest of the repo depends on:
     schedulers run on, so tests assert exact span trees (structure,
     attributes, and virtual timestamps) for scripted interleavings.
   * **Near-free when disabled** — nothing in the hot path allocates or
-    locks when no recorder is attached: `child_span()` is a single
-    contextvar read returning a shared no-op span, and the schedulers
-    guard every recording call on `tracer is not None`.
+    locks when no sink is active: `child_span()` is a contextvar read,
+    the profiler's enabled flag and one module-global read, returning a
+    shared no-op span (no CUDA event either), and the schedulers guard
+    every recording call on `tracer is not None`.
   * **No plaintext leakage** — spans carry ids, counts, byte totals,
     and backend names.  They never carry query or database ciphertext
     material (let alone plaintexts); the trace of a search is exactly
@@ -35,6 +47,10 @@ import threading
 import time
 from collections import deque
 
+import torch
+
+from . import profiler as _kprof
+
 __all__ = ["Span", "TraceRecorder", "NullRecorder", "NULL_RECORDER",
            "child_span", "child_complete", "current"]
 
@@ -45,7 +61,7 @@ class Span:
     pops the ambient-context stack on exit)."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "t_start",
-                 "t_end", "attrs", "_recorder", "_token")
+                 "t_end", "attrs", "_recorder", "_token", "_device")
 
     def __init__(self, name: str, trace_id: str, span_id: int,
                  parent_id: int | None, t_start: float,
@@ -59,12 +75,42 @@ class Span:
         self.attrs = dict(attrs or {})
         self._recorder = None
         self._token = None
+        self._device = None
 
     def set(self, **attrs):
         """Attach attributes after the fact (e.g. counters only known
         once the spanned work completed)."""
         self.attrs.update(attrs)
         return self
+
+    # ------------------------------------------------- device interval
+
+    def device_open(self, device):
+        """Record a CUDA event on `device`'s current stream: the start of
+        the span's device work.  A no-op off the card."""
+        device = torch.device(device)
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self._device = [stream, start, None]
+
+    def device_close(self):
+        """Record the end event, after the span's last enqueued device
+        work (the span's exit records it if this was not called)."""
+        if self._device is not None and self._device[2] is None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._device[0])
+            self._device[2] = end
+
+    def device_resolve(self):
+        """Set the `device_s` attribute from the two events.  Call it
+        only once the host has waited on work enqueued after the end
+        event: it adds no synchronisation of its own."""
+        if self._device is not None and self._device[2] is not None:
+            _, start, end = self._device
+            self.attrs["device_s"] = start.elapsed_time(end) / 1e3
+            self._device = None
 
     @property
     def duration(self) -> float:
@@ -90,19 +136,29 @@ class Span:
         if self._recorder is not None:
             if exc is not None:
                 self.attrs.setdefault("error", repr(exc))
+            self.device_close()
             self._recorder._close_cm_span(self)
         return False
 
 
 class _NullSpan:
-    """Shared no-op span: what `child_span` hands out when no recorder
-    context is active.  Stateless, so one instance serves every caller
+    """Shared no-op span: what `child_span` hands out when no sink is
+    active.  Stateless, so one instance serves every caller
     concurrently."""
 
     __slots__ = ()
 
     def set(self, **attrs):
         return self
+
+    def device_open(self, device):
+        pass
+
+    def device_close(self):
+        pass
+
+    def device_resolve(self):
+        pass
 
     def __enter__(self):
         return self
@@ -113,11 +169,64 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+
+class _SinkSpan:
+    """A `child_span` while torch.profiler records or a `KernelProfiler`
+    is active: a `record_function` range of the span's name, the host
+    seconds and synchronising CUDA calls added to the profiler's span
+    table under that name, and the recorder's span (or the no-op span)
+    for attributes and the tree."""
+
+    __slots__ = ("name", "_span", "_range", "_prof", "_t0", "_syncs0")
+
+    def __init__(self, name: str, span, profiling: bool, prof):
+        self.name = name
+        self._span = span
+        self._range = (torch.autograd.profiler.record_function(name)
+                       if profiling else None)
+        self._prof = prof
+        self._t0 = 0.0
+        self._syncs0 = None
+
+    def set(self, **attrs):
+        self._span.set(**attrs)
+        return self
+
+    def device_open(self, device):
+        self._span.device_open(device)
+
+    def device_close(self):
+        self._span.device_close()
+
+    def device_resolve(self):
+        self._span.device_resolve()
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        if self._prof is not None:
+            self._syncs0 = self._prof.syncs
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            syncs, s0 = self._prof.syncs, self._syncs0
+            self._prof.span(self.name, time.perf_counter() - self._t0,
+                            None if syncs is None or s0 is None
+                            else syncs - s0)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return self._span.__exit__(*exc)
+
 # Ambient (recorder, open span) for the current thread of execution —
 # how the engine's filter/refine spans find the scheduler's batch span
 # without threading a recorder through every signature.
 _CTX: contextvars.ContextVar = contextvars.ContextVar(
     "repro_obs_ctx", default=None)
+
+# True while torch.profiler (or the autograd profiler) records.
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 def current():
@@ -126,14 +235,23 @@ def current():
 
 
 def child_span(name: str, **attrs):
-    """Open a child span under the ambient context; a shared no-op span
-    when there is none (one contextvar read — the disabled-mode cost)."""
+    """Open a span in every active sink: a child of the ambient
+    recorder's span, a torch.profiler range, an entry of the active
+    `KernelProfiler`.  With none active, the shared no-op span (a
+    contextvar read, the profiler's flag and one module-global read —
+    the disabled-mode cost)."""
     ctx = _CTX.get()
+    profiling = _profiler_enabled()
+    prof = _kprof._ACTIVE
     if ctx is None:
-        return _NULL_SPAN
-    recorder, parent = ctx
-    return recorder.span(name, trace_id=parent.trace_id, parent=parent,
-                         **attrs)
+        span = _NULL_SPAN
+    else:
+        recorder, parent = ctx
+        span = recorder.span(name, trace_id=parent.trace_id, parent=parent,
+                             **attrs)
+    if not profiling and prof is None:
+        return span
+    return _SinkSpan(name, span, profiling, prof)
 
 
 def child_complete(name: str, t_start: float | None = None,

@@ -53,7 +53,7 @@ from ...graph.traverse import beam_plan
 from ...kernels.adc_topk import ops as adc_ops
 from ...kernels.common import next_bucket
 from ...kernels.l2_topk import ops as l2_ops
-from ...obs.trace import child_complete
+from ...obs.trace import child_complete, child_span
 from .. import search_engine as se
 
 __all__ = ["MutableEncryptedStore", "DeltaAwareBackend", "SENTINEL"]
@@ -700,12 +700,16 @@ class DeltaAwareBackend:
         return rows * (self.adc_codebook.code_bytes_per_vector() + 4)
 
     def _query_operand(self, Q: np.ndarray) -> torch.Tensor:
-        """The ADC query operand on the device: int8 codes, or the
-        (nq, m, 256) float32 PQ tables (made on the host by the
-        codebook, as the JAX package does)."""
-        if self.quantization == "int8":
-            return self._put(self.adc_codebook.encode_query(Q))
-        return self._put(np.asarray(self.adc_codebook.lut(Q), np.float32))
+        """The query operand on the device: the float32 ciphertexts, the
+        ADC int8 codes, or the (nq, m, 256) float32 PQ tables (made on
+        the host by the codebook, as the JAX package does)."""
+        with child_span("filter.query_prep"):
+            if self.quantization is None:
+                return self._put(np.asarray(Q, np.float32))
+            if self.quantization == "int8":
+                return self._put(self.adc_codebook.encode_query(Q))
+            return self._put(np.asarray(self.adc_codebook.lut(Q),
+                                        np.float32))
 
     def _candidates_adc_flat(self, Q_sap: np.ndarray, kp2: int):
         st = self.store
@@ -779,7 +783,7 @@ class DeltaAwareBackend:
         the host."""
         st = self.store
         nq = Q_sap.shape[0]
-        Qd = self._put(np.asarray(Q_sap, np.float32))
+        Qd = self._query_operand(Q_sap)
         parts, evals = [], 0
         if self._C_main is not None:
             n_main = int(self._C_main.shape[0])
@@ -856,8 +860,7 @@ class DeltaAwareBackend:
         R = int(self._g_neigh0.shape[0])
         kp2 = max(1, min(self.oversampled(kp), R))
         ef_eff, ef_cap, max_hops = beam_plan(kp2, max(ef_search, kp2))
-        qd = (self._put(Q) if self.quantization is None
-              else self._query_operand(Q))
+        qd = self._query_operand(Q)
         cand, _, visited, hops, edges = graph_ops.graph_topk(
             self._g_neigh0, self._g_neigh_up, self._g_ok, self._g_db,
             qd, int(self._csr.entry), int(ef_eff), kp=kp2, ef_cap=ef_cap,

@@ -177,9 +177,11 @@ def scan_ivf_pools(C_dev: torch.Tensor, Q_sap: np.ndarray, pools, kp: int,
     nq = Q_sap.shape[0]
     cand, valid = layout_pools(nq, pools, kp, pool_mask)
     dev = C_dev.device
+    with child_span("filter.query_prep"):
+        Q = torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev)
     return _masked_pruned_scan(
-        C_dev, torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev),
-        torch.from_numpy(cand).to(dev), torch.from_numpy(valid).to(dev), kp)
+        C_dev, Q, torch.from_numpy(cand).to(dev),
+        torch.from_numpy(valid).to(dev), kp)
 
 
 def _masked_full_dists(C_all, Q, member) -> torch.Tensor:
@@ -219,9 +221,9 @@ def scan_ivf_oblivious(C_dev: torch.Tensor, Q_sap: np.ndarray, pools,
     nq = Q_sap.shape[0]
     member = pool_membership(nq, pools, int(C_dev.shape[0]), pool_mask)
     dev = C_dev.device
-    return _masked_full_scan(
-        C_dev, torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev),
-        torch.from_numpy(member).to(dev), kp)
+    with child_span("filter.query_prep"):
+        Q = torch.as_tensor(np.asarray(Q_sap, np.float32)).to(dev)
+    return _masked_full_scan(C_dev, Q, torch.from_numpy(member).to(dev), kp)
 
 
 class FlatScanFilter:
@@ -241,8 +243,9 @@ class FlatScanFilter:
 
     def candidates(self, Q_sap: np.ndarray, kp: int, ef_search: int):
         n = self._C.shape[0]
-        Q = torch.as_tensor(np.asarray(Q_sap, np.float32)).to(
-            self._C.device)
+        with child_span("filter.query_prep"):
+            Q = torch.as_tensor(np.asarray(Q_sap, np.float32)).to(
+                self._C.device)
         _, cand = l2_ops.knn(Q, self._C, min(kp, n),
                              chunk=min(self.chunk, n))
         valid = torch.ones(cand.shape, dtype=torch.bool, device=cand.device)
@@ -416,10 +419,12 @@ class ADCFilter:
     def _query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
         """q8 (nq, d) int8 for int8, the (nq, m, 256) float32 tables for
         pq8; computed on the host by the codebook, as the reference does."""
-        if self.quantization == "int8":
-            return torch.from_numpy(self.codebook.encode_query(Q)).to(dev)
-        return torch.from_numpy(
-            np.ascontiguousarray(self.codebook.lut(Q), np.float32)).to(dev)
+        with child_span("filter.query_prep"):
+            if self.quantization == "int8":
+                return torch.from_numpy(
+                    self.codebook.encode_query(Q)).to(dev)
+            return torch.from_numpy(np.ascontiguousarray(
+                self.codebook.lut(Q), np.float32)).to(dev)
 
     # ------------------------------------------------------- candidates
 
@@ -553,72 +558,91 @@ class SecureSearchEngine:
         (filter-only baseline, Fig. 6).  The paper's sequential heap
         refine is per-query only — use `search(..., refine="heap")`.
         """
-        t0 = time.perf_counter()
-        self._ensure_attached()
-        Q_sap = np.atleast_2d(np.asarray(Q_sap))
-        T_q = np.atleast_2d(np.asarray(T_q))
-        nq = Q_sap.shape[0]
-        kp = int(max(k, round(ratio_k * k)))
-        with child_span("filter", backend=self.backend.name,
-                        kp=kp, nq=nq) as fsp:
-            cand, valid, dist_evals = self.backend.candidates(
-                Q_sap, kp, ef_search)
-            fsp.set(dist_evals=int(dist_evals),
-                    bytes_scanned=int(
-                        getattr(self.backend, "last_filter_bytes", 0)),
-                    hops=int(getattr(self.backend, "last_n_hops", 0)),
-                    edges_scanned=int(
-                        getattr(self.backend, "last_n_edges_scanned", 0)))
-        cand = torch.as_tensor(cand, device=self.device).to(
-            torch.int64).contiguous()
-        valid = torch.as_tensor(valid, device=self.device).to(
-            torch.bool).contiguous()
-        if cand.shape[1] < k:       # uniform (nq, k) contract: -1 fill
-            pad = (0, k - cand.shape[1])
-            cand = torch.nn.functional.pad(cand, pad)
-            valid = torch.nn.functional.pad(valid, pad)
+        with child_span("engine.search_batch"):
+            t0 = time.perf_counter()
+            self._ensure_attached()
+            Q_sap = np.atleast_2d(np.asarray(Q_sap))
+            T_q = np.atleast_2d(np.asarray(T_q))
+            nq = Q_sap.shape[0]
+            kp = int(max(k, round(ratio_k * k)))
+            with child_span("filter", backend=self.backend.name,
+                            kp=kp, nq=nq) as fsp:
+                fsp.device_open(self.device)
+                cand, valid, dist_evals = self.backend.candidates(
+                    Q_sap, kp, ef_search)
+                fsp.set(dist_evals=int(dist_evals),
+                        bytes_scanned=int(
+                            getattr(self.backend, "last_filter_bytes", 0)),
+                        hops=int(getattr(self.backend, "last_n_hops", 0)),
+                        edges_scanned=int(
+                            getattr(self.backend, "last_n_edges_scanned", 0)))
+            cand = torch.as_tensor(cand, device=self.device).to(
+                torch.int64).contiguous()
+            valid = torch.as_tensor(valid, device=self.device).to(
+                torch.bool).contiguous()
+            if cand.shape[1] < k:       # uniform (nq, k) contract: -1 fill
+                pad = (0, k - cand.shape[1])
+                cand = torch.nn.functional.pad(cand, pad)
+                valid = torch.nn.functional.pad(valid, pad)
 
-        with child_span("refine", mode=refine) as rsp:
-            if refine == "tournament":
-                T = torch.as_tensor(np.asarray(T_q, np.float32)).to(
-                    self.device)
-                # a backend may supply its own batched refine (the
-                # sharded backend of the JAX package does); semantics
-                # are identical
-                refine_fn = getattr(self.backend, "refine_batch", None)
-                if refine_fn is None:
-                    refine_fn = refine_candidates
-                out = refine_fn(self._C_dce_dev, cand, T, valid, k)
-                ids = out.cpu().numpy().astype(np.int64)
-                nv = valid.sum(dim=1)
-                ncmp = int((nv * (nv - 1)).sum())
-            elif refine == "none":          # filter-only baseline
-                ids = torch.where(valid[:, :k], cand[:, :k], -1)\
-                    .cpu().numpy().astype(np.int64)
-                ncmp = 0
-            else:
-                raise ValueError(f"batched refine must be 'tournament' or "
-                                 f"'none', got {refine!r}")
-            rsp.set(comparisons=ncmp)
+            with child_span("refine", mode=refine) as rsp:
+                rsp.device_open(self.device)
+                if refine == "tournament":
+                    T = torch.as_tensor(np.asarray(T_q, np.float32))
+                    # engine.wait: where the host waits for the card's
+                    # queued work (names those idle gaps, and parts them
+                    # from the host's own time); a copy from pageable host
+                    # memory waits for the stream, here for the filter
+                    with child_span("engine.wait"):
+                        T = T.to(self.device)
+                    # a backend may supply its own batched refine (the
+                    # sharded backend of the JAX package does); semantics
+                    # are identical
+                    refine_fn = getattr(self.backend, "refine_batch", None)
+                    if refine_fn is None:
+                        refine_fn = refine_candidates
+                    out = refine_fn(self._C_dce_dev, cand, T, valid, k)
+                    rsp.device_close()
+                    with child_span("engine.wait"):
+                        ids = out.cpu()
+                    ids = ids.numpy().astype(np.int64)
+                    nv = valid.sum(dim=1)
+                    ncmp = (nv * (nv - 1)).sum()
+                    with child_span("engine.wait"):
+                        ncmp = int(ncmp)
+                elif refine == "none":          # filter-only baseline
+                    ids = torch.where(valid[:, :k], cand[:, :k], -1)
+                    rsp.device_close()
+                    with child_span("engine.wait"):
+                        ids = ids.cpu()
+                    ids = ids.numpy().astype(np.int64)
+                    ncmp = 0
+                else:
+                    raise ValueError(f"batched refine must be 'tournament' or "
+                                     f"'none', got {refine!r}")
+                # the ids' wait has passed both spans' device end events
+                fsp.device_resolve()
+                rsp.device_resolve()
+                rsp.set(comparisons=ncmp)
 
-        stats = SearchStats(
-            latency_s=time.perf_counter() - t0,
-            filter_dist_evals=int(dist_evals),
-            refine_comparisons=ncmp,
-            bytes_up=Q_sap.nbytes + T_q.nbytes + 4 * nq,
-            bytes_down=ids.nbytes,          # int64 ids: 8 bytes per slot
-            n_queries=nq,
-            backend=self.backend.name,
-            filter_bytes_scanned=int(
-                getattr(self.backend, "last_filter_bytes", 0)),
-            n_hops=int(getattr(self.backend, "last_n_hops", 0)),
-            n_edges_scanned=int(
-                getattr(self.backend, "last_n_edges_scanned", 0)),
-            n_shards_down=int(
-                getattr(self.backend, "last_n_shards_down", 0)),
-            degraded=bool(getattr(self.backend, "last_degraded", False)),
-        )
-        return ids, stats
+            stats = SearchStats(
+                latency_s=time.perf_counter() - t0,
+                filter_dist_evals=int(dist_evals),
+                refine_comparisons=ncmp,
+                bytes_up=Q_sap.nbytes + T_q.nbytes + 4 * nq,
+                bytes_down=ids.nbytes,          # int64 ids: 8 bytes per slot
+                n_queries=nq,
+                backend=self.backend.name,
+                filter_bytes_scanned=int(
+                    getattr(self.backend, "last_filter_bytes", 0)),
+                n_hops=int(getattr(self.backend, "last_n_hops", 0)),
+                n_edges_scanned=int(
+                    getattr(self.backend, "last_n_edges_scanned", 0)),
+                n_shards_down=int(
+                    getattr(self.backend, "last_n_shards_down", 0)),
+                degraded=bool(getattr(self.backend, "last_degraded", False)),
+            )
+            return ids, stats
 
     def search(self, C_sap_q: np.ndarray, T_q: np.ndarray, k: int,
                ratio_k: float = 8.0, ef_search: int = 96,

@@ -31,7 +31,7 @@ from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.launch import serve, train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import Model
-from repro_torch.obs import profile_kernels
+from repro_torch.obs import TraceRecorder, child_span, profile_kernels
 from repro_torch.sec import capture_server_view, evaluate_profile
 from repro_torch.serving.runtime import (Collection, CollectionManager,
                                          DeltaAwareBackend,
@@ -917,6 +917,90 @@ def test_profiler_times_card_calls_with_cuda_events():
     s = prof.summary()["l2_topk.knn"]
     assert s["calls"] == 2 and s["total_s"] > 0
     assert s["total_bytes"] == 2 * (Q.nbytes + X.nbytes)
+
+
+@pytest.mark.cuda
+def test_deferred_card_timing_matches_a_synchronised_timing():
+    """profile_kernels() queues each call's CUDA events and reads them at
+    summary(); its device time of back-to-back K1 calls is within 5% of
+    the same calls timed one by one, each waited for."""
+    _needs_card()
+    from repro_torch.kernels.l2_topk import ops as l2_ops
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Q = torch.randn(1024, 128, device="cuda", generator=g)
+    X = torch.randn(2 ** 18, 128, device="cuda", generator=g)
+    l2_ops.knn(Q, X, 80)                               # build, warm
+    waited = 0.0
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        l2_ops.knn(Q, X, 80)
+        end.record()
+        end.synchronize()
+        waited += start.elapsed_time(end) / 1e3
+    with profile_kernels() as prof:
+        for _ in range(10):
+            l2_ops.knn(Q, X, 80)
+    s = prof.summary()["l2_topk.knn"]
+    assert s["calls"] == 10 and s["total_bytes"] == 10 * (Q.nbytes
+                                                         + X.nbytes)
+    assert abs(s["total_s"] - waited) <= 0.05 * waited
+
+
+@pytest.mark.cuda
+def test_profile_kernels_counts_the_card_syncs_inside_spans():
+    """On the card profile_kernels() counts each synchronising call in
+    the spans open around it: a pageable upload, a download and an
+    `int()` of a card scalar one each, a kernel launch none.  An engine
+    batch's three engine.wait blocks are a sync each, its query upload
+    one more; the sync check's mode is restored after."""
+    _needs_card()
+    x = torch.arange(1024.0, device="cuda")
+    a = np.ones(1024, np.float32)
+    mode = torch.cuda.get_sync_debug_mode()
+    with profile_kernels() as prof:
+        with child_span("up"):
+            torch.from_numpy(a).to("cuda")
+        with child_span("down"):
+            x.cpu()
+        with child_span("item"):
+            int(x.sum())
+        with child_span("launch"):
+            (x * 2).sum()
+    sp = prof.summary().spans
+    assert {n: sp[n]["syncs"] for n in ("up", "down", "item", "launch")} \
+        == {"up": 1, "down": 1, "item": 1, "launch": 0}
+    assert torch.cuda.get_sync_debug_mode() == mode
+    C_sap, C_dce, Q, T = _runtime_corpus(n=4096, nq=64)
+    eng = SecureSearchEngine(C_sap, C_dce)
+    eng.search_batch(Q, T, 5)
+    with profile_kernels() as prof:
+        eng.search_batch(Q, T, 5)
+    sp = prof.summary().spans
+    assert sp["engine.wait"]["calls"] == sp["engine.wait"]["syncs"] == 3
+    assert sp["filter.query_prep"]["syncs"] >= 1
+    assert sp["engine.search_batch"]["syncs"] >= 4
+
+
+@pytest.mark.cuda
+def test_filter_and_refine_spans_carry_device_seconds_on_the_card():
+    """Under an ambient TraceRecorder on the card, the engine's filter and
+    refine spans get `device_s` from CUDA events, read after the ids'
+    wait: both positive, together within the whole call's interval."""
+    _needs_card()
+    C_sap, C_dce, Q, T = _runtime_corpus(n=4096, nq=64)
+    eng = SecureSearchEngine(C_sap, C_dce)
+    eng.search_batch(Q, T, 5)
+    rec = TraceRecorder()
+    with rec.span("flush", trace_id="b"):
+        eng.search_batch(Q, T, 5)
+    (root,) = rec.tree("b")
+    (whole,) = root["children"]
+    filt, ref = whole["children"]
+    f, r = filt["attrs"]["device_s"], ref["attrs"]["device_s"]
+    assert f > 0 and r > 0
+    assert f + r <= whole["t_end"] - whole["t_start"]
 
 
 @pytest.mark.cuda

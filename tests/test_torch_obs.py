@@ -10,6 +10,7 @@ import json
 import re
 import threading
 import urllib.request
+import warnings
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from repro.obs import MetricsRegistry as JMetricsRegistry
 from repro.serving.runtime import CollectionTelemetry as JTelemetry
 from repro.serving.runtime import VirtualClock as JVirtualClock
 from repro.serving.search_engine import SearchStats as JSearchStats
-from repro_torch.core import dcpe
+from repro_torch.core import dcpe, ppanns
 from repro_torch.data import synth
 from repro_torch.kernels.dce_comp import ops as dce_ops
 from repro_torch.kernels.l2_topk import ops as l2_ops
@@ -29,7 +30,8 @@ from repro_torch.obs import (NULL_RECORDER, MetricsRegistry, Observability,
 from repro_torch.obs import profiler as obs_profiler
 from repro_torch.serving.runtime import (Collection, CollectionTelemetry,
                                          SlotLoop, VirtualClock)
-from repro_torch.serving.search_engine import SearchStats
+from repro_torch.serving.search_engine import (SearchStats,
+                                               SecureSearchEngine)
 
 D = 24
 K = 5
@@ -42,9 +44,23 @@ def ds():
                               k_gt=K, seed=0)
 
 
+# The engine's span tree of one batched call (DESIGN.md §13).
+ENGINE_TREE = ("engine.search_batch", [
+    ("filter", [("filter.query_prep", [])]),
+    ("refine", [("engine.wait", [])] * 3)])
+
+
 def _shape(node):
     """Span tree -> (name, [child shapes]) for exact assertions."""
     return (node["name"], [_shape(c) for c in node["children"]])
+
+
+def _intervals(node):
+    """Every (t_start, t_end) in a span tree."""
+    out = {(node["t_start"], node["t_end"])}
+    for c in node["children"]:
+        out |= _intervals(c)
+    return out
 
 
 def _collection(ds, name, vc, rec, **kw):
@@ -166,14 +182,17 @@ def test_flush_two_request_interleaving_exact_tree(ds):
     assert ins["attrs"]["compacted"] is False
 
     (flush,) = rec.tree("t/c:b0")
-    assert _shape(flush) == ("flush", [("filter", []), ("refine", [])])
+    assert _shape(flush) == ("flush", [ENGINE_TREE])
     assert flush["attrs"]["n_real"] == 2
     assert flush["attrs"]["bucket"] == 2
     assert flush["attrs"]["backend"] == "flat"
     assert flush["attrs"]["n_queries"] == 2
     assert flush["attrs"]["filter_dist_evals"] > 0
     assert flush["attrs"]["filter_bytes_scanned"] > 0
-    filt, ref = flush["children"]
+    (eng,) = flush["children"]
+    assert _intervals(eng) == {(0.001, 0.001)}
+    filt, ref = eng["children"]
+    assert "device_s" not in filt["attrs"] and "device_s" not in ref["attrs"]
     assert filt["attrs"]["nq"] == 2
     assert filt["attrs"]["dist_evals"] == \
         flush["attrs"]["filter_dist_evals"]
@@ -220,7 +239,8 @@ def test_continuous_scheduler_exact_tree(ds):
         slot = req["children"][1]
         assert slot["attrs"]["batch"] == f"t/s:s{i}"
         (step,) = rec.tree(f"t/s:s{i}")
-        assert _shape(step) == ("step", [("filter", []), ("refine", [])])
+        assert _shape(step) == ("step", [ENGINE_TREE])
+        assert _intervals(step) == {(step["t_start"], step["t_end"])}
         assert step["attrs"]["n_active"] == 1
         assert step["attrs"]["capacity"] == 2
 
@@ -381,17 +401,185 @@ def test_profiler_counts_calls_by_kernel(ds):
     assert dce_ops.batched_top_k_by_wins.__wrapped__ is not None
 
 
+# ------------------------------------------- the engine's spans as sinks
+
+
+@pytest.fixture(scope="module")
+def engine_inputs(ds):
+    owner = ppanns.DataOwner(d=D, sap_beta=dcpe.suggest_beta(
+        ds.base, fraction=0.05), seed=3)
+    db = owner.encrypt_database(ds.base, build_index=False)
+    user = ppanns.User(owner.share_keys())
+    Q, T = map(np.stack, zip(*(user.encrypt_query(q) for q in ds.queries)))
+    return db.C_sap, db.C_dce, Q, T
+
+
+SPAN_NAMES = ("engine.search_batch", "filter", "filter.query_prep",
+              "refine", "engine.wait")
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_profile_kernels_counts_the_engine_spans(engine_inputs, quant):
+    """Under profile_kernels() each batch adds one engine.search_batch,
+    filter, filter.query_prep and refine call and three engine.wait
+    calls (the trapdoors going up, the ids coming down, the comparison
+    count) to the span table, with host seconds; the whole call outlasts
+    its waits.  The kernel table holds the kernels alone, and no sync is
+    counted without a card."""
+    C_sap, C_dce, Q, T = engine_inputs
+    eng = SecureSearchEngine(C_sap, C_dce, quantization=quant, device="cpu")
+    eng.search_batch(Q, T, K)                     # attach outside
+    with profile_kernels() as prof:
+        for _ in range(3):
+            eng.search_batch(Q, T, K)
+    s = prof.summary()
+    sp = s.spans
+    assert {n: sp[n]["calls"] for n in SPAN_NAMES} == {
+        "engine.search_batch": 3, "filter": 3, "filter.query_prep": 3,
+        "refine": 3, "engine.wait": 9}
+    assert all(sp[n]["total_s"] > 0 and "syncs" not in sp[n]
+               for n in SPAN_NAMES)
+    whole = sp["engine.search_batch"]["total_s"]
+    assert whole >= sp["engine.wait"]["total_s"]
+    assert whole >= sp["filter"]["total_s"] + sp["refine"]["total_s"]
+    entry = "adc_topk.sq_knn" if quant else "l2_topk.knn"
+    assert set(s) == {entry, "dce_comp.refine_topk"}
+    assert s[entry]["calls"] == 3 and s["dce_comp.refine_topk"]["calls"] == 3
+    assert prof.total_seconds() == pytest.approx(
+        s[entry]["total_s"] + s["dce_comp.refine_topk"]["total_s"])
+
+
+def test_profile_kernels_counts_syncs_inside_spans(monkeypatch):
+    """On a machine with a card, profile_kernels() turns PyTorch's sync
+    check to "warn" and counts its warnings in the spans open when they
+    come (here raised by hand, with no card), swallowing them and the
+    check's own notice; other warnings pass, and the check's mode is
+    restored after."""
+    modes, shown = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: 0)
+
+    def set_mode(mode):                 # warns as PyTorch's does
+        modes.append(mode)
+        warnings.warn("Synchronization debug mode is a prototype feature")
+
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", set_mode)
+    sync = "called a synchronizing CUDA operation (Triggered internally)"
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda msg, *a, **kw: shown.append(str(msg))
+        with profile_kernels() as prof:
+            with child_span("outer"):
+                warnings.warn(sync)
+                with child_span("inner"):
+                    warnings.warn(sync)
+                    warnings.warn(sync)
+                warnings.warn("other")
+            with child_span("outer"):
+                pass
+        warnings.warn("after")
+    assert modes == ["warn", 0] and shown == ["other", "after"]
+    assert prof.syncs == 3
+    sp = prof.summary().spans
+    assert sp["outer"]["calls"] == 2 and sp["outer"]["syncs"] == 3
+    assert sp["inner"] == {"calls": 1, "total_s": sp["inner"]["total_s"],
+                           "syncs": 2}
+    prof.reset()
+    assert prof.summary().spans == {} and prof.syncs == 0
+
+
+def test_torch_profiler_sees_the_spans_as_nested_ranges(engine_inputs):
+    """While torch.profiler records, each span is a host range of its own
+    name, nested as the span tree is."""
+    C_sap, C_dce, Q, T = engine_inputs
+    eng = SecureSearchEngine(C_sap, C_dce, device="cpu")
+    eng.search_batch(Q, T, K)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.search_batch(Q, T, K)
+    ranges = {}
+    for e in prof.events():
+        if e.name in SPAN_NAMES:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    assert {n: len(r) for n, r in ranges.items()} == {
+        "engine.search_batch": 1, "filter": 1, "filter.query_prep": 1,
+        "refine": 1, "engine.wait": 3}
+
+    def inside(child, parent):
+        (p0, p1), = ranges[parent]
+        return all(p0 <= c0 <= c1 <= p1 for c0, c1 in ranges[child])
+
+    assert inside("filter", "engine.search_batch")
+    assert inside("refine", "engine.search_batch")
+    assert inside("filter.query_prep", "filter")
+    assert inside("engine.wait", "refine")
+    (f0, f1), = ranges["filter"]
+    (r0, r1), = ranges["refine"]
+    assert f1 <= r0
+
+
+class _FakeEvents:
+    """Stand-ins for a card call's two CUDA events: `elapsed_time` in ms,
+    and a count of the waits the profiler makes on them."""
+
+    def __init__(self, ms):
+        self.ms, self.waits = ms, 0
+        self.start = self
+
+    def synchronize(self):
+        self.waits += 1
+
+    def elapsed_time(self, end):
+        return self.ms
+
+
+def test_deferred_card_calls_read_at_summary_dropped_at_reset():
+    """A card call's events are queued, not waited on: summary() reads
+    them (calls, seconds, bytes as a timed call gave them) and reset()
+    forgets them unread."""
+    prof = obs_profiler.KernelProfiler()
+    a, b = _FakeEvents(2.0), _FakeEvents(3.0)
+    prof.defer("k", a.start, a, 100)
+    prof.defer("k", b.start, b, 50)
+    prof.record("host", 0.5, 8)
+    assert a.waits == b.waits == 0
+    s = prof.summary()
+    assert s["k"] == {"calls": 2, "total_s": pytest.approx(0.005),
+                      "total_bytes": 150}
+    assert s["host"] == {"calls": 1, "total_s": 0.5, "total_bytes": 8}
+    assert a.waits == b.waits == 1
+    assert prof.summary() == s                      # read once
+    c = _FakeEvents(1.0)
+    prof.defer("k", c.start, c, 1)
+    prof.reset()
+    assert prof.summary() == {} and c.waits == 0
+    assert prof.summary().spans == {}
+
+
 # ------------------------------------------------------- disabled mode
 
 
-def test_disabled_mode_is_noop(ds):
-    """No tracer attached: child_span hands out the one shared no-op
-    span, no ambient context exists, and nothing records."""
-    assert current() is None
+def test_disabled_mode_is_noop(ds, monkeypatch):
+    """No sink active: child_span hands out the one shared no-op span,
+    no ambient context exists, and nothing records: no profiler range
+    opens, no kernel profiler entry and no CUDA event is made."""
+    made = []
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        lambda *a, **kw: made.append("range"))
+    monkeypatch.setattr(obs_profiler.KernelProfiler, "record",
+                        lambda *a, **kw: made.append("record"))
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda *a, **kw: made.append("event"))
+    assert current() is None and obs_profiler.active_profiler() is None
+    assert not torch.autograd._profiler_enabled()
     sp = child_span("anything", x=1)
     assert sp is child_span("other")
     with sp as s:
         s.set(y=2)
+        s.device_open(torch.device("cuda"))
+        s.device_close()
+        s.device_resolve()
     with NULL_RECORDER.span("op", "tid") as s:
         s.set(z=3)
     assert NULL_RECORDER.spans() == []
@@ -407,3 +595,4 @@ def test_disabled_mode_is_noop(ds):
         assert current() is None
     finally:
         col.close()
+    assert made == []

@@ -139,9 +139,11 @@ def test_filter_and_refine_spans_under_an_ambient_span(setup):
     with rec.span("flush", trace_id="b1"):
         teng.search_batch(Q[:2], T[:2], K, ratio_k=6)
     (root,) = rec.tree("b1")
-    names = [c["name"] for c in root["children"]]
+    (eng,) = root["children"]
+    assert eng["name"] == "engine.search_batch"
+    names = [c["name"] for c in eng["children"]]
     assert names == ["filter", "refine"]
-    f, r = root["children"]
+    f, r = eng["children"]
     assert f["attrs"]["backend"] == "flat" and f["attrs"]["kp"] == 60
     assert f["attrs"]["dist_evals"] == 2 * ds.n
     assert r["attrs"]["comparisons"] == 2 * 60 * 59
