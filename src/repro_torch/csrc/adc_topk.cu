@@ -18,7 +18,7 @@
 // so the tie rule needs no extra code anywhere.
 //
 // Two launches per call.  Stage 1: a block takes QB queries and a chunk of
-// rows (about one block per SM), walks the chunk in tiles and keeps, per
+// rows, walks the chunk in tiles and keeps, per
 // query, a running top-kp in shared memory: a sorted state, a buffer of
 // 256 keys and a threshold (the kp-th best key so far).  Each thread
 // compares its keys with their queries' thresholds in registers and puts
@@ -29,6 +29,21 @@
 // a partial buffer (nq, G, kp).  Stage 2: one block per query merges its
 // G sorted partial lists in runs of 8 keys a list, stopping after a round
 // that brings nothing below its kp-th best (Select::merge_runs).
+//
+// The chunks are the wrapper's block plan (`common.block_plan`): over
+// slots = SMs x the blocks of the launched variant that one SM holds
+// (repro_adc_blocks_per_sm: 1 on the H100 for K4 at kp 160 and K5 at m
+// 16, kp 320, where shared memory takes one), G chunks cost ceil(groups
+// G / slots) waves of ceil(tiles / G) + c tile-times, the least cost
+// wins, ties to the smaller G.  c, a chunk's fixed cost (its first
+// tiles, whose keys are nearly all
+// offered, the ring's fill, one more list to merge), measured on the H100
+// at nq 1024, n 1M: K4 (kp 160, 256-row tiles) 30 tile-times, the
+// least-squares fit of 21 plans (3.18 us a tile); K5 (m 16, kp 320,
+// 1024-row tiles) 11, the time each further wave adds at 128 query groups
+// (0.075 ms) over the tile time of one chunk a group (6.9 us);
+// scripts/scan_plans.py times the plans and fits c.  K4 at nq 1024
+// takes one wave of 32 x 4 blocks (3.72 ms; 32 x 5 in two waves 5.96).
 //
 // What bounds them on the H100, and what the design does about it:
 //   K4 at the main-path shape (32 queries, 1M rows, d = 128, kp = 160):
@@ -636,6 +651,39 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return set_smem(reinterpret_cast<const void*>(kernel), smem);
 }
 
+// The stage-1 variants the entries launch, as pointers (the variants of
+// one kernel take the same arguments): K4 by kp and floor (FLOOR only
+// where kp > 256 takes 16 queries a block), K5 by queries a block and
+// floor.
+typedef void (*SqKernel)(const int8_t*, const int8_t*, const int*,
+                         const unsigned char*, u64*, const u64*, int, int,
+                         int, int, int, int, int);
+typedef void (*PqKernel)(const float*, const uint8_t*, const unsigned char*,
+                         u64*, const u64*, int, int, int, int, int, int, int);
+
+SqKernel sq_kernel(int kp, bool floor) {
+  const bool deep = sq_stages(kp) == SQ_DEEP;
+  if (sq_queries_per_block(kp) == 32)
+    return sq_scan_kernel<2, SQ_DEEP, false>;
+  if (deep && floor) return sq_scan_kernel<1, SQ_DEEP, true>;
+  if (deep) return sq_scan_kernel<1, SQ_DEEP, false>;
+  if (floor) return sq_scan_kernel<1, SQ_SHALLOW, true>;
+  return sq_scan_kernel<1, SQ_SHALLOW, false>;
+}
+
+PqKernel pq_kernel(int qb, bool floor) {
+  switch (qb * 2 + floor) {
+    case 16: return pq_scan_kernel<8, false>;
+    case 17: return pq_scan_kernel<8, true>;
+    case 8: return pq_scan_kernel<4, false>;
+    case 9: return pq_scan_kernel<4, true>;
+    case 4: return pq_scan_kernel<2, false>;
+    case 5: return pq_scan_kernel<2, true>;
+    case 2: return pq_scan_kernel<1, false>;
+    default: return pq_scan_kernel<1, true>;
+  }
+}
+
 }  // namespace
 
 // Shared memory (bytes) that stage 1 of K4 (pq = 0, width = d) or K5
@@ -645,6 +693,37 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 // queries a block, 16 where kp > 256, at any d.
 extern "C" long long repro_adc_smem_bytes(int pq, int qb, int kp, int width) {
   return (long long)(pq ? pq_smem(qb, kp, width) : sq_smem(qb, kp));
+}
+
+// Stage-1 blocks of K4 (pq = 0, width = d) or K5 (pq = 1, width = m, qb
+// queries a block) that one SM of `device` holds at once, for the variant
+// a pass at this kp launches (floor: a later pass of a call above MAX_KP),
+// at the shared memory it launches with; the wrapper's block plan counts
+// the card's slots with it.  A negative cudaError_t on failure.
+extern "C" int repro_adc_blocks_per_sm(int pq, int qb, int kp, int width,
+                                       int floor, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  if (kp < 1 || kp > MAX_KP || width < 1 ||
+      (pq && qb != 8 && qb != 4 && qb != 2 && qb != 1))
+    return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  if (pq) {
+    const PqKernel kernel = pq_kernel(qb, floor != 0);
+    const size_t smem = pq_smem(qb, kp, width);
+    err = prepare(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          THREADS, smem);
+  } else {
+    const SqKernel kernel = sq_kernel(kp, floor != 0);
+    const size_t smem = sq_smem(sq_queries_per_block(kp), kp);
+    err = prepare(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          SQ_THREADS, smem);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // q8 (nq, d) int8, c8 (n, d) int8, cn (n,) int32, ok (n,) uint8 (0 = row
@@ -674,20 +753,12 @@ extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
   const int vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(c8) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q8) % 16 == 0;
   const dim3 grid((nq + qb - 1) / qb, G);
-#define REPRO_SQ_LAUNCH(MT, STAGES, FLOOR)                                 \
-  do {                                                                      \
-    err = prepare(sq_scan_kernel<MT, STAGES, FLOOR>, smem);                 \
-    if (err != cudaSuccess) return err;                                     \
-    sq_scan_kernel<MT, STAGES, FLOOR><<<grid, SQ_THREADS, smem, stream>>>(  \
-        q8, c8, cn, ok, part, floor_in, nq, n, d, kp, chunk_rows, G, vec);  \
-  } while (0)
-  const bool deep = sq_stages(kp) == SQ_DEEP;
-  if (qb == 32) REPRO_SQ_LAUNCH(2, SQ_DEEP, false);
-  else if (deep && floor_in) REPRO_SQ_LAUNCH(1, SQ_DEEP, true);
-  else if (deep) REPRO_SQ_LAUNCH(1, SQ_DEEP, false);
-  else if (floor_in) REPRO_SQ_LAUNCH(1, SQ_SHALLOW, true);
-  else REPRO_SQ_LAUNCH(1, SQ_SHALLOW, false);
-#undef REPRO_SQ_LAUNCH
+  const SqKernel kernel = sq_kernel(kp, floor_in != nullptr);
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SQ_THREADS, smem, stream>>>(q8, c8, cn, ok, part, floor_in,
+                                             nq, n, d, kp, chunk_rows, G,
+                                             vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 0, stream);
@@ -713,26 +784,12 @@ extern "C" int repro_pq_adc_topk(const float* lut, const uint8_t* codes_t,
   const int aligned =
       n % 4 == 0 && reinterpret_cast<uintptr_t>(codes_t) % 4 == 0;
   const dim3 grid((nq + qb - 1) / qb, G);
-#define REPRO_PQ_LAUNCH(QB, FLOOR)                                          \
-  do {                                                                      \
-    err = prepare(pq_scan_kernel<QB, FLOOR>, smem);                         \
-    if (err != cudaSuccess) return err;                                     \
-    pq_scan_kernel<QB, FLOOR><<<grid, THREADS, smem, stream>>>(             \
-        lut, codes_t, ok, part, floor_in, nq, n, m, kp, chunk_rows, G,      \
-        aligned);                                                           \
-  } while (0)
-  const bool fl = floor_in != nullptr;
-  switch (qb * 2 + fl) {
-    case 16: REPRO_PQ_LAUNCH(8, false); break;
-    case 17: REPRO_PQ_LAUNCH(8, true); break;
-    case 8: REPRO_PQ_LAUNCH(4, false); break;
-    case 9: REPRO_PQ_LAUNCH(4, true); break;
-    case 4: REPRO_PQ_LAUNCH(2, false); break;
-    case 5: REPRO_PQ_LAUNCH(2, true); break;
-    case 2: REPRO_PQ_LAUNCH(1, false); break;
-    default: REPRO_PQ_LAUNCH(1, true); break;
-  }
-#undef REPRO_PQ_LAUNCH
+  const PqKernel kernel = pq_kernel(qb, floor_in != nullptr);
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(lut, codes_t, ok, part, floor_in,
+                                          nq, n, m, kp, chunk_rows, G,
+                                          aligned);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 1, stream);

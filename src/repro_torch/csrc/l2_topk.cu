@@ -24,7 +24,23 @@
 // What the design does about it:
 //   * one block holds all 32 queries of a batch (QB = 32 for k' <= 256),
 //     so X is read from device memory once; the blocks split the rows into
-//     one chunk each, about one block per SM;
+//     chunks of whole tiles by the wrapper's block plan
+//     (`common.block_plan`): over slots = SMs x the blocks of the launched
+//     variant that one SM holds (repro_l2_knn_blocks_per_sm: 1 on the
+//     H100 at k' 80, 128 and 800, where shared memory takes one), G chunks
+//     cost ceil(groups G / slots) waves of ceil(tiles / G) + c tile-times,
+//     and the least cost wins, ties to the smaller G.  c, a chunk's fixed
+//     cost (its first tile's offers, the ring's fill, one more list to
+//     merge), is 10 tile-times: the least-squares fit of the 42 plans
+//     timed at nq 1024 over 1M rows (k' 80) and 2^24 rows (k' 128), one
+//     variant (21.9 us a tile of 512 rows x 32 queries; each shape alone
+//     fits 5.5 and 14.0; scripts/scan_plans.py times the plans and fits
+//     c).  At 2^24 rows the plan is 8 whole waves of 32 x 33 blocks
+//     (178.7 ms; 32 x 4 in one wave 181.2).  At 1M rows the plan is one
+//     wave of 32 x 4 blocks (11.28 ms; 32 x 33 12.35; 32 x 5, two waves
+//     whose second holds 28 blocks on 132 SMs, 17.99); the 32 blocks of a
+//     chunk read its rows at about the same time, so X comes from L2 and
+//     not 32 times from device memory;
 //   * X and Q are staged in 16-deep slices by cp.async in a 3-stage ring
 //     (2 where k' > 128 needs the shared memory), so two slices are in
 //     flight while one is multiplied; rows keep an 80-byte padded stride,
@@ -489,29 +505,50 @@ cudaError_t sq_dists(const float* Q, const void* X, float* out, int nq,
   return cudaGetLastError();
 }
 
+// The stage-1 variant that scan() launches at this kp (FLOOR only where
+// kp > 256 takes 8 queries a block), as a pointer: every variant takes the
+// same arguments.
 template <typename T>
-cudaError_t scan(const float* Q, const void* Xv, u64* part,
+using ScanKernel = void (*)(const float*, const T*, u64*, const u64*, int,
+                            int, int, int, int, int);
+
+template <typename T>
+ScanKernel<T> scan_kernel(int kp, bool floor) {
+  if (kp <= 128) return l2_scan_kernel<T, 8, DEEP, 8, false>;
+  if (queries_per_block(kp) == 32)
+    return l2_scan_kernel<T, 8, SHALLOW, 16, false>;
+  if (floor) return l2_scan_kernel<T, 2, SHALLOW, 0, true>;
+  return l2_scan_kernel<T, 2, SHALLOW, 0, false>;
+}
+
+template <typename T>
+cudaError_t scan(const float* Q, const void* X, u64* part,
                  const u64* floor_in, int nq, int n, int d, int kp,
                  int chunk_rows, int G, cudaStream_t stream) {
-  const T* X = static_cast<const T*>(Xv);
   const int qb = queries_per_block(kp);
   const size_t smem = knn_smem(kp, sizeof(T));
   const dim3 grid((nq + qb - 1) / qb, G);
-  cudaError_t err;
-#define REPRO_L2_SCAN(TQ, STAGES, E, FLOOR)                                 \
-  do {                                                                       \
-    err = set_smem(reinterpret_cast<const void*>(                           \
-                       l2_scan_kernel<T, TQ, STAGES, E, FLOOR>), smem);      \
-    if (err != cudaSuccess) return err;                                      \
-    l2_scan_kernel<T, TQ, STAGES, E, FLOOR><<<grid, THREADS, smem, stream>>>( \
-        Q, X, part, floor_in, nq, n, d, kp, chunk_rows, G);                  \
-  } while (0)
-  if (kp <= 128) REPRO_L2_SCAN(8, DEEP, 8, false);
-  else if (qb == 32) REPRO_L2_SCAN(8, SHALLOW, 16, false);
-  else if (floor_in) REPRO_L2_SCAN(2, SHALLOW, 0, true);
-  else REPRO_L2_SCAN(2, SHALLOW, 0, false);
-#undef REPRO_L2_SCAN
+  const ScanKernel<T> kernel = scan_kernel<T>(kp, floor_in != nullptr);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(Q, static_cast<const T*>(X), part,
+                                          floor_in, nq, n, d, kp, chunk_rows,
+                                          G);
   return cudaGetLastError();
+}
+
+// Blocks of scan_kernel<T>(kp, floor) that one SM holds at once, at the
+// shared memory it launches with; a negative cudaError_t on failure.
+template <typename T>
+int blocks_per_sm(int kp, bool floor) {
+  const ScanKernel<T> kernel = scan_kernel<T>(kp, floor);
+  const size_t smem = knn_smem(kp, sizeof(T));
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 int element_size(int dtype) { return dtype == 0 ? 4 : 2; }
@@ -545,6 +582,22 @@ extern "C" int repro_l2_knn_queries_per_block(int kp) {
 
 extern "C" long long repro_l2_knn_smem(int kp, int dtype) {
   return (long long)knn_smem(kp, element_size(dtype));
+}
+
+// Stage-1 blocks of the fused scan that one SM of `device` holds at once,
+// for the variant a pass at this kp launches (floor: a later pass of a
+// call above MAX_KP) on rows of element type `dtype`; the wrapper's block
+// plan counts the card's slots with it.  A negative cudaError_t on
+// failure.
+extern "C" int repro_l2_knn_blocks_per_sm(int kp, int dtype, int floor,
+                                          int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  if (kp < 1 || kp > MAX_KP || dtype < 0 || dtype > 2)
+    return -(int)cudaErrorInvalidValue;
+  if (dtype == 1) return blocks_per_sm<__nv_bfloat16>(kp, floor != 0);
+  if (dtype == 2) return blocks_per_sm<__half>(kp, floor != 0);
+  return blocks_per_sm<float>(kp, floor != 0);
 }
 
 // Q (nq, d) float32, X (n, d) of element type `dtype` (0 float32, 1

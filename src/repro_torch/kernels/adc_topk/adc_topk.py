@@ -8,14 +8,19 @@ raise); for CPU tensors they run the plain versions beside them,
 from the same source and counts as one in `launches`:
 
   sq_adc_topk: a grid of (query groups of 32, or 16 where kp > 256) x
-      (row chunks of a multiple of 256 rows, about one block per SM); each
-      block streams its chunk's codes once through the tensor cores (int8
-      mma, int32 sums) and keeps a running top-kp per query; then one block
-      per query merges the chunks' partial lists;
+      (row chunks of a multiple of 256 rows); each block streams its
+      chunk's codes once through the tensor cores (int8 mma, int32 sums)
+      and keeps a running top-kp per query; then one block per query
+      merges the chunks' partial lists;
   pq_adc_topk: a grid of (query groups of QB = 8, 4, 2 or 1, the largest
       whose tables fit in shared memory) x (row chunks of a multiple of
       1024 rows); each block holds its queries' tables interleaved as
       [j][code][q] and sums 4 or 8 rows a lane; then the same merge.
+
+The chunks are the block plan of least makespan over the card's slots
+(`common.block_plan`), cached per shape and device; while a kernel
+profiler is active each launch adds the plan's work and slot tiles to
+its counters.
 
 A kp above MAX_KP runs in passes of at most MAX_KP (`common.floor_passes`:
 each pass offers only the keys after its query's last key of the pass
@@ -28,12 +33,13 @@ integer dtype to int32, K5's tables of any float dtype to float32.  For
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
-from ..common import (float_operand, floor_passes, int_operand, on_cpu,
-                      on_meta)
+from ..common import (block_plan, count_plan, float_operand, floor_passes,
+                      int_operand, on_cpu, on_meta)
 from .ref import INT_BIG
 from .ref import pq_adc_topk as plain_pq_adc_topk
 from .ref import sq_adc_topk as plain_sq_adc_topk
@@ -53,6 +59,9 @@ PQ_K = 256
 _TILE = {"sq": 256, "pq": 1024}
 _PQ_QUERIES_PER_BLOCK = (8, 4, 2, 1)     # the first whose tables fit
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
+# A chunk's fixed cost in tile-times, the block plan's c (measured on the
+# H100: csrc/adc_topk.cu's note).
+_CHUNK_COST = {"sq": 30.0, "pq": 11.0}
 
 _SQ_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 7 + [_build.PTR]
 _PQ_ARGTYPES = [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR]
@@ -72,11 +81,15 @@ def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
     return valid.contiguous().view(torch.uint8)
 
 
-def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev):
+@functools.lru_cache(maxsize=1024)
+def _layout(kind: str, width: int, nq: int, n: int, kp: int, dev,
+            floor: bool = False):
     """Check a pass's kp; take the queries a block (for K5 the largest
     that fits the card's shared memory, refusing an m where one query's
-    tables do not); cut the rows into G chunks of whole tiles, about one
-    block per SM.  Returns (queries a block, chunk_rows, G)."""
+    tables do not); plan the blocks over the card's slots, its SMs x the
+    blocks of the launched variant (`floor`: a later pass) one SM holds.
+    Cached per shape and device, so a batch adds no host work.  Returns
+    (queries a block, common.BlockPlan)."""
     if kp > MAX_KP:
         raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
                          f"{MAX_KP} a pass")
@@ -94,12 +107,22 @@ def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev):
         raise ValueError(f"the {kind}_adc_topk kernel needs {need} bytes of "
                          f"shared memory a block at {what}={width}, "
                          f"kp={kp}; the card has {limit}")
-    groups = -(-nq // qb)
-    tile = _TILE[kind]
-    tiles = -(-n // tile)
-    G = min(tiles, max(1, -(-props.multi_processor_count // groups)))
-    chunk_rows = -(-tiles // G) * tile
-    return qb, chunk_rows, -(-n // chunk_rows)
+    resident = _build.function("repro_adc_blocks_per_sm", [_build.INT] * 6)(
+        int(pq), qb, kp, width, int(floor), getattr(dev, "index", 0))
+    if resident < 1:
+        raise RuntimeError(f"adc_topk.{kind}_adc_topk: no block fits an SM "
+                           f"at kp={kp} ({resident})")
+    return qb, block_plan(-(-nq // qb), n, _TILE[kind],
+                          props.multi_processor_count * resident,
+                          _CHUNK_COST[kind])
+
+
+def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev,
+          floor: bool = False):
+    """`_layout`'s plan as the C entries take it: (queries a block,
+    chunk_rows, G)."""
+    qb, plan = _layout(kind, width, nq, n, kp, dev, floor)
+    return qb, plan.chunk_rows, plan.G
 
 
 def _outputs(nq: int, kp: int, dtype, dev):
@@ -111,6 +134,41 @@ def _outputs(nq: int, kp: int, dtype, dev):
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
+
+
+def _launch_sq(q8, c8, cn, okb, out_d, out_i, floor_in, floor_out, kp: int,
+               chunk_rows: int, G: int):
+    """One pass of K4 on the card with the block plan given: the rows in G
+    chunks of chunk_rows (whole tiles), one block per (query group,
+    chunk), then the per-query merge; counted in `launches`."""
+    nq, d = q8.shape
+    dev = q8.device
+    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
+    err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
+             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+             _ptr(floor_in), _ptr(floor_out), nq, c8.shape[0], d, kp,
+             chunk_rows, G, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adc_topk.sq_adc_topk")
+    launches["sq_adc_topk"] += 1
+
+
+def _launch_pq(lut, codes_t, okb, out_d, out_i, floor_in, floor_out,
+               kp: int, qb: int, chunk_rows: int, G: int):
+    """One pass of K5 on the card, qb queries a block, with the block plan
+    given (as `_launch_sq`)."""
+    nq, m, _ = lut.shape
+    dev = lut.device
+    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
+    err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
+             part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+             _ptr(floor_in), _ptr(floor_out), nq, codes_t.shape[1], m, kp,
+             qb, chunk_rows, G, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adc_topk.pq_adc_topk")
+    launches["pq_adc_topk"] += 1
 
 
 def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
@@ -149,16 +207,11 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
         return _outputs(nq, max(kp, 0), torch.int32, dev)
 
     def one_pass(kp, floor_in, floor_out):
-        _, chunk_rows, G = _plan("sq", d, nq, n, kp, dev)
+        _, plan = _layout("sq", d, nq, n, kp, dev, floor_in is not None)
         out_d, out_i = _outputs(nq, kp, torch.int32, dev)
-        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
-        fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
-        err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
-                 part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                 _ptr(floor_in), _ptr(floor_out), nq, n, d, kp, chunk_rows,
-                 G, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "adc_topk.sq_adc_topk")
-        launches["sq_adc_topk"] += 1
+        _launch_sq(q8, c8, cn, okb, out_d, out_i, floor_in, floor_out, kp,
+                   plan.chunk_rows, plan.G)
+        count_plan("adc_topk.sq_adc_topk", plan)
         return out_d, out_i
 
     return floor_passes(kp, MAX_KP, nq, one_pass, INT_BIG, dev)
@@ -199,17 +252,11 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
         return _outputs(nq, max(kp, 0), torch.float32, dev)
 
     def one_pass(kp, floor_in, floor_out):
-        qb, chunk_rows, G = _plan("pq", m, nq, n, kp, dev)
+        qb, plan = _layout("pq", m, nq, n, kp, dev, floor_in is not None)
         out_d, out_i = _outputs(nq, kp, torch.float32, dev)
-        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
-        fn = _build.function("repro_pq_adc_topk", _PQ_ARGTYPES)
-        err = fn(lut.data_ptr(), codes_t.data_ptr(), okb.data_ptr(),
-                 part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                 _ptr(floor_in), _ptr(floor_out), nq, n, m, kp, qb,
-                 chunk_rows, G, dev.index,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "adc_topk.pq_adc_topk")
-        launches["pq_adc_topk"] += 1
+        _launch_pq(lut, codes_t, okb, out_d, out_i, floor_in, floor_out, kp,
+                   qb, plan.chunk_rows, plan.G)
+        count_plan("adc_topk.pq_adc_topk", plan)
         return out_d, out_i
 
     return floor_passes(kp, MAX_KP, nq, one_pass, float("inf"), dev)

@@ -8,11 +8,16 @@ nothing else (no fallback from a failed launch to the plain version).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ..obs.profiler import active_profiler
 
 __all__ = ["next_bucket", "running_topk_scan", "top_positions", "pad_to",
            "padded_size", "on_cpu", "on_meta", "pass_sizes", "floor_passes",
-           "ROW_DTYPES", "row_operand", "float_operand", "int_operand"]
+           "ROW_DTYPES", "row_operand", "float_operand", "int_operand",
+           "BlockPlan", "block_plan", "count_plan"]
 
 # The element types the float kernels read in place, and the code their C
 # entries take for each (csrc: 0 float, 1 __nv_bfloat16, 2 __half).  The
@@ -179,3 +184,50 @@ def floor_passes(k: int, most: int, nq: int, one_pass, fill, device):
                                   device=device))
             break
     return torch.cat(dists, 1), torch.cat(ids, 1)
+
+
+class BlockPlan(NamedTuple):
+    """How a fused scan + top-k' call lays its query groups x row tiles
+    onto the card: the rows cut into G chunks of chunk_rows (whole tiles),
+    one block per (query group, chunk).  work_tiles (groups x tiles) and
+    slot_tiles (slots x waves x tiles a chunk) are the tiles scanned and
+    the block time the card holds for them: their ratio is its fill."""
+    chunk_rows: int
+    G: int
+    work_tiles: int
+    slot_tiles: int
+
+
+def block_plan(groups: int, n: int, tile: int, slots: int,
+               chunk_cost: float) -> BlockPlan:
+    """The plan of least makespan for `groups` query groups over n rows in
+    tiles of `tile` rows, `slots` blocks at once (the SMs x the blocks of
+    the launched variant resident on one).  G chunks take ceil(groups G /
+    slots) waves of ceil(tiles / G) + chunk_cost tile-times (chunk_cost: a
+    chunk's fixed cost -- its first tile, whose keys are all offered, the
+    ring's fill, one more list to merge -- in tile-times).  Ties go to the
+    smaller G, fewer lists to merge.  Only the least G of each chunk
+    length is tried: a larger one adds blocks and no tile a chunk."""
+    tiles = -(-n // tile)
+    best = None
+    G = 1
+    while True:
+        per = -(-tiles // G)
+        waves = -(-groups * G // slots)
+        cost = waves * (per + chunk_cost)
+        if best is None or cost < best[0]:
+            best = (cost, per, G, waves)
+        if per == 1:
+            break
+        G = (tiles - 1) // (per - 1) + 1
+    _, per, G, waves = best
+    return BlockPlan(per * tile, G, groups * tiles, slots * waves * per)
+
+
+def count_plan(kernel: str, plan: BlockPlan) -> None:
+    """Add a launch's work and slot tiles to the active kernel profiler's
+    counters under `kernel`; nothing while none is active."""
+    prof = active_profiler()
+    if prof is not None:
+        prof.count(kernel, work_tiles=plan.work_tiles,
+                   slot_tiles=plan.slot_tiles)

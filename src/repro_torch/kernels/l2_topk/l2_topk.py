@@ -10,6 +10,11 @@ loop of its wrapper `repro/kernels/l2_topk/ops.py :: knn`:
       and a per-query merge, counted as one in `launches`); a k above
       MAX_KP runs in passes of at most MAX_KP, each counted.
 
+knn's chunks of rows are the block plan of least makespan over the
+card's slots (`common.block_plan`), cached per shape and device; while a
+kernel profiler is active each pass adds the plan's work and slot tiles
+to its counters.
+
 For CUDA tensors the wrappers launch them (or raise); for CPU tensors
 they run the plain versions beside them, `plain_pairwise_sq_dists` and
 `plain_knn` (the chunked merge over plain tiles); for `meta` tensors
@@ -22,12 +27,13 @@ and Q is made float32: the reference's kernel casts both to float32, and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
-from ..common import (float_operand, floor_passes, on_cpu, on_meta,
-                      pass_sizes, row_operand)
+from ..common import (block_plan, count_plan, float_operand, floor_passes,
+                      on_cpu, on_meta, pass_sizes, row_operand)
 from .ref import pairwise_sq_dists as plain_pairwise_sq_dists
 from .ref import scan_knn as plain_knn
 
@@ -44,6 +50,9 @@ MAX_KP = 1024                   # the fused scan's largest top-k a pass
 _ROWS = 512
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 _SMS = 132                      # H100 SXM streaming multiprocessors
+# A chunk's fixed cost in tile-times, the block plan's c (measured on the
+# H100: csrc/l2_topk.cu's note).
+_CHUNK_COST = 10.0
 
 _TILE_ARGTYPES = [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR]
 _KNN_ARGTYPES = [_build.PTR] * 7 + [_build.INT] * 8 + [_build.PTR]
@@ -91,10 +100,13 @@ def pairwise_sq_dists(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _plan(nq: int, n: int, k: int, code: int, dev):
-    """Check a pass's k and the shared memory a block needs; cut the rows
-    into G chunks of a multiple of _ROWS rows, one block per SM and query
-    group (`code`: the rows' element type).  Returns (chunk_rows, G)."""
+@functools.lru_cache(maxsize=1024)
+def _plan(nq: int, n: int, k: int, code: int, dev, floor: bool = False):
+    """Check a pass's k and the shared memory a block needs; plan the
+    blocks over the card's slots, its SMs x the blocks of the launched
+    variant (`code`: the rows' element type; `floor`: a later pass) one
+    SM holds.  Cached per shape and device, so a batch adds no host work.
+    -> common.BlockPlan."""
     if k > MAX_KP:
         raise ValueError(f"k={k} exceeds the fused l2 scan's limit of "
                          f"{MAX_KP} a pass")
@@ -107,23 +119,26 @@ def _plan(nq: int, n: int, k: int, code: int, dev):
         raise ValueError(f"the fused l2 scan needs {need} bytes of shared "
                          f"memory a block at k={k}; the card has {limit}")
     qb = _build.function("repro_l2_knn_queries_per_block", [_build.INT])(k)
-    return _chunks(nq, n, qb, props.multi_processor_count)
+    resident = _build.function("repro_l2_knn_blocks_per_sm",
+                               [_build.INT] * 4)(
+        k, code, int(floor), getattr(dev, "index", 0))
+    if resident < 1:
+        raise RuntimeError(f"l2_topk.knn: no block fits an SM at k={k} "
+                           f"({resident})")
+    return _chunks(nq, n, qb, props.multi_processor_count * resident)
 
 
-def _chunks(nq: int, n: int, qb: int, sms: int):
-    """(chunk_rows, G): the rows cut into G chunks of a multiple of _ROWS
-    rows, about one block per SM over the ceil(nq / qb) query groups."""
-    groups = -(-nq // qb)
-    tiles = -(-n // _ROWS)
-    G = min(tiles, max(1, -(-sms // groups)))
-    chunk_rows = -(-tiles // G) * _ROWS
-    return chunk_rows, -(-n // chunk_rows)
+def _chunks(nq: int, n: int, qb: int, slots: int):
+    """The block plan over the ceil(nq / qb) query groups and the rows in
+    tiles of _ROWS, `slots` blocks at once (`common.block_plan`)."""
+    return block_plan(-(-nq // qb), n, _ROWS, slots, _CHUNK_COST)
 
 
 def _meta_knn(Q: torch.Tensor, X: torch.Tensor, k: int):
     """knn on `meta` tensors: each pass's outputs and its (nq, G, kp)
     partial-result buffer, as the card allocates them (queries a block
-    as csrc/l2_topk.cu's queries_per_block, the H100's SMs)."""
+    as csrc/l2_topk.cu's queries_per_block, the H100's SMs at one block
+    each, as the variants measured there run)."""
     nq, n = Q.shape[0], X.shape[0]
     k = min(int(k), n)
     if k <= 0 or nq == 0:
@@ -133,7 +148,7 @@ def _meta_knn(Q: torch.Tensor, X: torch.Tensor, k: int):
                             device="meta"))
     dists, ids = [], []
     for kp in pass_sizes(k, MAX_KP):
-        _, G = _chunks(nq, n, 32 if kp <= 256 else 8, _SMS)
+        G = _chunks(nq, n, 32 if kp <= 256 else 8, _SMS).G
         part = torch.empty((nq, G, kp), dtype=torch.int64, device="meta")
         dists.append(torch.empty((nq, kp), dtype=torch.float32,
                                  device="meta"))
@@ -142,6 +157,25 @@ def _meta_knn(Q: torch.Tensor, X: torch.Tensor, k: int):
     if len(dists) == 1:
         return dists[0], ids[0]
     return torch.cat(dists, 1), torch.cat(ids, 1)
+
+
+def _launch(Q, X, out_d, out_i, floor_in, floor_out, kp: int,
+            chunk_rows: int, G: int, code: int):
+    """One pass of the fused scan on the card with the block plan given:
+    the rows in G chunks of chunk_rows (whole tiles), one block per
+    (query group, chunk), then the per-query merge; counted in
+    `launches`."""
+    nq, d = Q.shape
+    dev = Q.device
+    part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
+    fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
+    err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(), out_d.data_ptr(),
+             out_i.data_ptr(),
+             None if floor_in is None else floor_in.data_ptr(),
+             None if floor_out is None else floor_out.data_ptr(), nq,
+             X.shape[0], d, kp, chunk_rows, G, code, dev.index, _stream(dev))
+    _build.check(err, "l2_topk.knn")
+    launches["knn"] += 1
 
 
 def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
@@ -173,16 +207,10 @@ def knn(Q: torch.Tensor, X: torch.Tensor, k: int, *, chunk: int = 4096):
     def one_pass(kp, floor_in, floor_out):
         out_d = torch.empty((nq, kp), dtype=torch.float32, device=dev)
         out_i = torch.empty((nq, kp), dtype=torch.int64, device=dev)
-        chunk_rows, G = _plan(nq, n, kp, code, dev)
-        part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
-        fn = _build.function("repro_l2_knn", _KNN_ARGTYPES)
-        err = fn(Q.data_ptr(), X.data_ptr(), part.data_ptr(),
-                 out_d.data_ptr(), out_i.data_ptr(),
-                 None if floor_in is None else floor_in.data_ptr(),
-                 None if floor_out is None else floor_out.data_ptr(), nq, n,
-                 d, kp, chunk_rows, G, code, dev.index, _stream(dev))
-        _build.check(err, "l2_topk.knn")
-        launches["knn"] += 1
+        plan = _plan(nq, n, kp, code, dev, floor_in is not None)
+        _launch(Q, X, out_d, out_i, floor_in, floor_out, kp, plan.chunk_rows,
+                plan.G, code)
+        count_plan("l2_topk.knn", plan)
         return out_d, out_i
 
     return floor_passes(k, MAX_KP, nq, one_pass, float("inf"), dev)

@@ -27,6 +27,10 @@ like, a stream or device synchronisation.  Its warnings are counted and
 swallowed.  PyTorch documents the check as not covering every
 synchronising call (`torch.distributed`, `torch.sparse`).
 
+A kernel wrapper may add numbers of its own to a counters table while a
+profiler is active (`count`; `summary().counters`): each fused scan +
+top-k' launch adds its block plan's work tiles and slot tiles.
+
 A call made while `torch.compiler.is_compiling()` is true is passed
 through unrecorded, as the JAX package skips calls whose arguments are
 tracers: timing a trace would be meaningless.
@@ -59,24 +63,27 @@ class Summary(dict):
     {calls, total_s, total_bytes}} (device seconds of a card call, host
     seconds of a CPU one), with the span table beside it as `.spans`,
     {span name: {calls, total_s[, syncs]}} (host seconds; `syncs` only
-    where they were counted)."""
+    where they were counted), and the counters table as `.counters`,
+    {kernel name: {counter: total}}."""
 
-    __slots__ = ("spans",)
+    __slots__ = ("spans", "counters")
 
-    def __init__(self, kernels, spans):
+    def __init__(self, kernels, spans, counters=None):
         super().__init__(kernels)
         self.spans = spans
+        self.counters = {} if counters is None else counters
 
 
 class KernelProfiler:
-    """Per-kernel call/time/bytes accumulator, and per-span calls, host
-    seconds and synchronising CUDA calls."""
+    """Per-kernel call/time/bytes accumulator, per-kernel counters, and
+    per-span calls, host seconds and synchronising CUDA calls."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._stats: dict[str, dict] = {}
         self._queue: list[tuple] = []     # (name, start, end, nbytes)
         self._spans: dict[str, dict] = {}
+        self._counters: dict[str, dict] = {}
         self.syncs: int | None = None     # counted while active on a card
 
     def record(self, name: str, seconds: float, nbytes: int):
@@ -106,17 +113,25 @@ class KernelProfiler:
             if syncs is not None:
                 s["syncs"] = s.get("syncs", 0) + syncs
 
+    def count(self, name: str, **values):
+        """Add `values` to kernel `name`'s counters."""
+        with self._lock:
+            c = self._counters.setdefault(name, {})
+            for k, v in values.items():
+                c[k] = c.get(k, 0) + v
+
     def summary(self) -> Summary:
-        """Snapshot of the kernel table, the span table as its `.spans`.
-        Waits for the last queued card call to finish, then reads the
-        queue."""
+        """Snapshot of the kernel table, the span and counters tables as
+        its `.spans` and `.counters`.  Waits for the last queued card call
+        to finish, then reads the queue."""
         with self._lock:
             for n, s, e, b in self._queue:
                 e.synchronize()     # one stream: only the first waits long
                 self._record(n, s.elapsed_time(e) / 1e3, b)
             self._queue.clear()
             return Summary({k: dict(v) for k, v in self._stats.items()},
-                           {k: dict(v) for k, v in self._spans.items()})
+                           {k: dict(v) for k, v in self._spans.items()},
+                           {k: dict(v) for k, v in self._counters.items()})
 
     def reset(self):
         """Forget every count, and the queued card calls unread."""
@@ -124,6 +139,7 @@ class KernelProfiler:
             self._stats.clear()
             self._queue.clear()
             self._spans.clear()
+            self._counters.clear()
             if self.syncs is not None:
                 self.syncs = 0
 

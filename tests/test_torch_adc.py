@@ -745,21 +745,95 @@ def test_adc_selection_refills_a_full_buffer_within_a_tile(kind, n, kp):
     assert segs[0].refused > 0 and segs[0].merges > n // (4 * TILE[kind])
 
 
-def test_plan_mirrors_the_kernels(monkeypatch):
-    """_plan's queries a block (K4: 32, or 16 past kp 256; K5: the largest
-    of 8, 4, 2, 1 whose tables fit), its refusal, and chunks of whole
-    tiles, about one block per SM."""
+SMS = 132                      # H100 SXM: the block plans' SMs
+
+
+def _old_plan(groups, n, tile, sms):
+    """The rule the fused scans had before the block plan: one block per
+    SM over ceil(SMs / groups) chunks.  -> (tiles a chunk, G)."""
+    tiles = -(-n // tile)
+    G = min(tiles, max(1, -(-sms // groups)))
+    per = -(-tiles // G)
+    return per, -(-tiles // per)
+
+
+def _makespan(groups, per, G, slots, c):
+    """A plan's waves x (tiles a chunk + c), in tile-times."""
+    return -(-groups * G // slots) * (per + c)
+
+
+def _sweep_plans(tile, qb_of, c, resident):
+    """Every plan of nq 1-4096 x kp {10, 80, 160, 800, 1024} x n {10^5,
+    2^18, 10^6, 2^24} (one a distinct query-group count), against the old
+    rule at the same slots: valid chunks, a makespan never longer, one
+    wave wherever the groups divide the slots, and the old plan itself
+    at nq <= 32."""
+    slots = SMS * resident
+    seen = set()
+    for kp in (10, 80, 160, 800, 1024):
+        qb = qb_of(kp)
+        for n in (10 ** 5, 2 ** 18, 10 ** 6, 2 ** 24):
+            for nq in range(1, 4097):
+                groups = -(-nq // qb)
+                if (groups, n, qb) in seen:
+                    continue
+                seen.add((groups, n, qb))
+                plan = common.block_plan(groups, n, tile, slots, c)
+                tiles = -(-n // tile)
+                per = plan.chunk_rows // tile
+                assert plan.chunk_rows % tile == 0
+                assert (plan.G - 1) * plan.chunk_rows < n <= \
+                    plan.G * plan.chunk_rows
+                old = _old_plan(groups, n, tile, SMS)
+                assert _makespan(groups, per, plan.G, slots, c) <= \
+                    _makespan(groups, *old, slots, c)
+                if slots % groups == 0:
+                    assert plan.G * groups <= slots, (nq, n, kp)
+                if nq <= 32 and resident == 1:
+                    assert (per, plan.G) == old, (nq, n, kp)
+                waves = -(-groups * plan.G // slots)
+                assert plan.work_tiles == groups * tiles
+                assert plan.slot_tiles == slots * waves * per
+
+
+def _mock_adc_entries(monkeypatch, resident=1):
+    """The C entries _plan calls, answered as csrc/adc_topk.cu would; the
+    occupancy entry answers `resident` and records its arguments."""
+    asked = []
+
     class Props:
         multi_processor_count = 132
         shared_memory_per_block_optin = SHARED_LIMIT
 
     def function(name, argtypes):
+        if name == "repro_adc_blocks_per_sm":
+            assert len(argtypes) == 6
+            return lambda *a: asked.append(a) or resident
         assert name == "repro_adc_smem_bytes" and len(argtypes) == 4
         return lambda pq, qb, kp, width: _smem("pq" if pq else "sq", qb, kp,
                                                width)
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: Props())
+    adc_topk._layout.cache_clear()
+    return asked
+
+
+@pytest.fixture
+def adc_entries(monkeypatch):
+    yield lambda resident=1: _mock_adc_entries(monkeypatch, resident)
+    adc_topk._layout.cache_clear()
+
+
+def test_plan_mirrors_the_kernels(adc_entries):
+    """_plan's queries a block (K4: 32, or 16 past kp 256; K5: the largest
+    of 8, 4, 2, 1 whose tables fit), its refusal, and chunks of whole
+    tiles: the block plan over 132 SMs at the one block an SM that the
+    occupancy entry answers, asked for the launched variant (K4 or K5,
+    queries a block, kp, width, later pass).  The int8 cell's shape (nq
+    1024, kp 160) takes one wave of 32 x 4 blocks, 977 tiles each, where
+    the old rule took 32 x 5 in two waves."""
+    asked = adc_entries()
     assert adc_topk._plan("sq", 128, 32, 10 ** 6, 160, None) == (32, 7680,
                                                                   131)
     assert adc_topk._plan("sq", 960, 33, 2 ** 18, 320, None)[0] == 16
@@ -777,6 +851,77 @@ def test_plan_mirrors_the_kernels(monkeypatch):
             qb, chunk, G = adc_topk._plan(kind, width, nq, n, kp, None)
             assert chunk % TILE[kind] == 0 and (G - 1) * chunk < n <= G * chunk
             assert G * -(-nq // qb) <= 132 or chunk == TILE[kind]
+    assert adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None) == (
+        32, 977 * 256, 4)
+    assert _old_plan(32, 10 ** 6, 256, 132) == (782, 5)
+    assert adc_topk._plan("pq", 16, 1024, 10 ** 6, 320, None)[0] == 8
+    adc_topk._layout.cache_clear()
+    del asked[:]
+    adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)
+    adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)
+    adc_topk._plan("sq", 128, 20, 5000, 600, None, True)
+    adc_topk._plan("pq", 16, 32, 10 ** 6, 320, None)
+    assert asked == [(0, 32, 160, 128, 0, 0), (0, 16, 600, 128, 1, 0),
+                     (1, 8, 320, 16, 0, 0)]
+    qb, plan = adc_topk._layout("sq", 128, 1024, 10 ** 6, 160, None)
+    assert (plan.work_tiles, plan.slot_tiles) == (32 * 3907, 132 * 977)
+
+
+def test_plan_counts_resident_blocks(adc_entries):
+    """Two blocks an SM give 264 slots: the int8 cell's shape then takes
+    one wave of 32 x 8 blocks; no block on an SM is refused."""
+    adc_entries(resident=2)
+    assert adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)[2] == 8
+    adc_entries(resident=0)
+    with pytest.raises(RuntimeError, match="no block fits"):
+        adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)
+
+
+@pytest.mark.parametrize("resident", [1, 2])
+def test_adc_block_plans_over_a_sweep_of_shapes(resident):
+    """K4's plans (tiles of 256, 32 queries a block or 16 past kp 256)
+    and K5's at 8 queries a block (tiles of 1024) over the sweep of
+    `_sweep_plans`: never a longer makespan than the old rule, one wave
+    where the groups divide the slots, the old plans at nq <= 32."""
+    _sweep_plans(TILE["sq"], adc_topk.sq_queries_per_block,
+                 adc_topk._CHUNK_COST["sq"], resident)
+    _sweep_plans(TILE["pq"], lambda kp: 8, adc_topk._CHUNK_COST["pq"],
+                 resident)
+
+
+def test_pq_plans_at_nq_32_where_groups_divide_the_slots(adc_entries):
+    """K5 at nq 32 keeps the old plan where its query groups divide the
+    132 SMs (8, 4 or 2 queries a block: 4, 8... groups -- m 16's 33
+    chunks), and takes no second wave the old rule took at 32 groups of
+    one query (m 200): 4 chunks of 32 blocks, not 5."""
+    adc_entries()
+    for m, groups in ((16, 4), (64, 16), (200, 32)):
+        qb, chunk, G = adc_topk._plan("pq", m, 32, 10 ** 6, 20, None)
+        assert 32 // qb == groups
+        per = chunk // TILE["pq"]
+        if 132 % groups == 0:
+            assert (per, G) == _old_plan(groups, 10 ** 6, TILE["pq"], 132)
+        assert G * groups <= 132
+    assert _old_plan(32, 10 ** 6, TILE["pq"], 132)[1] * 32 > 132
+
+
+@pytest.mark.parametrize("G", [1, 4, 5, 33])
+def test_sq_blocking_emulated_is_the_same_at_any_G(G):
+    """Chunks of whole 256-row tiles: K4's emulated scan + merge gives the
+    same ids and distances at G 1, 4, 5 and 33 (ties, masked rows),
+    equal to the oracle."""
+    nq, d, kp, tiles = 33, 16, 160, 66
+    n = tiles * TILE["sq"] - 50
+    q8, c8, cn = _sq_case(nq, n, d, seed=G, dup=500)
+    ok = np.random.default_rng(1).random(n) < 0.98
+    full = _sq_dists_by_slices(q8, c8, cn)
+    chunk_rows = -(-tiles // G) * TILE["sq"]
+    assert -(-n // chunk_rows) == G
+    got_d, got_i, _ = _emulate(_t(full), _t(ok), kp, 32, chunk_rows, "sq",
+                               INT_BIG)
+    want_d, want_i = _oracle(full, ok, kp, INT_BIG)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_d.numpy(), want_d)
 
 
 def test_key_order_is_the_stable_sort_order():

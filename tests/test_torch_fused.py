@@ -27,8 +27,8 @@ from repro_torch.kernels.dce_comp import ref as t_dce_ref
 from repro_torch.kernels.l2_topk import l2_topk
 from repro_torch.kernels.l2_topk import ops as t_l2_ops
 from repro_torch.serving import search_engine as se
-from test_torch_adc import (_keys, _merge_runs, _pow2, _Select, _state_len,
-                            _unkey)
+from test_torch_adc import (SMS, _keys, _makespan, _merge_runs, _old_plan,
+                            _pow2, _Select, _state_len, _sweep_plans, _unkey)
 
 L2_RTOL = 1e-5
 
@@ -191,6 +191,160 @@ def test_plain_knn_is_the_reference_chunked_scan(chunk):
     _, ri = l2_topk.plain_knn(_t(Q), _t(X), 30, chunk=chunk)
     np.testing.assert_array_equal(ri.numpy(), ti.numpy())
     assert not any(l2_topk.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# The block plan of the fused scans (common.block_plan): the rows cut into G
+# chunks of whole tiles over the card's slots, SMs x resident blocks.
+# ---------------------------------------------------------------------------
+
+def test_block_plan_is_the_least_makespan_of_every_G():
+    """The rule tries only the least G of each chunk length; over every G
+    from 1 to the tiles it finds the same least makespan, ties to the
+    smaller G."""
+    for groups in (1, 3, 32, 67, 128, 200):
+        for n in (1, 511, 5000, 100_000, 10 ** 6):
+            for slots, c in ((132, 0.0), (132, 2.0), (264, 8.0), (7, 1.5)):
+                tiles = -(-n // 512)
+                costs = [(_makespan(groups, -(-tiles // G), G, slots, c), G)
+                         for G in range(1, tiles + 1)]
+                cost, G = min(costs)
+                plan = common.block_plan(groups, n, 512, slots, c)
+                per = plan.chunk_rows // 512
+                assert per == -(-tiles // G) and plan.G == -(-tiles // per)
+                assert _makespan(groups, per, plan.G, slots, c) == cost
+
+
+@pytest.mark.parametrize("resident", [1, 2])
+def test_knn_block_plans_over_a_sweep_of_shapes(resident):
+    _sweep_plans(ROWS, lambda kp: 32 if kp <= 256 else 8,
+                 l2_topk._CHUNK_COST, resident)
+
+
+def test_block_plan_one_wave_is_not_always_least():
+    """Where the groups do not divide the slots, a second wave of more
+    chunks can beat the plan of one wave: 67 groups (nq 536 at k' 800)
+    over 1M rows take 1,954 tile-times in one wave of 67 blocks, and
+    2 x 652 in two waves of 201."""
+    plan = common.block_plan(67, 10 ** 6, ROWS, SMS, l2_topk._CHUNK_COST)
+    assert plan.G * 67 > SMS
+    assert _makespan(67, plan.chunk_rows // ROWS, plan.G, SMS,
+                     l2_topk._CHUNK_COST) < 1954 + l2_topk._CHUNK_COST
+
+
+def _mock_l2_entries(monkeypatch, resident=1):
+    """The C entries _plan calls, answered as csrc/l2_topk.cu would; the
+    occupancy entry answers `resident` and records its arguments."""
+    asked = []
+
+    class Props:
+        multi_processor_count = SMS
+        shared_memory_per_block_optin = l2_topk._SHARED_LIMIT
+
+    def function(name, argtypes):
+        if name == "repro_l2_knn_smem":
+            return lambda kp, code: 0
+        if name == "repro_l2_knn_queries_per_block":
+            return lambda kp: 32 if kp <= 256 else 8
+        assert name == "repro_l2_knn_blocks_per_sm" and len(argtypes) == 4
+        return lambda *a: asked.append(a) or resident
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props())
+    l2_topk._plan.cache_clear()
+    return asked
+
+
+def test_knn_plan_mirrors_the_kernel(monkeypatch):
+    """The cells' plans on 132 SMs at one block an SM: flat k10 (k' 80)
+    one wave of 32 x 4 blocks, 489 tiles each (the old rule: 32 x 5 in
+    two waves); flat k100 (k' 800, 8 queries a block) 128 x 1; nq 32 as
+    before, 131 chunks of 15 tiles; scan_16m (2^24 rows, k' 128) 8 whole
+    waves of 32 x 33 blocks, 993 tiles each (4 chunks: 8,192).
+    The occupancy entry is asked for the launched variant (k', element
+    code, later pass), once a shape: the plan is cached."""
+    asked = _mock_l2_entries(monkeypatch)
+    try:
+        assert l2_topk._plan(1024, 10 ** 6, 80, 0, None)[:2] == (489 * 512,
+                                                                 4)
+        assert _old_plan(32, 10 ** 6, ROWS, SMS) == (391, 5)
+        assert l2_topk._plan(1024, 10 ** 6, 800, 0, None)[:2] == (
+            1954 * 512, 1)
+        assert _old_plan(128, 10 ** 6, ROWS, SMS) == (977, 2)
+        assert l2_topk._plan(32, 10 ** 6, 80, 0, None)[:2] == (7680, 131)
+        assert l2_topk._plan(1024, 2 ** 24, 128, 1, None)[:2] == (
+            993 * 512, 33)
+        l2_topk._plan(1024, 10 ** 6, 80, 0, None)
+        l2_topk._plan(9, 5000, 800, 2, None, True)
+        assert asked == [(80, 0, 0, 0), (800, 0, 0, 0), (80, 0, 0, 0),
+                         (128, 1, 0, 0), (800, 2, 1, 0)]
+        plan = l2_topk._plan(1024, 10 ** 6, 80, 0, None)
+        assert plan.work_tiles == 32 * 1954
+        assert plan.slot_tiles == 132 * 489
+        with pytest.raises(ValueError, match="limit"):
+            l2_topk._plan(1, 10, l2_topk.MAX_KP + 1, 0, None)
+    finally:
+        l2_topk._plan.cache_clear()
+
+
+def test_knn_plan_counts_resident_blocks(monkeypatch):
+    """Two blocks an SM give 264 slots: the flat k10 shape then takes
+    one wave of 32 x 8 blocks; no block on an SM is refused."""
+    _mock_l2_entries(monkeypatch, resident=2)
+    try:
+        assert l2_topk._plan(1024, 10 ** 6, 80, 0, None).G == 8
+        _mock_l2_entries(monkeypatch, resident=0)
+        with pytest.raises(RuntimeError, match="no block fits"):
+            l2_topk._plan(1024, 10 ** 6, 80, 0, None)
+    finally:
+        l2_topk._plan.cache_clear()
+
+
+def test_meta_knn_partials_follow_the_plan(monkeypatch):
+    """knn on meta tensors allocates each pass's (nq, G, k') partial
+    buffer with the plan's G at 132 SMs, one block each."""
+    shapes = []
+    empty = torch.empty
+
+    def recording(*size, **kw):
+        t = empty(*size, **kw)
+        if t.dim() == 3:
+            shapes.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(torch, "empty", recording)
+    for nq, n, k in ((1024, 10 ** 6, 80), (1024, 10 ** 6, 800),
+                     (32, 10 ** 6, 80), (1024, 2 ** 24, 128),
+                     (64, 10 ** 6, 1600)):
+        shapes.clear()
+        l2_topk.knn(torch.empty((nq, 128), device="meta"),
+                    torch.empty((n, 128), device="meta"), k)
+        want = [(nq, common.block_plan(-(-nq // (32 if kp <= 256 else 8)), n,
+                                       ROWS, SMS, l2_topk._CHUNK_COST).G,
+                 kp) for kp in common.pass_sizes(k, l2_topk.MAX_KP)]
+        assert shapes == want
+    assert shapes == [(64, 16, 800)] * 2       # 8 groups x 16: one wave
+    assert not any(l2_topk.launches.values())
+
+
+@pytest.mark.parametrize("G", [1, 4, 5, 33])
+def test_knn_blocking_emulated_is_the_same_at_any_G(G):
+    """Chunks of whole tiles: every row's distance comes out of the same
+    tile, and keys are distinct, so the emulated scan + merge gives the
+    same ids and distances at G 1, 4, 5 and 33 (ties included), equal to
+    the plain chunked merge."""
+    nq, d, k = 3, 16, 80
+    tiles = 66
+    n = tiles * ROWS - 100
+    rng = np.random.default_rng(7)
+    X = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    X[n - 600:] = X[:600]
+    Q = rng.integers(-3, 4, size=(nq, d)).astype(np.float32)
+    full = l2_topk.plain_pairwise_sq_dists(_t(Q), _t(X))
+    chunk_rows = -(-tiles // G) * ROWS
+    assert -(-n // chunk_rows) == G
+    got_d, got_i = _emulate_knn(full, k, chunk_rows)
+    want_d, want_i = l2_topk.plain_knn(_t(Q), _t(X), k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
 
 
 # ---------------------------------------------------------------------------

@@ -666,6 +666,68 @@ def test_knn_kernel_matches_plain_on_the_card(nq, n, d, k, dup):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _old_chunks(nq, n, qb, tile):
+    """The plan the fused scans took before the block plan: one block an
+    SM over ceil(SMs / groups) chunks.  -> (chunk_rows, G)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-n // tile)
+    per = -(-tiles // min(tiles, max(1, -(-sms // -(-nq // qb)))))
+    return per * tile, -(-tiles // per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kp", [("knn", 80), ("knn", 800),
+                                     ("sq", 160)])
+def test_block_plan_outputs_equal_the_old_plans_on_the_card(kind, kp):
+    """At a batch of 1024 over 2^18 rows (d 128), K1 at k' 80 and 800 and
+    K4 at kp 160 give bit-equal ids and distances through the old plan's
+    (chunk_rows, G) and through the block plan's (the wrapper, which
+    counts one launch a call); the plan's counters are added only while a
+    kernel profiler is active."""
+    _needs_card()
+    nq, n, d = 1024, 2 ** 18, 128
+    g = torch.Generator(device="cuda").manual_seed(kp)
+    if kind == "knn":
+        Q = 1024.0 * torch.randn((nq, d), generator=g, device="cuda")
+        X = 1024.0 * torch.randn((n, d), generator=g, device="cuda")
+        X[n - 2000:] = X[:2000]
+        qb = 32 if kp <= 256 else 8
+        out = (torch.empty((nq, kp), device="cuda"),
+               torch.empty((nq, kp), dtype=torch.int64, device="cuda"))
+        l2_topk._launch(Q, X, *out, None, None, kp,
+                        *_old_chunks(nq, n, qb, l2_topk._ROWS), 0)
+        before = l2_topk.launches["knn"]
+        got = l2_topk.knn(Q, X, kp)
+        assert l2_topk.launches["knn"] == before + 1
+        plan = l2_topk._plan(nq, n, kp, 0, Q.device)
+        with profile_kernels() as prof:
+            l2_topk.knn(Q, X, kp)
+        name = "l2_topk.knn"
+    else:
+        q8, c8, cn, ok = _sq_inputs("cuda", nq, n, d, seed=kp, valid=0.99,
+                                    dup=2000)
+        okb = ok.contiguous().view(torch.uint8)
+        out = (torch.empty((nq, kp), dtype=torch.int32, device="cuda"),
+               torch.empty((nq, kp), dtype=torch.int64, device="cuda"))
+        adc_topk._launch_sq(q8, c8, cn, okb, *out, None, None, kp,
+                            *_old_chunks(nq, n, 32, adc_topk._TILE["sq"]))
+        before = adc_topk.launches["sq_adc_topk"]
+        got = adc_topk.sq_adc_topk(q8, c8, cn, ok, kp)
+        assert adc_topk.launches["sq_adc_topk"] == before + 1
+        plan = adc_topk._layout("sq", d, nq, n, kp, q8.device)[1]
+        with profile_kernels() as prof:
+            adc_topk.sq_adc_topk(q8, c8, cn, ok, kp)
+        name = "adc_topk.sq_adc_topk"
+    for a, b in zip(got, out):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert prof.summary().counters == {name: {
+        "work_tiles": plan.work_tiles, "slot_tiles": plan.slot_tiles}}
+    assert plan.work_tiles <= plan.slot_tiles
+    with profile_kernels() as prof:
+        pass
+    assert prof.summary().counters == {}
+
+
 def _refine_inputs(device, B, n, d, seed, dup=0, invalid=0.0):
     """Real DCE ciphertexts of B * n rows read through a shuffled cand;
     `dup` slots of each set repeat another slot's id (tied wins); an

@@ -401,6 +401,29 @@ def test_profiler_counts_calls_by_kernel(ds):
     assert dce_ops.batched_top_k_by_wins.__wrapped__ is not None
 
 
+def test_profiler_counters_table():
+    """count() adds to a kernel's counters while the profiler is active;
+    summary().counters holds them beside the kernel and span tables (a
+    Summary made without them has an empty table), reset() clears them,
+    and the plain versions on CPU tensors plan no blocks, so add none."""
+    prof = obs_profiler.KernelProfiler()
+    prof.count("k", work_tiles=3, slot_tiles=4)
+    prof.count("k", work_tiles=5, slot_tiles=6)
+    prof.count("j", work_tiles=1)
+    s = prof.summary()
+    assert s.counters == {"k": {"work_tiles": 8, "slot_tiles": 10},
+                          "j": {"work_tiles": 1}}
+    assert dict(s) == {} and s.spans == {}
+    prof.reset()
+    assert prof.summary().counters == {}
+    assert obs_profiler.Summary({}, {}).counters == {}
+    Q, X = torch.randn(4, 8), torch.randn(600, 8)
+    with profile_kernels() as prof:
+        l2_ops.knn(Q, X, 5)
+    assert prof.summary().counters == {}
+    assert prof.summary()["l2_topk.knn"]["calls"] == 1
+
+
 # ------------------------------------------- the engine's spans as sinks
 
 
