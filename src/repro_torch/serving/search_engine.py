@@ -530,17 +530,25 @@ class SecureSearchEngine:
         self._dirty = True
 
     def _ensure_attached(self):
-        if self._dirty:
+        if not self._dirty:
+            return
+        with child_span("engine.attach"):
             self._C_dce_dev = None            # free the old copy first
             # a backend may manage the refine array's device residency
             # itself (the runtime's mutable store ships only appended
             # rows, DESIGN.md §8); default is a full upload
             provider = getattr(self.backend, "dce_device", None)
-            self._C_dce_dev = (
-                torch.as_tensor(np.asarray(self._C_dce, np.float32)).to(
-                    self.device).contiguous() if provider is None
-                else provider(self._C_dce))
-            self.backend.attach(self._C_sap, self)
+            with child_span("engine.upload") as up:
+                if provider is None:
+                    C_dce = np.asarray(self._C_dce, np.float32)
+                    up.set(bytes=int(C_dce.nbytes))
+                    self._C_dce_dev = torch.as_tensor(C_dce).to(
+                        self.device).contiguous()
+                else:
+                    self._C_dce_dev = provider(self._C_dce)
+            with child_span("filter.attach", backend=self.backend.name,
+                            bytes=int(np.asarray(self._C_sap).nbytes)):
+                self.backend.attach(self._C_sap, self)
             self._dirty = False
 
     # ------------------------------------------------------------- search

@@ -44,10 +44,14 @@ def ds():
                               k_gt=K, seed=0)
 
 
-# The engine's span tree of one batched call (DESIGN.md §13).
+# The engine's span tree of one batched call (DESIGN.md §13), and of
+# the first call after the ciphertexts changed, which attaches them.
 ENGINE_TREE = ("engine.search_batch", [
     ("filter", [("filter.query_prep", [])]),
     ("refine", [("engine.wait", [])] * 3)])
+ATTACH_TREE = ("engine.attach", [("engine.upload", []),
+                                 ("filter.attach", [])])
+FIRST_ENGINE_TREE = (ENGINE_TREE[0], [ATTACH_TREE, *ENGINE_TREE[1]])
 
 
 def _shape(node):
@@ -182,7 +186,7 @@ def test_flush_two_request_interleaving_exact_tree(ds):
     assert ins["attrs"]["compacted"] is False
 
     (flush,) = rec.tree("t/c:b0")
-    assert _shape(flush) == ("flush", [ENGINE_TREE])
+    assert _shape(flush) == ("flush", [FIRST_ENGINE_TREE])
     assert flush["attrs"]["n_real"] == 2
     assert flush["attrs"]["bucket"] == 2
     assert flush["attrs"]["backend"] == "flat"
@@ -191,7 +195,7 @@ def test_flush_two_request_interleaving_exact_tree(ds):
     assert flush["attrs"]["filter_bytes_scanned"] > 0
     (eng,) = flush["children"]
     assert _intervals(eng) == {(0.001, 0.001)}
-    filt, ref = eng["children"]
+    _, filt, ref = eng["children"]
     assert "device_s" not in filt["attrs"] and "device_s" not in ref["attrs"]
     assert filt["attrs"]["nq"] == 2
     assert filt["attrs"]["dist_evals"] == \
@@ -239,7 +243,8 @@ def test_continuous_scheduler_exact_tree(ds):
         slot = req["children"][1]
         assert slot["attrs"]["batch"] == f"t/s:s{i}"
         (step,) = rec.tree(f"t/s:s{i}")
-        assert _shape(step) == ("step", [ENGINE_TREE])
+        assert _shape(step) == ("step", [FIRST_ENGINE_TREE if i == 0
+                                         else ENGINE_TREE])
         assert _intervals(step) == {(step["t_start"], step["t_end"])}
         assert step["attrs"]["n_active"] == 1
         assert step["attrs"]["capacity"] == 2

@@ -136,14 +136,18 @@ def test_update_database_reattaches(setup):
 def test_filter_and_refine_spans_under_an_ambient_span(setup):
     ds, _, teng, Q, T = setup
     rec = TraceRecorder()
+    teng.update_database(teng._C_sap, teng._C_dce)   # attach in the call
     with rec.span("flush", trace_id="b1"):
         teng.search_batch(Q[:2], T[:2], K, ratio_k=6)
     (root,) = rec.tree("b1")
     (eng,) = root["children"]
     assert eng["name"] == "engine.search_batch"
     names = [c["name"] for c in eng["children"]]
-    assert names == ["filter", "refine"]
-    f, r = eng["children"]
+    assert names == ["engine.attach", "filter", "refine"]
+    a, f, r = eng["children"]
+    assert [c["name"] for c in a["children"]] == ["engine.upload",
+                                                  "filter.attach"]
+    assert a["children"][0]["attrs"]["bytes"] == teng._C_dce.nbytes
     assert f["attrs"]["backend"] == "flat" and f["attrs"]["kp"] == 60
     assert f["attrs"]["dist_evals"] == 2 * ds.n
     assert r["attrs"]["comparisons"] == 2 * 60 * 59
