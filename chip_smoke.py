@@ -1204,8 +1204,10 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
                  home: str | None = None) -> dict:
     """K4 against its plain version: random int8 codes (the last 1% of
     rows repeat the first, so exact ties between distinct ids occur),
-    their norms, ~1% of rows masked (or exactly n_valid valid)."""
+    their norms, ~1% of rows masked (or exactly n_valid valid).  The
+    record names the route and plan the wrapper took (first pass)."""
     import torch
+    from repro_torch.kernels import common
     from repro_torch.kernels.adc_topk import adc_topk
     dev = torch.device("cuda")
     q8 = torch.randint(-127, 128, (nq, d), generator=gen, device=dev,
@@ -1222,6 +1224,9 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
     want = adc_topk.plain_sq_adc_topk(*args)
     err = adc_outputs_equal(got, want, f"sq_adc_topk at nq={nq} n={n} d={d}")
     kpp = min(kp, n)
+    _, plan, route = adc_topk._sq_layout(
+        d, nq, n, common.pass_sizes(kpp, adc_topk.MAX_KP)[0], dev,
+        False, c8.data_ptr() % 16 == 0)
     nbytes = nq * d + n * d + 4.0 * n + n + 12.0 * nq * kpp
     b_ms, b_by = bound(2.0 * nq * n * d, nbytes, PEAK_INT8_OPS)
     rec = {
@@ -1236,6 +1241,7 @@ def check_sq_adc(nq: int, n: int, d: int, kp: int, gen,
         "plain_ms": device_ms(lambda: adc_topk.plain_sq_adc_topk(*args),
                               reps=10, warmup=2),
         "bound_ms": b_ms, "bound_by": b_by,
+        "k4_route": route._asdict(), "k4_plan": [plan.chunk_rows, plan.G],
         **({"home": home} if home else {}),
     }
     none = torch.zeros_like(ok)
@@ -5231,6 +5237,8 @@ def main() -> int:
                    check_sq_adc(32, 1_000_000, 128, 160, gen),
                    check_sq_adc(32, 2 ** 18, 960, 160, gen),
                    check_sq_adc(32, 100, 128, 30, gen, n_valid=12),
+                   # the int8 cell's shape
+                   check_sq_adc(1024, 1_000_000, 128, 160, gen),
                    check_pq_adc(32, 16, 1_000_000, 320, gen),
                    check_pq_adc(32, 8, 2 ** 18, 320, gen),
                    check_knn(32, 1_000_000, 128, 1600, gen,

@@ -14,7 +14,9 @@ over the plans, whose c is the chunk's fixed cost that
 plan the rule picks at the fitted c and at the wrapper's c, the fastest
 plan timed and the plan of the rule the port had before, one block per
 SM over ceil(SMs / groups) chunks ("old").  Every plan's ids and
-distances must equal the first plan's, bit for bit.
+distances must equal the first plan's, bit for bit.  K4 runs the route
+its wrapper takes at the shape (`adc_topk._sq_layout`), with that route's
+residency and chunk cost.
 
     python3 scripts/scan_plans.py                # every shape
     python3 scripts/scan_plans.py --only k1_b1024_k80 --reps 5
@@ -60,8 +62,7 @@ SWEEP = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 28, 33, 37, 41, 49, 66,
          99, 132, 264)
 TILE = {"k1": l2_topk._ROWS, "k4": adc_topk._TILE["sq"],
         "k5": adc_topk._TILE["pq"]}
-COST = {"k1": l2_topk._CHUNK_COST, "k4": adc_topk._CHUNK_COST["sq"],
-        "k5": adc_topk._CHUNK_COST["pq"]}
+COST = {"k1": l2_topk._CHUNK_COST, "k5": adc_topk._CHUNK_COST["pq"]}
 
 
 def device_ms(fn, reps: int) -> float:
@@ -123,12 +124,13 @@ def caller(kernel: str, args, nq: int, width: int, kp: int, qb: int):
     return call
 
 
-def residency(kernel: str, kp: int, width: int, qb: int) -> int:
+def residency(kernel: str, kp: int, width: int, qb: int, route) -> int:
     if kernel == "k1":
         return _build.function("repro_l2_knn_blocks_per_sm",
                                [_build.INT] * 4)(kp, 0, 0, 0)
-    return _build.function("repro_adc_blocks_per_sm", [_build.INT] * 6)(
-        int(kernel == "k5"), qb, kp, width, 0, 0)
+    return _build.function("repro_adc_blocks_per_sm", [_build.INT] * 8)(
+        int(kernel == "k5"), qb, kp, width, 0, int(route.qreg),
+        route.stages, 0)
 
 
 # Shapes that run one kernel variant, fitted together as well: one c and
@@ -158,7 +160,11 @@ def run_shape(name, kernel, nq, n, width, kp, reps, out):
     else:
         qb = adc_topk._layout("pq", width, nq, n, kp, args[0].device)[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res = residency(kernel, kp, width, qb)
+    route, cost = adc_topk.SqRoute(False, False, 0), COST.get(kernel)
+    if kernel == "k4":
+        route = adc_topk._sq_layout(width, nq, n, kp, args[0].device)[2]
+        cost = adc_topk._CHUNK_COST["sq_tma" if route.tma else "sq"]
+    res = residency(kernel, kp, width, qb, route)
     slots = sms * res
     groups = -(-nq // qb)
     tile = TILE[kernel]
@@ -171,8 +177,7 @@ def run_shape(name, kernel, nq, n, width, kp, reps, out):
 
     old_G = min(tiles, max(1, -(-sms // groups)))
     named = {"old": canon(old_G),
-             "rule": canon(block_plan(groups, n, tile, slots,
-                                      COST[kernel]).G)}
+             "rule": canon(block_plan(groups, n, tile, slots, cost).G)}
     plans = {canon(G) for G in (SWEEP if nq > 32 else ())}
     plans |= set(named.values())
     rows, first = [], None
@@ -198,6 +203,7 @@ def run_shape(name, kernel, nq, n, width, kp, reps, out):
     line = {"fit": name, "kernel": kernel, "nq": nq, "n": n, "width": width,
             "kp": kp, "queries_a_block": qb, "groups": groups,
             "tiles": tiles, "blocks_per_sm": res, "slots": slots,
+            "route": route._asdict() if kernel == "k4" else None,
             "wrapper_ms": device_ms(lambda: wrapper(*args, kp), reps),
             "wrapper_equal": True}
     fastest = min(rows, key=lambda r: r["ms"])

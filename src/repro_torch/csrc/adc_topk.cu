@@ -33,17 +33,19 @@
 // The chunks are the wrapper's block plan (`common.block_plan`): over
 // slots = SMs x the blocks of the launched variant that one SM holds
 // (repro_adc_blocks_per_sm: 1 on the H100 for K4 at kp 160 and K5 at m
-// 16, kp 320, where shared memory takes one), G chunks cost ceil(groups
-// G / slots) waves of ceil(tiles / G) + c tile-times, the least cost
-// wins, ties to the smaller G.  c, a chunk's fixed cost (its first
-// tiles, whose keys are nearly all
-// offered, the ring's fill, one more list to merge), measured on the H100
-// at nq 1024, n 1M: K4 (kp 160, 256-row tiles) 30 tile-times, the
-// least-squares fit of 21 plans (3.18 us a tile); K5 (m 16, kp 320,
-// 1024-row tiles) 11, the time each further wave adds at 128 query groups
-// (0.075 ms) over the tile time of one chunk a group (6.9 us);
-// scripts/scan_plans.py times the plans and fits c.  K4 at nq 1024
-// takes one wave of 32 x 4 blocks (3.72 ms; 32 x 5 in two waves 5.96).
+// 16, kp 320, where shared memory takes one; K4's TMA route likewise),
+// G chunks cost ceil(groups G / slots) waves of
+// ceil(tiles / G) + c tile-times, the least cost wins, ties to the
+// smaller G.  c, a chunk's fixed cost (its first tiles, whose keys are
+// nearly all offered, the ring's fill, one more list to merge), measured
+// on the H100 at nq 1024, n 1M: K4 (kp 160, 256-row tiles, TMA route) 74
+// tile-times, the least-squares fit of 20 plans (1.39 us a tile; 30 at
+// 3.18 us on the staging route); K5 (m 16, kp 320, 1024-row tiles) 11,
+// the time each further wave adds at 128 query groups (0.075 ms) over the
+// tile time of one chunk a group (6.9 us); scripts/scan_plans.py times
+// the plans and fits c.  K4 at nq 1024 takes one wave of 32 x 4 blocks
+// (2.34 ms on the TMA route; 3.72 on the staging route, 5.96 there in
+// two waves of 32 x 5).
 //
 // What bounds them on the H100, and what the design does about it:
 //   K4 at the main-path shape (32 queries, 1M rows, d = 128, kp = 160):
@@ -98,9 +100,49 @@
 // the last key of the pass before (left by the pass's merge), so the
 // passes' lists joined are the first kp keys, bit for bit; one comparison
 // an offer, in kernel variants of their own.
+//
+// K4's TMA route (sq_tma_scan_kernel), taken wherever the rows span more
+// than one tile, the codes allow a tensor map (d % 16 == 0, 16-byte
+// aligned codes) and its ring fits beside the selection; the byte-staging
+// kernel above (sq_scan_kernel) keeps the other shapes.  At the int8
+// cell's shape (1024 queries, 1M rows, d 128, kp 160) the staging kernel
+// ran its tensor cores under 5% of the time: a tile took 12 ldmatrix a
+// warp (8 of them reloading the same queries), three block barriers and a
+// copy of the queries with every slice, and each code byte left L2 32
+// times, once a query group.  So:
+//   * the block's query A fragments are loaded once, at its start, into
+//     registers where MT x slices x 16 registers <= 32 (d <= 128 at 32
+//     queries, d <= 256 at 16), else into shared memory, swizzled as the
+//     ring; the ring carries code rows only;
+//   * code tiles arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle:
+//     conflict-free ldmatrix) in 128-byte depth slices of 256 rows into a
+//     ring of 2-4 stages, each guarded by a full mbarrier (the copy's
+//     bytes) and an empty one (every warp, once it has read the stage).
+//     Lane 0 of warp 0 issues the copies: the selection's block barriers
+//     (topk_select.cuh) count every thread, so no warp may run a loop of
+//     its own.  The selection's barrier is the only block-wide one a tile;
+//   * the epilogue tests a lane's least distance of each query against
+//     the query's threshold distance (held in a register, refreshed after
+//     each merge); only a warp with a row below it finds its keys, and it
+//     puts each group of queries that has one.  A distance equal to the
+//     threshold's needs no key: until the tile's first merge the state
+//     holds earlier (lower) rows only, so such a key is never below its
+//     threshold; after a merge it gets the 64-bit test.  The keys offered
+//     are the staging kernel's.
+// On the H100 at that shape the scan with every row masked fell from 2.85
+// to 1.26 ms and the call from 3.80 to 2.34 ms.  Each code byte still
+// leaves L2 once a query group (4.1 GB a call), which does not bound the
+// scan: clusters of 2 blocks that shared each tile by TMA multicast, half
+// the L2 reads, ran 1.4-3.4% slower, clusters of 4 2x slower, each block
+// held to its partners' pace.  What holds it now: the instructions around
+// the mma.sync products (a tile's 256 mma are a quarter of its issue
+// slots) and the offers, whose puts and the block barrier after them take
+// as long as the scan.
+#include <cuda.h>               // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 #include "topk_select.cuh"
 
@@ -130,6 +172,17 @@ constexpr int SQ_KS = 64;
 constexpr int SQ_STRIDE = SQ_KS + 16;
 constexpr int SQ_DEEP = 4;              // ring stages while kp <= 512
 constexpr int SQ_SHALLOW = 3;           // where kp > 512 needs the room
+
+// K4's TMA route: depth bytes a stage (one 128-byte swizzle row), a
+// stage's bytes (a tile's rows), the swizzle's alignment, query A
+// fragments a lane holds in registers at most.
+constexpr int SQ_SLICE = 128;
+constexpr int SQ_STAGE = SQ_ROWS * SQ_SLICE;
+constexpr int SQ_ALIGN = 1024;
+constexpr int SQ_QREGS = 32;
+// A masked row's norm on the TMA route: |2 q . c| < 2^27 at d <= 2048, so
+// its distance stays above every cap and below 2^31.
+constexpr int SQ_MASKED_NORM = INT_BIG + (1 << 27);
 
 // K5: centroids a subspace, rows of a tile (4 or 8 consecutive a lane).
 constexpr int PQ_K = 256;
@@ -163,6 +216,30 @@ __host__ __device__ inline int sq_stages(int kp) {
 size_t sq_smem(int qb, int kp) {
   return SqSelect::bytes(qb, scan_seg_len(kp)) +
          sq_stages(kp) * sq_stage_bytes(qb);
+}
+
+__host__ __device__ inline int sq_slices(int d) {
+  return (d + SQ_SLICE - 1) / SQ_SLICE;
+}
+
+// The TMA route's query A fragments in registers: 16 a lane per 16
+// queries and 128-byte slice.
+__host__ __device__ inline bool sq_queries_in_registers(int qb, int d) {
+  return (qb / 16) * sq_slices(d) * 16 <= SQ_QREGS;
+}
+
+// The TMA route's shared memory after the selection's keys: the slack that
+// aligns the ring to the swizzle's 1024 bytes, the ring, the queries (where
+// they are not in registers), a full and an empty barrier a stage.
+__host__ __device__ inline size_t sq_tma_tail(int qb, int d, int qreg,
+                                              int stages) {
+  return SQ_ALIGN + (size_t)stages * SQ_STAGE +
+         (qreg ? 0 : (size_t)qb * sq_slices(d) * SQ_SLICE) + 16 * stages;
+}
+
+size_t sq_tma_smem(int qb, int kp, int d, int qreg, int stages) {
+  return SqSelect::bytes(qb, scan_seg_len(kp)) +
+         sq_tma_tail(qb, d, qreg, stages);
 }
 
 size_t pq_smem(int qb, int kp, int m) {
@@ -200,6 +277,17 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b, as mma_s8 from zero sums.
+__device__ __forceinline__ void mma_s8_first(int (&c)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
 }
 
 // Bytes k .. k+3 of a row of d int8 codes (little-endian), zero past d.
@@ -409,6 +497,393 @@ sq_scan_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ c8,
     }
   }
   cp_async_wait<0>();
+  sel.template merge_buffers<BUF_E>(tid, true);
+  for (int i = tid; i < QB * kp; i += SQ_THREADS) {
+    const int q = i / kp, j = i - q * kp;
+    if (q0 + q < nq)
+      part[((size_t)(q0 + q) * G + blockIdx.y) * kp + j] =
+          sel.keys[(size_t)q * S + j];
+  }
+}
+
+// --- K4's TMA route -------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The box of `map` at (byte c0, row c1) into shared address dst, its bytes
+// counted on the barrier at `bar`.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         int c0, int c1, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(bar)
+      : "memory");
+}
+
+// Byte `byte` (a multiple of 16) of row `row` of a region of 128-byte rows
+// laid out by the 128-byte swizzle: 16-byte chunk c of row r at chunk
+// c ^ (r % 8).  The 8 rows of an ldmatrix phase meet 8 distinct chunks.
+__device__ __forceinline__ int swz(int row, int byte) {
+  return row * SQ_SLICE + ((((byte >> 4) ^ row) & 7) << 4);
+}
+
+// Stage 1 of K4 on the TMA route: grid (query groups, row chunks).  QB =
+// 16 MT queries; their A fragments
+// in registers over NKR slices (1 or 2), or in shared memory (NKR = 0).
+// Warp w, lane l (g = l / 4, t = l % 4) as sq_scan_kernel: queries 16 mt
+// + 8 h + g and rows 16 w + 8 nt + 2 t + u of every tile, in
+// acc[mt][nt][2 h + u].  Slice s of the walk (tile s / nk, depth bytes
+// 128 (s % nk) ..) goes to stage s % stages.
+// FLOOR: a later pass, which offers only the keys after floor[q].
+template <int MT, int NKR, bool FLOOR>
+__global__ void __launch_bounds__(SQ_THREADS, 1)
+sq_tma_scan_kernel(const __grid_constant__ CUtensorMap codes,
+                   const int8_t* __restrict__ q8, const int* __restrict__ cn,
+                   const unsigned char* __restrict__ ok,
+                   u64* __restrict__ part, const u64* __restrict__ floor,
+                   int nq, int n, int d, int kp, int chunk_rows, int G,
+                   int stages) {
+  constexpr int QB = 16 * MT;
+  constexpr int RPW = SQ_ROWS / SQ_WARPS;      // rows a warp: 16
+  constexpr int NT = RPW / 8;                  // row tiles of 8 a warp
+  constexpr int KR = NKR > 0 ? NKR : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * QB;
+  const int SC = scan_state_len(kp), S = SC + BUFFER;
+  const int nk = sq_slices(d);
+  SqSelect sel = SqSelect::at(smem, QB, kp, S,
+                              sq_tma_tail(QB, d, NKR > 0, stages), SC);
+  const unsigned base = smem_u32(smem);
+  const unsigned ring_s =
+      (base + (unsigned)QB * S * 8 + SQ_ALIGN - 1) & ~(unsigned)(SQ_ALIGN - 1);
+  unsigned char* ring = smem + (ring_s - base);
+  unsigned char* qs = ring + (size_t)stages * SQ_STAGE;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (stages + s)
+  const unsigned bars =
+      ring_s + stages * SQ_STAGE + (NKR > 0 ? 0 : QB * nk * SQ_SLICE);
+  sel.init(tid);
+  u64 lo[2 * MT];                   // floor keys of queries 8 gq + g
+#pragma unroll
+  for (int gq = 0; gq < 2 * MT; ++gq)
+    lo[gq] = FLOOR && q0 + 8 * gq + g < nq ? floor[q0 + 8 * gq + g] : 0;
+
+  // The queries, once: A fragment register r of (mt, slice j, k-step ks)
+  // holds query 16 mt + g + 8 (r & 1), bytes 128 j + 32 ks + 16 (r >> 1) +
+  // 4 t .. + 3 (zero past d and nq); or rows QB of 128-byte slices in
+  // shared memory, swizzled as the ring.
+  unsigned qa[MT][KR][4][4];
+  // 4-byte words where q8 allows (d % 16 == 0 on this route)
+  const bool words = (reinterpret_cast<uintptr_t>(q8) & 3) == 0;
+  auto q4 = [&](const int8_t* row, int k) {
+    return words ? (k < d ? *reinterpret_cast<const unsigned*>(row + k) : 0u)
+                 : pack4(row, k, d);
+  };
+  if constexpr (NKR > 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < KR; ++j)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = q0 + 16 * mt + g + 8 * (r & 1);
+            qa[mt][j][ks][r] =
+                row < nq ? q4(q8 + (size_t)row * d,
+                              SQ_SLICE * j + 32 * ks + 16 * (r >> 1) + 4 * t)
+                         : 0u;
+          }
+  } else {
+    for (int c = tid; c < nk * QB * 8; c += SQ_THREADS) {
+      const int j = c / (QB * 8), r = (c / 8) % QB, b = 16 * (c % 8);
+      const int k = SQ_SLICE * j + b;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < nq) {
+        const int8_t* row = q8 + (size_t)(q0 + r) * d;
+        v = make_uint4(q4(row, k), q4(row, k + 4), q4(row, k + 8),
+                       q4(row, k + 12));
+      }
+      *reinterpret_cast<uint4*>(qs + j * QB * SQ_SLICE + swz(r, b)) = v;
+    }
+  }
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<unsigned long long>(&codes))
+                 : "memory");
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (stages + s), SQ_WARPS);
+    }
+    // the barriers are set before the copies' completions reach them
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int r_begin = blockIdx.y * chunk_rows;
+  const int r_end = min(n, r_begin + chunk_rows);
+  const int total = (r_end - r_begin + SQ_ROWS - 1) / SQ_ROWS * nk;
+  // the producer's next slice: its stage, depth byte and first row
+  int p_st = 0, p_k = 0, p_row = r_begin;
+  auto issue = [&]() {
+    mbar_expect_tx(bars + 8 * p_st, SQ_STAGE);
+    tma_load(ring_s + p_st * SQ_STAGE, &codes, p_k, p_row, bars + 8 * p_st);
+    if (++p_st == stages) p_st = 0;
+    p_k += SQ_SLICE;
+    if (p_k >= d) {
+      p_k = 0;
+      p_row += SQ_ROWS;
+    }
+  };
+  if (tid == 0)
+    for (int s = 0; s < stages && s < total; ++s) issue();
+
+  int acc[MT][NT][4];              // a tile's first product sets them
+  // cn and ok of the lane's rows 8 nt + 2 t + u ([2 nt + u]) of a tile
+  // (zero past the chunk), loaded once the tile before is offered: the
+  // tile's copies and products cover their latency, and no second set of
+  // registers holds them
+  int norm[2 * NT];
+  unsigned char okr[2 * NT];
+  auto load_rows = [&](int tile0) {
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {
+      const int r = tile0 + warp * RPW + 2 * t + (i >> 1) * 8 + (i & 1);
+      norm[i] = r < r_end ? cn[r] : 0;
+      okr[i] = r < r_end ? ok[r] : 0;
+    }
+  };
+  load_rows(r_begin);
+  // cap[gq]: the distance of query 8 gq + g's threshold key, or the
+  // sentinel if less.  A key below the threshold has a distance below the
+  // cap or, equal to it, a row below the threshold key's.  Until a tile's
+  // first merge every key in the state is of an earlier tile's row, so
+  // there a key at the cap is never below its threshold; after it, a key
+  // at the cap is tested.
+  int cap[2 * MT];
+  auto load_caps = [&]() {
+#pragma unroll
+    for (int gq = 0; gq < 2 * MT; ++gq)
+      cap[gq] = min((int)((unsigned)(sel.thr[8 * gq + g] >> 32) ^ 0x80000000u),
+                    INT_BIG);
+  };
+  load_caps();
+  unsigned live_q = 0;              // pending bits of the valid queries
+#pragma unroll
+  for (int gq = 0; gq < 2 * MT; ++gq)
+    if (q0 + 8 * gq + g < nq) live_q |= ((1u << (2 * NT)) - 1u) << (8 * gq);
+  // the lane's distances of query 8 gq + g below cap[gq] (at or below it)
+  auto below_caps = [&](bool or_at) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 2 * nt + (c & 1), gq = 2 * mt + (c >> 1);
+          if (acc[mt][nt][c] < cap[gq] + or_at) bits |= 1u << (8 * gq + i);
+        }
+    return bits;
+  };
+
+  // slice it: stage st, its full barrier's phase ph, depth slice kslice of
+  // the tile at tile0; the producer refills stage pst (slice it - 1's),
+  // whose empty barrier completes phase pph
+  int st = 0, kslice = 0, tile0 = r_begin, pst = stages - 1;
+  unsigned ph = 0, pph = 1;
+  for (int it = 0; it < total; ++it) {
+    // refill the stage of slice it - 1 once every warp has read it
+    if (tid == 0 && it > 0 && it - 1 + stages < total) {
+      mbar_wait(bars + 8 * (stages + pst), pph);
+      issue();
+    }
+    __syncwarp();
+    mbar_wait(bars + 8 * st, ph);
+    const int row0 = tile0 + warp * RPW + 2 * t;      // + 8 nt + u
+    const unsigned char* xs = ring + st * SQ_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (kslice * SQ_SLICE + 32 * ks >= d) break;    // zeros past d
+      unsigned b[NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, xs + swz(warp * RPW + np * 16 + (lane & 7) +
+                                    (lane >> 4) * 8,
+                                32 * ks + ((lane >> 3) & 1) * 16));
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        if constexpr (NKR == 0) {
+          ldmatrix_x4(a, qs + kslice * QB * SQ_SLICE +
+                             swz(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                 32 * ks + (lane >> 4) * 16));
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            a[r] = KR == 2 && kslice ? qa[mt][KR - 1][ks][r]
+                                     : qa[mt][0][ks][r];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (ks == 0 && kslice == 0)
+            mma_s8_first(acc[mt][nt], a, b[nt][0], b[nt][1]);
+          else
+            mma_s8(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
+    }
+    // this warp is done with the stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (stages + st));
+    const bool last = kslice == nk - 1;
+    pst = st;
+    pph = ph;
+    if (++st == stages) {
+      st = 0;
+      ph ^= 1u;
+    }
+    if (!last) {
+      ++kslice;
+      continue;
+    }
+    kslice = 0;
+
+    // the tile's last slice: distances, then offers until every key below
+    // its threshold is placed (the keys sq_scan_kernel offers).  Bit 8
+    // (2 mt + h) + (2 nt + u) of `pend`: query 16 mt + 8 h + g, row 8 nt +
+    // 2 t + u.  Every thread reaches each barrier.
+    static_assert(2 * MT * 2 * NT <= 32, "one pending bit per key");
+    // distances (masked rows far above every cap); the lanes whose least
+    // distance of a valid query is at or below its cap find their pending
+    // keys, the others have none
+    int least[2 * MT];
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i)
+      if (!okr[i]) norm[i] = SQ_MASKED_NORM;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        least[2 * mt + h] = INT_MAX;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            int& v = acc[mt][nt][2 * h + u];
+            v = norm[2 * nt + u] - 2 * v;
+            least[2 * mt + h] = min(least[2 * mt + h], v);
+          }
+      }
+    bool some = false;
+#pragma unroll
+    for (int gq = 0; gq < 2 * MT; ++gq)
+      some |= least[gq] < cap[gq] && ((live_q >> (8 * gq)) & 1u);
+    unsigned pend = 0;
+    bool busy = __any_sync(0xffffffffu, some);
+    if (busy) pend = below_caps(false) & live_q;
+    bool merged = false;
+    auto key_of = [&](int gq, int i) {
+      return pack_key(order_int(acc[gq >> 1][i >> 1][2 * (gq & 1) + (i & 1)]),
+                      row0 + (i >> 1) * 8 + (i & 1));
+    };
+    // the pending keys whose distance equals their cap
+    auto at_cap = [&]() {
+      unsigned eq = 0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = 2 * nt + (c & 1), gq = 2 * mt + (c >> 1);
+            if (acc[mt][nt][c] == cap[gq]) eq |= 1u << (8 * gq + i);
+          }
+      return eq & pend;
+    };
+    // keys at or above their thresholds (or, FLOOR, at or below their
+    // floors) drop out; `chk`: the pending keys that need the key test
+    auto settle = [&](unsigned chk) {
+#pragma unroll
+      for (int gq = 0; gq < 2 * MT; ++gq)
+#pragma unroll
+        for (int i = 0; i < 2 * NT; ++i)
+          if ((chk >> (8 * gq + i)) & 1u) {
+            const u64 key = key_of(gq, i);
+            if (key >= sel.thr[8 * gq + g] || (FLOOR && key <= lo[gq]))
+              pend &= ~(1u << (8 * gq + i));
+          }
+    };
+    while (true) {
+      if (busy) {
+        const unsigned chk = FLOOR ? pend : merged ? at_cap() : 0u;
+        if (chk) settle(chk);
+        // a put for each group of queries that has a key in the warp
+#pragma unroll
+        for (int gq = 0; gq < 2 * MT; ++gq) {
+          const unsigned mine = (pend >> (8 * gq)) & 0xffu;
+          if (__any_sync(0xffffffffu, mine != 0)) {
+            const int q[1] = {8 * gq + g};
+            unsigned m[1] = {mine};
+            sel.template put_groups<1, 2 * NT>(
+                q, m, lane, 0xfu << (lane & ~3),
+                [&](int, int i) { return key_of(gq, i); });
+            pend = (pend & ~(0xffu << (8 * gq))) | (m[0] << (8 * gq));
+          }
+        }
+      }
+      // also merge a buffer that a pass left exactly full, so the next
+      // tile meets the lower threshold
+      if (!__syncthreads_or(pend != 0 || sel.full(tid))) break;
+      sel.template merge_buffers<BUF_E>(tid, false);
+      load_caps();
+      merged = true;
+      pend &= below_caps(true);   // the keys still at or below the caps
+      busy = __any_sync(0xffffffffu, pend != 0);
+    }
+    tile0 += SQ_ROWS;
+    load_rows(tile0);
+  }
   sel.template merge_buffers<BUF_E>(tid, true);
   for (int i = tid; i < QB * kp; i += SQ_THREADS) {
     const int q = i / kp, j = i - q * kp;
@@ -671,6 +1146,60 @@ SqKernel sq_kernel(int kp, bool floor) {
   return sq_scan_kernel<1, SQ_SHALLOW, false>;
 }
 
+// K4's TMA route by kp (queries a block), the query slices held in
+// registers (0: shared memory) and floor.
+typedef void (*SqTmaKernel)(CUtensorMap, const int8_t*, const int*,
+                            const unsigned char*, u64*, const u64*, int, int,
+                            int, int, int, int, int);
+
+SqTmaKernel sq_tma_kernel(int kp, int qreg_slices, bool floor) {
+  if (sq_queries_per_block(kp) == 32)
+    return qreg_slices ? sq_tma_scan_kernel<2, 1, false>
+                       : sq_tma_scan_kernel<2, 0, false>;
+  switch (qreg_slices * 2 + floor) {
+    case 0: return sq_tma_scan_kernel<1, 0, false>;
+    case 1: return sq_tma_scan_kernel<1, 0, true>;
+    case 2: return sq_tma_scan_kernel<1, 1, false>;
+    case 3: return sq_tma_scan_kernel<1, 1, true>;
+    case 4: return sq_tma_scan_kernel<1, 2, false>;
+    default: return sq_tma_scan_kernel<1, 2, true>;
+  }
+}
+
+// A TMA-route launch's shape, checked: queries in registers only where
+// they fit, 2-4 stages.
+bool bad_tma_route(int qb, int d, int qreg, int stages) {
+  return d % 16 || (qreg && !sq_queries_in_registers(qb, d)) ||
+         stages < 2 || stages > 4;
+}
+
+// cuTensorMapEncodeTiled (libcuda's), found through the runtime's entry
+// point query, so the library links nothing beyond the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
 PqKernel pq_kernel(int qb, bool floor) {
   switch (qb * 2 + floor) {
     case 16: return pq_scan_kernel<8, false>;
@@ -697,15 +1226,21 @@ extern "C" long long repro_adc_smem_bytes(int pq, int qb, int kp, int width) {
 
 // Stage-1 blocks of K4 (pq = 0, width = d) or K5 (pq = 1, width = m, qb
 // queries a block) that one SM of `device` holds at once, for the variant
-// a pass at this kp launches (floor: a later pass of a call above MAX_KP),
-// at the shared memory it launches with; the wrapper's block plan counts
-// the card's slots with it.  A negative cudaError_t on failure.
+// a pass at this kp launches (floor: a later pass of a call above MAX_KP;
+// K4 with stages > 0: its TMA route with that ring and the queries in
+// registers or not, qreg), at the shared memory it launches with; the
+// wrapper's block plan counts the card's slots with it.  A negative
+// cudaError_t on failure.
 extern "C" int repro_adc_blocks_per_sm(int pq, int qb, int kp, int width,
-                                       int floor, int device) {
+                                       int floor, int qreg, int stages,
+                                       int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   if (kp < 1 || kp > MAX_KP || width < 1 ||
-      (pq && qb != 8 && qb != 4 && qb != 2 && qb != 1))
+      (pq && qb != 8 && qb != 4 && qb != 2 && qb != 1) ||
+      (!pq && stages &&
+       (width > MAX_D ||
+        bad_tma_route(sq_queries_per_block(kp), width, qreg, stages))))
     return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   if (pq) {
@@ -715,6 +1250,15 @@ extern "C" int repro_adc_blocks_per_sm(int pq, int qb, int kp, int width,
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                           THREADS, smem);
+  } else if (stages) {
+    const SqTmaKernel kernel =
+        sq_tma_kernel(kp, qreg ? sq_slices(width) : 0, floor != 0);
+    const size_t smem =
+        sq_tma_smem(sq_queries_per_block(kp), kp, width, qreg, stages);
+    err = prepare(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          SQ_THREADS, smem);
   } else {
     const SqKernel kernel = sq_kernel(kp, floor != 0);
     const size_t smem = sq_smem(sq_queries_per_block(kp), kp);
@@ -726,6 +1270,41 @@ extern "C" int repro_adc_blocks_per_sm(int pq, int qb, int kp, int width,
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// Shared memory (bytes) of K4's TMA route with qb queries a block at this
+// kp and d, the queries in registers (qreg) or not, `stages` ring stages;
+// the wrapper takes the most stages (4, 3, 2) that fit the card's
+// per-block limit, and the byte-staging route where none does.
+extern "C" long long repro_sq_tma_smem_bytes(int qb, int kp, int d, int qreg,
+                                             int stages) {
+  return (long long)sq_tma_smem(qb, kp, d, qreg, stages);
+}
+
+// The tensor map of K4's TMA route over c8 (n, d) int8: boxes of 128
+// bytes x 256 rows (a stage), the 128-byte swizzle, zeros past d and n;
+// written to `out` (128 bytes), which the wrapper keeps per (c8, n, d)
+// and hands to each launch.  d % 16 == 0 and c8 16-byte aligned.
+extern "C" int repro_sq_tensor_map(const int8_t* c8, int n, int d,
+                                   void* out) {
+  if (n < 1 || d < 16 || d > MAX_D || d % 16 ||
+      reinterpret_cast<uintptr_t>(c8) % 16)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d};
+  const cuuint32_t box[2] = {(cuuint32_t)SQ_SLICE, (cuuint32_t)SQ_ROWS};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(c8), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::memcpy(out, &map, sizeof map);
+  return cudaSuccess;
+}
+
 // q8 (nq, d) int8, c8 (n, d) int8, cn (n,) int32, ok (n,) uint8 (0 = row
 // masked), part (nq, G, kp) uint64 scratch, out_d (nq, kp) int32, out_i
 // (nq, kp) int64; all contiguous on `device`.  Rows are split into G
@@ -734,13 +1313,17 @@ extern "C" int repro_adc_blocks_per_sm(int pq, int qb, int kp, int width,
 // floor_in (nq,) (nullptr on the first pass; kp > 256 on the others)
 // holds each query's last key of the pass before, and only keys after it
 // are offered; floor_out (or nullptr) gets this pass's last keys (it may
-// be floor_in).  Launches both stages on `stream` and returns
+// be floor_in).  tmap: the codes' tensor map (repro_sq_tensor_map), which
+// takes the TMA route with the queries in registers or not (qreg) and
+// `stages` ring stages; nullptr takes the byte-staging route (qreg,
+// stages ignored).  Launches both stages on `stream` and returns
 // cudaGetLastError().
 extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
                                  const int* cn, const unsigned char* ok,
                                  u64* part, unsigned* out_d, long long* out_i,
                                  const u64* floor_in, u64* floor_out, int nq,
                                  int n, int d, int kp, int chunk_rows, int G,
+                                 const void* tmap, int qreg, int stages,
                                  int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -749,10 +1332,26 @@ extern "C" int repro_sq_adc_topk(const int8_t* q8, const int8_t* c8,
     return cudaErrorInvalidValue;
   const int qb = sq_queries_per_block(kp);
   if (floor_in && qb != 16) return cudaErrorInvalidValue;
+  const dim3 grid((nq + qb - 1) / qb, G);
+  if (tmap) {
+    if (bad_tma_route(qb, d, qreg, stages)) return cudaErrorInvalidValue;
+    const SqTmaKernel kernel =
+        sq_tma_kernel(kp, qreg ? sq_slices(d) : 0, floor_in != nullptr);
+    const size_t smem = sq_tma_smem(qb, kp, d, qreg, stages);
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    CUtensorMap map;
+    std::memcpy(&map, tmap, sizeof map);
+    kernel<<<grid, SQ_THREADS, smem, stream>>>(map, q8, cn, ok, part,
+                                               floor_in, nq, n, d, kp,
+                                               chunk_rows, G, stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 0, stream);
+  }
   const size_t smem = sq_smem(qb, kp);
   const int vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(c8) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q8) % 16 == 0;
-  const dim3 grid((nq + qb - 1) / qb, G);
   const SqKernel kernel = sq_kernel(kp, floor_in != nullptr);
   err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -22,6 +22,14 @@ The chunks are the block plan of least makespan over the card's slots
 profiler is active each launch adds the plan's work and slot tiles to
 its counters.
 
+K4 takes one of two routes, chosen from the shape (`sq_route`): the TMA
+route where the rows span more than one tile, the codes allow a tensor
+map (d % 16 == 0, 16-byte aligned) and its ring fits beside the
+selection (queries in registers where they fit, else in shared memory;
+4, 3 or 2 ring stages), else the byte-staging route.  Either route's
+slots are the card's SMs x the blocks of its variant one SM holds, its
+chunk cost its own.
+
 A kp above MAX_KP runs in passes of at most MAX_KP (`common.floor_passes`:
 each pass offers only the keys after its query's last key of the pass
 before), each pass counted in `launches`.  The small operands are
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -60,17 +69,57 @@ _TILE = {"sq": 256, "pq": 1024}
 _PQ_QUERIES_PER_BLOCK = (8, 4, 2, 1)     # the first whose tables fit
 _SHARED_LIMIT = 232448          # H100 opt-in shared memory per block
 # A chunk's fixed cost in tile-times, the block plan's c (measured on the
-# H100: csrc/adc_topk.cu's note).
-_CHUNK_COST = {"sq": 30.0, "pq": 11.0}
+# H100: csrc/adc_topk.cu's note): K4 on its byte-staging and TMA routes, K5.
+_CHUNK_COST = {"sq": 30.0, "sq_tma": 74.0, "pq": 11.0}
 
-_SQ_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 7 + [_build.PTR]
+_SQ_ARGTYPES = ([_build.PTR] * 9 + [_build.INT] * 6 + [_build.PTR]
+                + [_build.INT] * 3 + [_build.PTR])
 _PQ_ARGTYPES = [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR]
+# Mirrors csrc/adc_topk.cu's TMA route: depth bytes a stage, query A
+# fragment registers a lane at most, the ring stages tried (the most that
+# fit).
+_SQ_SLICE = 128
+_SQ_QREGS = 32
+_SQ_STAGES = (4, 3, 2)
+
+
+class SqRoute(NamedTuple):
+    """How a K4 pass runs: code tiles by TMA (`tma`) or by byte staging;
+    on the TMA route the query fragments in registers (`qreg`) or in
+    shared memory, and the ring's `stages` (0 on the staging route)."""
+    tma: bool
+    qreg: bool
+    stages: int
 
 
 def sq_queries_per_block(kp: int) -> int:
     """Queries a K4 block scans together: 32, or 16 where kp > 256 needs
     the shared memory for the selection state."""
     return 32 if kp <= 256 else 16
+
+
+def sq_queries_in_registers(qb: int, d: int) -> bool:
+    """The TMA route keeps a block's query A fragments in registers where
+    they take at most 32 a lane (16 per 16 queries and 128-byte slice:
+    d <= 128 at 32 queries, d <= 256 at 16), else in shared memory."""
+    return (qb // 16) * -(-d // _SQ_SLICE) * 16 <= _SQ_QREGS
+
+
+def sq_route(n: int, d: int, kp: int, aligned: bool, smem_of,
+             limit: int) -> SqRoute:
+    """The route of a K4 pass over n rows at d and kp: TMA where the rows
+    span more than one tile (one tile has nothing to overlap with its
+    copy), d % 16 == 0, the codes are 16-byte `aligned` (a tensor map's
+    rows) and a ring of 4, 3 or 2 stages fits the card's `limit` beside
+    the selection (`smem_of(qb, kp, d, qreg, stages)`: csrc's
+    repro_sq_tma_smem_bytes), the most that fit; else byte staging."""
+    qb = sq_queries_per_block(kp)
+    if n > _TILE["sq"] and aligned and d % 16 == 0:
+        qreg = sq_queries_in_registers(qb, d)
+        for stages in _SQ_STAGES:
+            if smem_of(qb, kp, d, int(qreg), stages) <= limit:
+                return SqRoute(True, qreg, stages)
+    return SqRoute(False, False, 0)
 
 
 def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
@@ -81,40 +130,91 @@ def _row_validity(ok: torch.Tensor, n: int) -> torch.Tensor:
     return valid.contiguous().view(torch.uint8)
 
 
+def _smem_limit(dev) -> tuple:
+    props = torch.cuda.get_device_properties(dev)
+    return props, getattr(props, "shared_memory_per_block_optin",
+                          _SHARED_LIMIT)
+
+
+def _smem_entry(name: str, nargs: int):
+    fn = _build.function(name, [_build.INT] * nargs)
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 @functools.lru_cache(maxsize=1024)
 def _layout(kind: str, width: int, nq: int, n: int, kp: int, dev,
             floor: bool = False):
     """Check a pass's kp; take the queries a block (for K5 the largest
     that fits the card's shared memory, refusing an m where one query's
     tables do not); plan the blocks over the card's slots, its SMs x the
-    blocks of the launched variant (`floor`: a later pass) one SM holds.
+    blocks of the launched variant (`floor`: a later pass) one SM holds
+    (K4: `_sq_layout`'s plan, of the route it takes).
     Cached per shape and device, so a batch adds no host work.  Returns
     (queries a block, common.BlockPlan)."""
+    if kind == "sq":
+        return _sq_layout(width, nq, n, kp, dev, floor)[:2]
     if kp > MAX_KP:
         raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
                          f"{MAX_KP} a pass")
-    smem_fn = _build.function("repro_adc_smem_bytes", [_build.INT] * 4)
-    smem_fn.restype = ctypes.c_longlong
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", _SHARED_LIMIT)
-    pq = kind == "pq"
-    for qb in _PQ_QUERIES_PER_BLOCK if pq else (sq_queries_per_block(kp),):
-        need = smem_fn(int(pq), qb, kp, width)
+    props, limit = _smem_limit(dev)
+    smem_fn = _smem_entry("repro_adc_smem_bytes", 4)
+    for qb in _PQ_QUERIES_PER_BLOCK:
+        need = smem_fn(1, qb, kp, width)
         if need <= limit:
             break
     else:
-        what = "m" if pq else "d"
-        raise ValueError(f"the {kind}_adc_topk kernel needs {need} bytes of "
-                         f"shared memory a block at {what}={width}, "
+        raise ValueError(f"the pq_adc_topk kernel needs {need} bytes of "
+                         f"shared memory a block at m={width}, "
                          f"kp={kp}; the card has {limit}")
-    resident = _build.function("repro_adc_blocks_per_sm", [_build.INT] * 6)(
-        int(pq), qb, kp, width, int(floor), getattr(dev, "index", 0))
+    return qb, block_plan(-(-nq // qb), n, _TILE[kind],
+                          props.multi_processor_count
+                          * _resident(1, qb, kp, width, floor, dev, kind),
+                          _CHUNK_COST[kind])
+
+
+def _device_index(dev) -> int:
+    index = getattr(dev, "index", 0)
+    return torch.cuda.current_device() if index is None else index
+
+
+def _resident(pq: int, qb: int, kp: int, width: int, floor: bool, dev,
+              kind: str, route: SqRoute = SqRoute(False, False, 0)) -> int:
+    """Blocks of the launched variant one SM holds (K4: of its `route`;
+    repro_adc_blocks_per_sm)."""
+    resident = _build.function("repro_adc_blocks_per_sm", [_build.INT] * 8)(
+        pq, qb, kp, width, int(floor), int(route.qreg), route.stages,
+        _device_index(dev))
     if resident < 1:
         raise RuntimeError(f"adc_topk.{kind}_adc_topk: no block fits an SM "
                            f"at kp={kp} ({resident})")
-    return qb, block_plan(-(-nq // qb), n, _TILE[kind],
-                          props.multi_processor_count * resident,
-                          _CHUNK_COST[kind])
+    return resident
+
+
+@functools.lru_cache(maxsize=1024)
+def _sq_layout(d: int, nq: int, n: int, kp: int, dev, floor: bool = False,
+               aligned: bool = True):
+    """K4's pass at this shape (`aligned`: the codes 16-byte aligned):
+    its route (`sq_route`), and its block plan over SMs x the blocks of the
+    route's variant one SM holds, at the route's chunk cost.  Cached per
+    shape and device.  -> (queries a block, common.BlockPlan, SqRoute)."""
+    if kp > MAX_KP:
+        raise ValueError(f"kp={kp} exceeds the adc_topk kernels' limit of "
+                         f"{MAX_KP} a pass")
+    qb = sq_queries_per_block(kp)
+    props, limit = _smem_limit(dev)
+    route = sq_route(n, d, kp, aligned,
+                     _smem_entry("repro_sq_tma_smem_bytes", 5), limit)
+    if not route.tma:
+        need = _smem_entry("repro_adc_smem_bytes", 4)(0, qb, kp, d)
+        if need > limit:
+            raise ValueError(f"the sq_adc_topk kernel needs {need} bytes of "
+                             f"shared memory a block at d={d}, kp={kp}; the "
+                             f"card has {limit}")
+    return qb, block_plan(-(-nq // qb), n, _TILE["sq"],
+                          props.multi_processor_count
+                          * _resident(0, qb, kp, d, floor, dev, "sq", route),
+                          _CHUNK_COST["sq_tma" if route.tma else "sq"]), route
 
 
 def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev,
@@ -123,6 +223,19 @@ def _plan(kind: str, width: int, nq: int, n: int, kp: int, dev,
     chunk_rows, G)."""
     qb, plan = _layout(kind, width, nq, n, kp, dev, floor)
     return qb, plan.chunk_rows, plan.G
+
+
+@functools.lru_cache(maxsize=64)
+def _tensor_map(ptr: int, n: int, d: int):
+    """The TMA route's tensor map over the codes at `ptr` (n, d): 128 bytes
+    from repro_sq_tensor_map, kept per (pointer, n, d), so a batch encodes
+    none."""
+    buf = (ctypes.c_ubyte * 128)()
+    fn = _build.function("repro_sq_tensor_map",
+                         [_build.PTR] + [_build.INT] * 2 + [_build.PTR])
+    _build.check(fn(ptr, n, d, ctypes.addressof(buf)),
+                 "adc_topk.sq_adc_topk's tensor map")
+    return buf
 
 
 def _outputs(nq: int, kp: int, dtype, dev):
@@ -135,20 +248,31 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(c8: torch.Tensor) -> bool:
+    """The codes start on 16 bytes, as a tensor map's rows must."""
+    return c8.data_ptr() % 16 == 0
+
 
 def _launch_sq(q8, c8, cn, okb, out_d, out_i, floor_in, floor_out, kp: int,
                chunk_rows: int, G: int):
     """One pass of K4 on the card with the block plan given: the rows in G
     chunks of chunk_rows (whole tiles), one block per (query group,
-    chunk), then the per-query merge; counted in `launches`."""
+    chunk), then the per-query merge, on the shape's route (`_sq_layout`);
+    counted in `launches`."""
     nq, d = q8.shape
+    n = c8.shape[0]
     dev = q8.device
+    route = _sq_layout(d, nq, n, kp, dev, floor_in is not None,
+                       _aligned(c8))[2]
+    tmap = None
+    if route.tma:
+        tmap = ctypes.addressof(_tensor_map(c8.data_ptr(), n, d))
     part = torch.empty((nq, G, kp), dtype=torch.int64, device=dev)
     fn = _build.function("repro_sq_adc_topk", _SQ_ARGTYPES)
     err = fn(q8.data_ptr(), c8.data_ptr(), cn.data_ptr(), okb.data_ptr(),
              part.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-             _ptr(floor_in), _ptr(floor_out), nq, c8.shape[0], d, kp,
-             chunk_rows, G, dev.index,
+             _ptr(floor_in), _ptr(floor_out), nq, n, d, kp, chunk_rows, G,
+             tmap, int(route.qreg), route.stages, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adc_topk.sq_adc_topk")
     launches["sq_adc_topk"] += 1
@@ -206,8 +330,10 @@ def sq_adc_topk(q8: torch.Tensor, c8: torch.Tensor, cn: torch.Tensor,
     if meta or kp <= 0 or nq == 0:
         return _outputs(nq, max(kp, 0), torch.int32, dev)
 
+    aligned = _aligned(c8)
+
     def one_pass(kp, floor_in, floor_out):
-        _, plan = _layout("sq", d, nq, n, kp, dev, floor_in is not None)
+        plan = _sq_layout(d, nq, n, kp, dev, floor_in is not None, aligned)[1]
         out_d, out_i = _outputs(nq, kp, torch.int32, dev)
         _launch_sq(q8, c8, cn, okb, out_d, out_i, floor_in, floor_out, kp,
                    plan.chunk_rows, plan.G)

@@ -347,6 +347,7 @@ EMPTY = torch.iinfo(torch.int64).max       # the kernels' ~0 as signed
 # Mirrors csrc/adc_topk.cu and csrc/topk_select.cuh.
 BUFFER = 256                   # buffer keys a query (32 BUF_E)
 SQ_KS = 64                     # K4: depth bytes a staged slice
+SQ_SLICE = 128                 # K4's TMA route: depth bytes a stage
 THREADS = 256
 RUN = 8                        # merge_runs: keys read per list a round
 MERGE_KEYS = 4                 # merge_runs: keys a thread holds a batch
@@ -375,6 +376,23 @@ def _smem(kind, qb, kp, width):
         return select + qb * width * 256 * 4
     stages = 4 if kp <= 512 else 3
     return select + stages * (TILE["sq"] + qb) * (SQ_KS + 16)
+
+
+def _tma_smem(qb, kp, d, qreg, stages):
+    """csrc/adc_topk.cu's repro_sq_tma_smem_bytes: the selection, the
+    1024-byte alignment slack, the ring of 256 x 128-byte stages, the
+    queries where they are not in registers, two barriers a stage."""
+    select = qb * (_scan_state_len(kp) + BUFFER) * 8 + qb * 12
+    queries = 0 if qreg else qb * -(-d // SQ_SLICE) * SQ_SLICE
+    return select + 1024 + stages * TILE["sq"] * SQ_SLICE + queries + \
+        16 * stages
+
+
+def _route(n, d, kp, aligned=True):
+    """The route the wrapper takes at this shape on the H100 (its opt-in
+    shared memory)."""
+    return adc_topk.sq_route(n, d, min(kp, adc_topk.MAX_KP), aligned,
+                             _tma_smem, SHARED_LIMIT)
 
 
 def _keys(d: torch.Tensor, ids: torch.Tensor, is_float: bool):
@@ -572,18 +590,19 @@ def _emulate(d_full: torch.Tensor, ok: torch.Tensor, kp: int, qb: int,
     return torch.stack(dists), torch.stack(out_i), segments
 
 
-def _sq_dists_by_slices(q8, c8, cn):
-    """K4's arithmetic: depth cut into SQ_KS-byte slices zero-padded past
-    d, int8 products summed in int32 slice by slice (exact in any order),
-    then cn - 2 cross in int32."""
+def _sq_dists_by_slices(q8, c8, cn, ks=SQ_KS):
+    """K4's arithmetic: depth cut into ks-byte slices zero-padded past d
+    (SQ_KS on the staging route, SQ_SLICE on the TMA route), int8
+    products summed in int32 slice by slice (exact in any order), then
+    cn - 2 cross in int32."""
     nq, d = q8.shape
-    pad = -(-d // SQ_KS) * SQ_KS
+    pad = -(-d // ks) * ks
     qz = np.zeros((nq, pad), np.int64)
     cz = np.zeros((c8.shape[0], pad), np.int64)
     qz[:, :d], cz[:, :d] = q8, c8
     cross = np.zeros((nq, c8.shape[0]), np.int64)
-    for k0 in range(0, pad, SQ_KS):
-        cross += qz[:, k0:k0 + SQ_KS] @ cz[:, k0:k0 + SQ_KS].T
+    for k0 in range(0, pad, ks):
+        cross += qz[:, k0:k0 + ks] @ cz[:, k0:k0 + ks].T
         assert np.abs(cross).max() < 2 ** 31           # int32 accumulators
     return (cn.astype(np.int64)[None, :] - 2 * cross).astype(np.int32)
 
@@ -624,9 +643,14 @@ def _pq_queries_per_block(kp, m):
 ])
 def test_sq_kernel_blocking_emulated_equals_oracle(nq, n, d, kp, valid, dup,
                                                    chunk_rows):
+    """Each shape on the route the wrapper picks for it (the TMA route's
+    128-byte depth slices where d % 16 == 0 and a ring fits, else the
+    staging route's 64-byte slices)."""
     q8, c8, cn = _sq_case(nq, n, d, seed=n, dup=dup, far=d == 960)
     ok = np.random.default_rng(n).random(n) < valid
-    full = _sq_dists_by_slices(q8, c8, cn)
+    route = _route(n, d, min(kp, n))
+    full = _sq_dists_by_slices(q8, c8, cn,
+                               SQ_SLICE if route.tma else SQ_KS)
     np.testing.assert_array_equal(full, j_adc_ref.sq_dists(q8, c8, cn))
     qb = adc_topk.sq_queries_per_block(min(kp, n))
     got_d, got_i, segs = _emulate(_t(full), _t(ok), kp, qb, chunk_rows,
@@ -635,6 +659,9 @@ def test_sq_kernel_blocking_emulated_equals_oracle(nq, n, d, kp, valid, dup,
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     np.testing.assert_array_equal(got_d.numpy(), want_d)
     assert _smem("sq", qb, kp, d) <= SHARED_LIMIT
+    if route.tma:
+        assert _tma_smem(qb, min(kp, n), d, route.qreg, route.stages) <= \
+            SHARED_LIMIT
     assert all(s.buf.numel() == 0 for s in segs)
 
 
@@ -796,6 +823,11 @@ def _sweep_plans(tile, qb_of, c, resident):
                 assert plan.slot_tiles == slots * waves * per
 
 
+def _clear_plans():
+    adc_topk._layout.cache_clear()
+    adc_topk._sq_layout.cache_clear()
+
+
 def _mock_adc_entries(monkeypatch, resident=1):
     """The C entries _plan calls, answered as csrc/adc_topk.cu would; the
     occupancy entry answers `resident` and records its arguments."""
@@ -807,22 +839,25 @@ def _mock_adc_entries(monkeypatch, resident=1):
 
     def function(name, argtypes):
         if name == "repro_adc_blocks_per_sm":
-            assert len(argtypes) == 6
+            assert len(argtypes) == 8
             return lambda *a: asked.append(a) or resident
+        if name == "repro_sq_tma_smem_bytes":
+            assert len(argtypes) == 5
+            return _tma_smem
         assert name == "repro_adc_smem_bytes" and len(argtypes) == 4
         return lambda pq, qb, kp, width: _smem("pq" if pq else "sq", qb, kp,
                                                width)
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: Props())
-    adc_topk._layout.cache_clear()
+    _clear_plans()
     return asked
 
 
 @pytest.fixture
 def adc_entries(monkeypatch):
     yield lambda resident=1: _mock_adc_entries(monkeypatch, resident)
-    adc_topk._layout.cache_clear()
+    _clear_plans()
 
 
 def test_plan_mirrors_the_kernels(adc_entries):
@@ -830,9 +865,11 @@ def test_plan_mirrors_the_kernels(adc_entries):
     of 8, 4, 2, 1 whose tables fit), its refusal, and chunks of whole
     tiles: the block plan over 132 SMs at the one block an SM that the
     occupancy entry answers, asked for the launched variant (K4 or K5,
-    queries a block, kp, width, later pass).  The int8 cell's shape (nq
-    1024, kp 160) takes one wave of 32 x 4 blocks, 977 tiles each, where
-    the old rule took 32 x 5 in two waves."""
+    queries a block, kp, width, later pass; K4's TMA route also its
+    queries in registers and ring stages, 0 0 on the staging route).
+    The int8 cell's shape (nq 1024, kp 160) takes one wave of 32 x 4
+    blocks, 977 tiles each, where the old rule took 32 x 5 in two
+    waves."""
     asked = adc_entries()
     assert adc_topk._plan("sq", 128, 32, 10 ** 6, 160, None) == (32, 7680,
                                                                   131)
@@ -855,14 +892,17 @@ def test_plan_mirrors_the_kernels(adc_entries):
         32, 977 * 256, 4)
     assert _old_plan(32, 10 ** 6, 256, 132) == (782, 5)
     assert adc_topk._plan("pq", 16, 1024, 10 ** 6, 320, None)[0] == 8
-    adc_topk._layout.cache_clear()
+    _clear_plans()
     del asked[:]
     adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)
     adc_topk._plan("sq", 128, 1024, 10 ** 6, 160, None)
     adc_topk._plan("sq", 128, 20, 5000, 600, None, True)
+    adc_topk._plan("sq", 17, 20, 5000, 600, None, True)
     adc_topk._plan("pq", 16, 32, 10 ** 6, 320, None)
-    assert asked == [(0, 32, 160, 128, 0, 0), (0, 16, 600, 128, 1, 0),
-                     (1, 8, 320, 16, 0, 0)]
+    assert asked == [(0, 32, 160, 128, 0, 1, 3, 0),
+                     (0, 16, 600, 128, 1, 1, 2, 0),
+                     (0, 16, 600, 17, 1, 0, 0, 0),
+                     (1, 8, 320, 16, 0, 0, 0, 0)]
     qb, plan = adc_topk._layout("sq", 128, 1024, 10 ** 6, 160, None)
     assert (plan.work_tiles, plan.slot_tiles) == (32 * 3907, 132 * 977)
 
@@ -903,6 +943,117 @@ def test_pq_plans_at_nq_32_where_groups_divide_the_slots(adc_entries):
             assert (per, G) == _old_plan(groups, 10 ** 6, TILE["pq"], 132)
         assert G * groups <= 132
     assert _old_plan(32, 10 ** 6, TILE["pq"], 132)[1] * 32 > 132
+
+
+def test_sq_route_follows_the_shape():
+    """K4's route from d, kp and the codes' alignment: the TMA route where
+    d % 16 == 0, the codes are 16-byte aligned and a ring of 4, 3 or 2
+    stages fits beside the selection (the most that fit), with the query
+    fragments in registers where they take at most 32 a lane (d <= 128 at
+    32 queries a block, d <= 256 at 16), else in shared memory; byte
+    staging otherwise."""
+    R = adc_topk.SqRoute
+    n = 10 ** 6
+    assert _route(n, 128, 160) == R(True, True, 3)           # int8 cell
+    assert _route(n, 960, 160) == R(True, False, 2)          # GIST width
+    assert _route(n, 256, 300) == R(True, True, 4)           # 16 a block
+    assert _route(n, 384, 300) == R(True, False, 3)
+    assert _route(n, 128, 800) == R(True, True, 2)           # k' 1600
+    assert _route(n, 16, 30) == R(True, True, 3)
+    assert _route(257, 128, 30) == R(True, True, 3)
+    assert _route(256, 128, 30) == R(False, False, 0)        # one tile
+    assert _route(100, 128, 30) == R(False, False, 0)
+    assert _route(n, 100, 160) == R(False, False, 0)         # d % 16
+    assert _route(n, 17, 30) == R(False, False, 0)
+    assert _route(n, 128, 160, aligned=False) == R(False, False, 0)
+    assert _route(n, 960, 1024) == R(False, False, 0)        # no ring fits
+    assert _route(n, 2048, 160) == R(False, False, 0)
+    for d in (16, 128, 256, 960):
+        for kp in (1, 160, 256, 300, 512, 600, 1024):
+            route = _route(n, d, kp)
+            qb = adc_topk.sq_queries_per_block(kp)
+            assert route.qreg == (route.tma and (qb // 16) * -(-d // 128)
+                                  * 16 <= 32)
+            if route.tma:
+                assert _tma_smem(qb, kp, d, route.qreg, route.stages) <= \
+                    SHARED_LIMIT
+                assert route.stages == 4 or _tma_smem(
+                    qb, kp, d, route.qreg, route.stages + 1) > SHARED_LIMIT
+
+
+def test_sq_plan_follows_the_route(adc_entries):
+    """K4's plan in the wrapper: over 132 SMs x the blocks of the route's
+    variant one SM holds, at the route's own chunk cost (74 tile-times on
+    the TMA route, 30 on the staging route).  The int8 cell's shape takes
+    the TMA route and one wave of 32 x 4 blocks; a misaligned or d % 16
+    != 0 shape the staging route; no block on an SM is refused."""
+    asked = adc_entries()
+    n = 10 ** 6
+    qb, plan, route = adc_topk._sq_layout(128, 1024, n, 160, None)
+    assert (qb, plan.G, route) == (32, 4, adc_topk.SqRoute(True, True, 3))
+    assert plan == common.block_plan(32, n, 256, 132,
+                                     adc_topk._CHUNK_COST["sq_tma"])
+    assert adc_topk._sq_layout(17, 1024, n, 160, None)[2] == \
+        adc_topk.SqRoute(False, False, 0)
+    assert adc_topk._sq_layout(128, 1024, n, 160, None, False,
+                               False)[2].tma is False
+    assert adc_topk._sq_layout(100, 1024, n, 160, None)[1] == \
+        common.block_plan(32, n, 256, 132, adc_topk._CHUNK_COST["sq"])
+    assert asked == [(0, 32, 160, 128, 0, 1, 3, 0),
+                     (0, 32, 160, 17, 0, 0, 0, 0),
+                     (0, 32, 160, 128, 0, 0, 0, 0),
+                     (0, 32, 160, 100, 0, 0, 0, 0)]
+    adc_entries(resident=0)
+    with pytest.raises(RuntimeError, match="no block fits"):
+        adc_topk._sq_layout(128, 1024, n, 160, None)
+
+
+@pytest.mark.parametrize("nq", [32, 1024, 4096])
+def test_sq_staging_plans_keep_their_chunk_cost(adc_entries, nq):
+    """The byte-staging route (d 100, as GloVe's; or misaligned codes)
+    plans at its own chunk cost of 30 tile-times, as before the TMA
+    route, and the TMA route at 74; both over the same slots."""
+    adc_entries()
+    n = 10 ** 6
+    for d, aligned in ((100, True), (128, False)):
+        plan = adc_topk._sq_layout(d, nq, n, 160, None, False, aligned)[1]
+        assert plan == common.block_plan(-(-nq // 32), n, 256, 132, 30.0)
+    plan = adc_topk._sq_layout(128, nq, n, 160, None)[1]
+    assert plan == common.block_plan(-(-nq // 32), n, 256, 132, 74.0)
+
+
+@pytest.mark.parametrize("nq,qb", [(65, 32), (70, 32), (33, 16), (5, 32)])
+def test_sq_tma_blocking_emulated_with_a_ragged_last_group(nq, qb):
+    """The TMA route's 128-byte depth slices with a last query group that
+    holds fewer than qb queries (its rows past nq zero): the result equals
+    the oracle and every query has a segment a chunk."""
+    n, d, kp = 3000, 128, 160 if qb == 32 else 300
+    q8, c8, cn = _sq_case(nq, n, d, seed=nq, dup=300)
+    ok = np.random.default_rng(nq).random(n) < 0.99
+    full = _sq_dists_by_slices(q8, c8, cn, SQ_SLICE)
+    assert _route(n, d, kp).tma
+    got_d, got_i, segs = _emulate(_t(full), _t(ok), kp, qb, 1024, "sq",
+                                  INT_BIG)
+    want_d, want_i = _oracle(full, ok, kp, INT_BIG)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_d.numpy(), want_d)
+    assert len(segs) == nq * 3                         # 3 chunks of 1024
+    assert nq % qb != 0
+
+
+def test_k1_and_k5_plans_unchanged_at_the_cells_shapes():
+    """K4's TMA route leaves `common.block_plan` and the K1 / K5 plans
+    as they were: at a batch of 1024 over 1M rows on 132 SMs, K1 at k' 80
+    (the flat and GIST k10 cells) one wave of 32 x 4 blocks, at k' 800 (8
+    queries a block) 128 x 1; K5 at m 16, kp 320 (8 a block) 128 x 1."""
+    from repro_torch.kernels.l2_topk import l2_topk
+    assert l2_topk._chunks(1024, 10 ** 6, 32, 132)[:2] == (489 * 512, 4)
+    assert l2_topk._chunks(1024, 10 ** 6, 8, 132)[:2] == (1954 * 512, 1)
+    assert common.block_plan(128, 10 ** 6, TILE["pq"], 132,
+                             adc_topk._CHUNK_COST["pq"])[:2] == (977 * 1024,
+                                                                 1)
+    assert common.block_plan(32, 10 ** 6, TILE["sq"], 132,
+                             adc_topk._CHUNK_COST["sq"])[:2] == (977 * 256, 4)
 
 
 @pytest.mark.parametrize("G", [1, 4, 5, 33])

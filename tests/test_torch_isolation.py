@@ -613,6 +613,78 @@ def test_sq_adc_kernel_matches_plain_on_the_card(nq, n, d, kp, valid, dup):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d,kp", [
+    (1, 5000, 128, 160),             # one query
+    (32, 70001, 128, 160),           # one group, ragged n
+    (1000, 30001, 128, 160),         # a ragged last group
+    (1024, 1_000_000, 128, 160),     # the int8 cell's shape
+    (992, 20000, 128, 160),          # 31 groups
+    (4, 3000, 960, 160),             # d 960: queries in shared memory
+    (33, 20000, 960, 300),           # d 960, 16 queries a block
+    (40, 20000, 256, 300),           # 16 a block, two slices in registers
+    (5, 3000, 100, 160),             # d % 16 != 0: byte staging
+    (17, 2600, 128, 1600),           # kp 1600: two passes of 800
+    (70, 5000, 128, 1024)])          # kp 1024: 16 a block, 2 stages
+def test_sq_tma_route_matches_plain_on_the_card(nq, n, d, kp):
+    """K4 on the route the wrapper picks (TMA ring, or byte staging where
+    d % 16 != 0) against its plain version: ~1% of rows
+    masked, 1% duplicated (exact ties between distinct ids); ids and
+    int32 distances exactly equal."""
+    _needs_card()
+    args = _sq_inputs("cuda", nq, n, d, seed=nq + n + d + kp, valid=0.99,
+                      dup=n // 100, far=d == 960)
+    route = adc_topk._sq_layout(d, nq, n, min(kp, adc_topk.MAX_KP),
+                                args[0].device,
+                                aligned=args[1].data_ptr() % 16 == 0)[2]
+    assert route.tma == (d % 16 == 0)
+    got = adc_topk.sq_adc_topk(*args, kp)
+    want = adc_topk.plain_sq_adc_topk(*args, kp)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 33, 70, 992, 1024])
+def test_sq_tma_and_staging_routes_give_the_same_answer_on_the_card(nq):
+    """The same rows through the TMA route (16-byte aligned codes) and
+    through byte staging (the codes one byte off 16): both bit-equal to
+    the plain version, also with a ragged last query group."""
+    _needs_card()
+    n, d, kp = 20000, 128, 160
+    q8, c8, cn, ok = _sq_inputs("cuda", nq, n, d, seed=nq, valid=0.99,
+                                dup=200)
+    want = adc_topk.plain_sq_adc_topk(q8, c8, cn, ok, kp)
+    shifted = torch.empty(n * d + 1, dtype=torch.int8, device="cuda")
+    c8_odd = shifted[1:].view(n, d)
+    c8_odd.copy_(c8)
+    for codes, tma in ((c8, True), (c8_odd, False)):
+        assert adc_topk._sq_layout(d, nq, n, kp, q8.device, False,
+                                   codes.data_ptr() % 16 == 0)[2].tma is tma
+        got = adc_topk.sq_adc_topk(q8, codes, cn, ok, kp)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_sq_tma_plan_on_the_card():
+    """On the card the int8 cell's shape (nq 1024, 1M rows, d 128, kp 160)
+    takes the TMA route with its queries in registers, one block an SM and
+    one wave of 32 x 4 blocks; nq 32 takes the TMA route too, GIST's d 960
+    keeps its queries in shared memory, d 100 takes byte staging."""
+    _needs_card()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qb, plan, route = adc_topk._sq_layout(128, 1024, 10 ** 6, 160, dev)
+    assert route.tma and route.qreg and route.stages >= 2
+    assert plan.slot_tiles == sms * plan.chunk_rows // 256
+    assert 32 * plan.G <= sms
+    assert adc_topk._sq_layout(128, 32, 10 ** 6, 160, dev)[2] == route
+    big = adc_topk._sq_layout(960, 32, 2 ** 18, 160, dev)[2]
+    assert big.tma and not big.qreg
+    assert not adc_topk._sq_layout(100, 32, 10 ** 6, 160, dev)[2].tma
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nq,n,m,kp,valid,dup", [
     (1, 1, 1, 1, 1.0, 0),
     (5, 1000, 8, 30, 0.9, 0),
