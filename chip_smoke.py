@@ -1737,18 +1737,14 @@ def adc_breakdown(eng, Q, T, reps: int = 10) -> dict:
     the refine of the filter's candidates; and the device time of the
     kernel and of the refine."""
     import torch
-    from repro_torch.kernels.adc_topk import ops as adc_ops
     from repro_torch.serving.search_engine import refine_candidates
     f = eng.backend
     Qb = np.asarray(Q[:BATCH], np.float32)
     kp = K * RATIO_K
     kp2 = min(f.oversampled(kp), f._n)
     dev = f._ok.device
-    qop = f._query_operand(Qb, dev)
-    if f.quantization == "int8":
-        kernel = lambda: adc_ops.sq_knn(qop, f._c8, f._cn, kp2, ok=f._ok)
-    else:
-        kernel = lambda: adc_ops.pq_knn(qop, f._codes_t, kp2, ok=f._ok)
+    qop = f.codes.query_operand(Qb, dev)
+    kernel = lambda: f.codes.knn(qop, kp2, f._ok)
     cand, valid, _ = f.candidates(Qb, kp, EF_SEARCH)
     Tq = torch.as_tensor(np.asarray(T[:BATCH], np.float32)).to(dev)
     refine = lambda: refine_candidates(eng._C_dce_dev, cand, Tq, valid, K)
@@ -1759,7 +1755,8 @@ def adc_breakdown(eng, Q, T, reps: int = 10) -> dict:
             Q[:BATCH], T[:BATCH], K, ratio_k=RATIO_K), reps),
         "filter_candidates_ms": host_ms(
             lambda: f.candidates(Qb, kp, EF_SEARCH), reps),
-        "query_operand_ms": host_ms(lambda: f._query_operand(Qb, dev), reps),
+        "query_operand_ms": host_ms(
+            lambda: f.codes.query_operand(Qb, dev), reps),
         "kernel_ms": host_ms(kernel, reps),
         "kernel_device_ms": device_ms(kernel),
         "refine_ms": host_ms(refine, reps),
@@ -2307,9 +2304,10 @@ def deleted_returned(ids, gone) -> int:
 def backend_device_bytes(b) -> int:
     """Bytes of the device tensors a runtime backend holds (the refine
     array included)."""
-    held = [b._C_main, b._C_all, b._C_delta, b._C_dce_dev, b._adc_c8,
-            b._adc_cn, b._adc_codes_t, b._adc_ok, b._g_neigh0,
-            b._g_neigh_up, b._g_ok]
+    held = [b._C_main, b._C_all, b._C_delta, b._C_dce_dev, b._adc_ok,
+            b._g_neigh0, b._g_neigh_up, b._g_ok]
+    if b.codes is not None and b.codes.arrays is not None:
+        held += b.codes.arrays
     return sum(int(t.nbytes) for t in held if t is not None)
 
 

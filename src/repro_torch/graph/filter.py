@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import adc
+from ..core import adc_codes
 from ..core.hnsw import HNSW
 from ..device import resolve_device
 from ..obs.trace import child_span
@@ -54,14 +54,12 @@ class GraphFilter:
         self.quant = quantization or "f32"
         self.name = ("graph" if quantization is None
                      else f"adc-graph-{quantization}")
-        self.refine_ratio = (
-            float(refine_ratio) if refine_ratio is not None
-            else adc.default_refine_ratio(quantization)
-            if quantization is not None else 1.0)
+        self.refine_ratio = adc_codes.refine_ratio(quantization,
+                                                   refine_ratio)
         self.pq_m = pq_m
         self.oblivious = oblivious
         self.seed = seed
-        self.codebook = None
+        self.codes = adc_codes.make(quantization)
         self.csr: CSRGraph | None = None
         self._neigh0 = self._neigh_up = self._ok = None
         self._db = None
@@ -73,8 +71,12 @@ class GraphFilter:
 
     # --------------------------------------------------------------- setup
 
+    @property
+    def codebook(self):
+        return None if self.codes is None else self.codes.codebook
+
     def oversampled(self, kp: int) -> int:
-        return max(kp, int(np.ceil(kp * self.refine_ratio)))
+        return adc_codes.oversampled(kp, self.refine_ratio)
 
     def attach(self, C_sap: np.ndarray, engine=None):
         """Mirror the host graph into CSR rows and upload them, with the
@@ -89,40 +91,21 @@ class GraphFilter:
         self._neigh0 = torch.from_numpy(g.neigh0).to(device)
         self._neigh_up = torch.from_numpy(g.neigh_up).to(device)
         self._ok = torch.from_numpy(g.levels >= 0).to(device)
-        d = g.d
-        if self.quantization is None:
+        if self.codes is None:
             # g.X carries +inf for deleted rows; `ok` masks them, and
             # scores are computed in diff form so the zeros put there
             # are inert
             X = np.where(np.isfinite(g.X), g.X, 0.0).astype(np.float32)
             self._db = (torch.from_numpy(X).to(device),)
-            self._row_bytes = d * 4
+            self._row_bytes = g.d * 4
             return
         rows = np.where(np.isfinite(g.X[: g.n]), g.X[: g.n], 0.0)
         rows = rows.astype(np.float32)
-        self.codebook = adc.train_codebook(
-            rows, self.quantization, m=self.pq_m, seed=self.seed)
-        if self.quantization == "int8":
-            codes, cn = self.codebook.encode(rows)
-            c8 = np.zeros((g.R, d), np.int8)
-            c8[: g.n] = codes
-            cnp = np.zeros(g.R, np.int32)
-            cnp[: g.n] = cn
-            self._db = (torch.from_numpy(c8).to(device),
-                        torch.from_numpy(cnp).to(device))
-        else:
-            codes = self.codebook.encode(rows)          # (n, m) uint8
-            ct = np.zeros((codes.shape[1], g.R), np.uint8)
-            ct[:, : g.n] = codes.T
-            self._db = (torch.from_numpy(ct).to(device),)
-        self._row_bytes = self.codebook.code_bytes_per_vector()
-
-    def _query_operand(self, Q: np.ndarray) -> np.ndarray:
-        if self.quantization is None:
-            return Q
-        if self.quantization == "int8":
-            return self.codebook.encode_query(Q)
-        return np.ascontiguousarray(self.codebook.lut(Q), np.float32)
+        self.codes.train(rows, m=self.pq_m, seed=self.seed)
+        self.codes.encode(rows, g.R,
+                          lambda buf, axis: torch.from_numpy(buf).to(device))
+        self._db = self.codes.arrays
+        self._row_bytes = self.codes.row_bytes
 
     # ---------------------------------------------------------- candidates
 
@@ -133,8 +116,11 @@ class GraphFilter:
         g = self.csr
         kp2 = max(1, min(self.oversampled(kp), max(g.n, 1)))
         ef_eff, ef_cap, max_hops = beam_plan(kp2, max(ef_search, kp2))
-        with child_span("filter.query_prep"):
-            qd = torch.from_numpy(self._query_operand(Q)).to(self._ok.device)
+        if self.codes is None:
+            with child_span("filter.query_prep"):
+                qd = torch.from_numpy(Q).to(self._ok.device)
+        else:
+            qd = self.codes.query_operand(Q, self._ok.device)
         cand, _, visited, hops, edges = graph_ops.graph_topk(
             self._neigh0, self._neigh_up, self._ok, self._db, qd,
             g.entry, ef_eff, kp=kp2, ef_cap=ef_cap, max_hops=max_hops,

@@ -44,13 +44,12 @@ import hashlib
 import numpy as np
 import torch
 
-from ...core import adc
+from ...core import adc, adc_codes
 from ...core.hnsw import HNSW
 from ...core.ivf import IVFIndex
 from ...device import resolve_device
 from ...graph.csr import CSRGraph
 from ...graph.traverse import beam_plan
-from ...kernels.adc_topk import ops as adc_ops
 from ...kernels.common import next_bucket
 from ...kernels.l2_topk import ops as l2_ops
 from ...obs.trace import child_complete, child_span
@@ -282,9 +281,8 @@ class DeltaAwareBackend:
         self.quantization = quantization
         self.name = (kind if quantization is None
                      else f"adc-{kind}-{quantization}")
-        self.refine_ratio = (adc.default_refine_ratio(quantization)
-                             if refine_ratio is None else
-                             float(refine_ratio))
+        self.refine_ratio = adc_codes.refine_ratio(quantization,
+                                                   refine_ratio)
         self.pq_m = pq_m
         self.n_partitions = n_partitions
         self.nprobe = nprobe
@@ -305,11 +303,10 @@ class DeltaAwareBackend:
         self._delta_n = 0
         self._C_dce_dev = None    # refine array device residency (all
         self._dce_snapshot = (-1, -1)    # kinds); (padded_len, n_total)
-        # quantized-ADC state: codebook + one bucketed code tensor over
-        # all rows + row-validity stream (see class docstring)
-        self.adc_codebook = None
+        # quantized-ADC state: codebook + bucketed code arrays over all
+        # rows (`codes`) + row-validity stream (see class docstring)
+        self.codes = adc_codes.make(quantization)
         self.adc_trained_gen = -1        # main_gen the codebook is for
-        self._adc_c8 = self._adc_cn = self._adc_codes_t = None
         self._adc_ok = None
         self._adc_snapshot = (-1, -1, -1)  # (codebook id, bucket, n_total)
         # batched-graph state (kind="graph", DESIGN.md §15): the CSR
@@ -428,22 +425,19 @@ class DeltaAwareBackend:
 
     # ----------------------------------------------- ADC code arrays
 
-    # placement hooks for the code tensors (a sharded backend partitions
-    # them by rows): row-major codes, (m, n) PQ codes, per-row vectors
-    def _put_codes(self, buf: np.ndarray):
-        return self._put(buf)
+    @property
+    def adc_codebook(self):
+        return None if self.codes is None else self.codes.codebook
 
-    def _put_codes_t(self, buf: np.ndarray):
-        return self._put(buf)
-
-    def _put_rowvec(self, buf: np.ndarray):
+    def _put_rows(self, buf: np.ndarray, axis: int = 0):
+        """Placement of the ADC arrays (a sharded backend's row blocks)."""
         return self._put(buf)
 
     def restore_adc(self, codebook, trained_gen: int):
         """Install a snapshotted codebook (Collection.load_snapshot):
         codes re-encode from the restored ciphertexts bit-identically,
         so only the codebook itself persists (DESIGN.md §11)."""
-        self.adc_codebook = codebook
+        self.codes.codebook = codebook
         self.adc_trained_gen = int(trained_gen)
         self._adc_snapshot = (-1, -1, -1)
 
@@ -469,42 +463,20 @@ class DeltaAwareBackend:
             placeholder = rows.shape[0] == 0
             if placeholder:                 # fully tombstoned: keep a
                 rows = np.zeros((1, st.d), np.float32)   # usable grid
-            self.adc_codebook = adc.train_codebook(
-                rows, self.quantization, m=self.pq_m, seed=self.seed)
+            cb = self.codes.train(rows, m=self.pq_m, seed=self.seed)
             if placeholder:
-                self.adc_codebook.trained_n = 0
+                cb.trained_n = 0
             self._adc_snapshot = (-1, -1, -1)   # force full re-encode
         self.adc_trained_gen = st.main_gen
 
         bucket = self._row_bucket(st.n_total)
         cb_id = id(self.adc_codebook)
         old_cb, old_bucket, old_n = self._adc_snapshot
-        fresh = not (old_cb == cb_id and old_bucket == bucket)
-        if self.quantization == "int8":
-            if fresh:
-                self._adc_c8 = self._adc_cn = None     # free, then upload
-                buf = np.zeros((bucket, st.d), np.int8)
-                cnb = np.zeros(bucket, np.int32)
-                codes, cn = self.adc_codebook.encode(C_sap)
-                buf[: st.n_total], cnb[: st.n_total] = codes, cn
-                self._adc_c8 = self._put_codes(buf)
-                self._adc_cn = self._put_rowvec(cnb)
-            elif st.n_total > old_n:        # encode appended rows only
-                codes, cn = self.adc_codebook.encode(
-                    C_sap[old_n: st.n_total])
-                self._write_rows(self._adc_c8, old_n, st.n_total, codes)
-                self._write_rows(self._adc_cn, old_n, st.n_total, cn)
-        else:                               # pq8
-            if fresh:
-                self._adc_codes_t = None
-                buf = np.zeros((self.adc_codebook.m, bucket), np.uint8)
-                codes = self.adc_codebook.encode(C_sap)
-                buf[:, : st.n_total] = codes.T
-                self._adc_codes_t = self._put_codes_t(buf)
-            elif st.n_total > old_n:
-                codes = self.adc_codebook.encode(C_sap[old_n: st.n_total])
-                self._write_rows(self._adc_codes_t, old_n, st.n_total,
-                                 codes.T, axis=1)
+        if not (old_cb == cb_id and old_bucket == bucket):
+            self.codes.encode(C_sap, bucket, self._put_rows)
+        elif st.n_total > old_n:            # encode appended rows only
+            self.codes.append(C_sap[old_n: st.n_total], old_n,
+                              self._write_rows)
         # validity is data, not shape: refreshed every burst, so
         # deletes flip bits without touching the code tensors
         ok = np.zeros(bucket, np.int32)
@@ -513,7 +485,7 @@ class DeltaAwareBackend:
             self._write_rows(self._adc_ok, 0, bucket, ok)
         else:
             self._adc_ok = None
-            self._adc_ok = self._put_rowvec(ok)
+            self._adc_ok = self._put_rows(ok)
         self._adc_snapshot = (cb_id, bucket, st.n_total)
 
     def attach(self, C_sap: np.ndarray, engine):
@@ -581,9 +553,7 @@ class DeltaAwareBackend:
         if self.quantization is not None:
             self._attach_adc(C_sap)    # code bucket == R (_row_bucket)
             self._g_ok = self._adc_ok > 0
-            self._g_db = ((self._adc_c8, self._adc_cn)
-                          if self.quantization == "int8"
-                          else (self._adc_codes_t,))
+            self._g_db = self.codes.arrays
         else:
             self._refresh_scan_array(C_sap)
             ok = np.zeros(R, bool)
@@ -676,9 +646,9 @@ class DeltaAwareBackend:
 
     def oversampled(self, kp: int) -> int:
         """ADC recall model: quantized filters hand k'*refine_ratio
-        candidates to the exact refine (core.adc)."""
-        return max(kp, int(np.ceil(kp * self.refine_ratio))) \
-            if self.quantization is not None else kp
+        candidates to the exact refine (core.adc_codes)."""
+        return (adc_codes.oversampled(kp, self.refine_ratio)
+                if self.codes is not None else kp)
 
     def candidates(self, Q_sap: np.ndarray, kp: int, ef_search: int):
         if self.kind == "graph":
@@ -697,19 +667,15 @@ class DeltaAwareBackend:
     def _adc_code_bytes(self, rows: int) -> int:
         # codes (+ SQ norms) plus the int32 validity stream — what the
         # quantized scan actually touches per bucketed row
-        return rows * (self.adc_codebook.code_bytes_per_vector() + 4)
+        return rows * (self.codes.row_bytes + 4)
 
     def _query_operand(self, Q: np.ndarray) -> torch.Tensor:
-        """The query operand on the device: the float32 ciphertexts, the
-        ADC int8 codes, or the (nq, m, 256) float32 PQ tables (made on
-        the host by the codebook, as the JAX package does)."""
+        """The query operand on the device: the float32 ciphertexts, or
+        the ADC codes' operand (`core.adc_codes`)."""
+        if self.codes is not None:
+            return self.codes.query_operand(Q, self.device)
         with child_span("filter.query_prep"):
-            if self.quantization is None:
-                return self._put(np.asarray(Q, np.float32))
-            if self.quantization == "int8":
-                return self._put(self.adc_codebook.encode_query(Q))
-            return self._put(np.asarray(self.adc_codebook.lut(Q),
-                                        np.float32))
+            return self._put(np.asarray(Q, np.float32))
 
     def _candidates_adc_flat(self, Q_sap: np.ndarray, kp2: int):
         st = self.store
@@ -717,12 +683,7 @@ class DeltaAwareBackend:
         bucket = int(self._adc_ok.shape[0])
         kp2 = min(kp2, bucket)
         qop = self._query_operand(np.asarray(Q_sap, np.float32))
-        if self.quantization == "int8":
-            _, idx = adc_ops.sq_knn(qop, self._adc_c8, self._adc_cn, kp2,
-                                    ok=self._adc_ok)
-        else:
-            _, idx = adc_ops.pq_knn(qop, self._adc_codes_t, kp2,
-                                    ok=self._adc_ok)
+        _, idx = self.codes.knn(qop, kp2, self._adc_ok)
         cand = _host(idx).astype(np.int32)
         safe, valid = self._mask_alive(cand, np.ones(cand.shape, bool))
         self.last_filter_bytes = self._adc_code_bytes(bucket)
@@ -747,13 +708,8 @@ class DeltaAwareBackend:
             bucket = int(self._adc_ok.shape[0])
             member = self._put(se.pool_membership(
                 nq, pools, bucket, pool_mask=lambda p: st.alive_view[p]))
-            if self.quantization == "int8":
-                ids, vout = adc_ops.sq_oblivious_scan(
-                    self._adc_c8, self._adc_cn, qop, member,
-                    min(kp2, bucket))
-            else:
-                ids, vout = adc_ops.pq_oblivious_scan(
-                    self._adc_codes_t, qop, member, min(kp2, bucket))
+            ids, vout = self.codes.oblivious_scan(qop, member,
+                                                  min(kp2, bucket))
             ids, vout = self._mask_alive(_host(ids).astype(np.int32),
                                          _host(vout))
             evals = nq * bucket + nq * self.ivf.centroids.shape[0]
@@ -762,14 +718,8 @@ class DeltaAwareBackend:
             return ids, vout, evals
         cand, valid = se.layout_pools(nq, pools, kp2,
                                       pool_mask=lambda p: st.alive_view[p])
-        if self.quantization == "int8":
-            ids, vout = adc_ops.sq_pool_scan(
-                self._adc_c8, self._adc_cn, qop, self._put(cand),
-                self._put(valid), kp2)
-        else:
-            ids, vout = adc_ops.pq_pool_scan(
-                self._adc_codes_t, qop, self._put(cand), self._put(valid),
-                kp2)
+        ids, vout = self.codes.pool_scan(qop, self._put(cand),
+                                         self._put(valid), kp2)
         evals = sum(p.size for p in pools) \
             + nq * self.ivf.centroids.shape[0]
         self.last_filter_bytes = (
@@ -871,8 +821,7 @@ class DeltaAwareBackend:
         n_edges = int(edges.sum())
         self.last_n_hops = int(hops.sum())
         self.last_n_edges_scanned = n_edges
-        row_bytes = (st.d * 4 if self.quantization is None
-                     else self.adc_codebook.code_bytes_per_vector())
+        row_bytes = st.d * 4 if self.codes is None else self.codes.row_bytes
         self.last_filter_bytes = (n_edges + nq) * row_bytes
         self.last_scan_trace = _host(visited)
         return safe, valid, n_edges + nq

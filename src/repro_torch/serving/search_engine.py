@@ -41,11 +41,10 @@ import warnings
 import numpy as np
 import torch
 
-from ..core import adc, secure_knn
+from ..core import adc_codes, secure_knn
 from ..core.hnsw import HNSW
 from ..core.ivf import IVFIndex
 from ..device import full_fp32, resolve_device
-from ..kernels.adc_topk import ops as adc_ops
 from ..kernels.common import next_bucket, top_positions
 from ..kernels.dce_comp import ops as dce_ops
 from ..kernels.l2_topk import ops as l2_ops
@@ -350,7 +349,8 @@ class ADCFilter:
 
     The backend trains its codebook *keylessly* over the DCPE filter
     ciphertexts at attach (host numpy, `core.adc`), uploads the codes
-    once to the engine's device, and **oversamples**: asked for k'
+    once to the engine's device (`core.adc_codes` holds them and runs
+    their scans), and **oversamples**: asked for k'
     candidates it returns k' * refine_ratio of them, so the unchanged
     exact DCE refine recovers the order that quantization blurred.
 
@@ -373,35 +373,30 @@ class ADCFilter:
         self.quantization = quantization
         self.kind = kind
         self.name = f"adc-{kind}-{quantization}"
-        self.refine_ratio = (adc.default_refine_ratio(quantization)
-                             if refine_ratio is None else
-                             float(refine_ratio))
+        self.refine_ratio = adc_codes.refine_ratio(quantization, refine_ratio)
         self.n_partitions = n_partitions
         self.nprobe = nprobe
         self.pq_m = pq_m
         self.seed = seed
-        self.codebook = None
+        self.codes = adc_codes.make(quantization)
         self.ivf: IVFIndex | None = None
-        self._c8 = self._cn = self._codes_t = self._ok = None
+        self._ok = None
         self._n = 0
         self.last_filter_bytes = 0
+
+    @property
+    def codebook(self):
+        return self.codes.codebook
 
     # --------------------------------------------------------- encoding
 
     def attach(self, C_sap: np.ndarray, engine: "SecureSearchEngine"):
         dev = engine.device
-        self._c8 = self._cn = self._codes_t = self._ok = None
+        self.codes.arrays = self._ok = None
         self._n = C_sap.shape[0]
-        self.codebook = adc.train_codebook(
-            C_sap, self.quantization, m=self.pq_m, seed=self.seed)
-        if self.quantization == "int8":
-            codes, cn = self.codebook.encode(C_sap)
-            self._c8 = torch.from_numpy(codes).to(dev)
-            self._cn = torch.from_numpy(cn).to(dev)
-        else:
-            codes = self.codebook.encode(C_sap)
-            self._codes_t = torch.from_numpy(
-                np.ascontiguousarray(codes.T)).to(dev)
+        self.codes.train(C_sap, m=self.pq_m, seed=self.seed)
+        self.codes.encode(C_sap, self._n,
+                          lambda buf, axis: torch.from_numpy(buf).to(dev))
         self._ok = torch.ones(self._n, dtype=torch.bool, device=dev)
         if self.kind == "ivf":
             # the SAME coarse quantizer as IVFScanFilter — probe pools
@@ -410,21 +405,8 @@ class ADCFilter:
                                                C_sap.shape[0]),
                                 seed=self.seed).build(C_sap)
 
-    def _code_bytes(self) -> int:
-        return self.codebook.code_bytes_per_vector()
-
     def oversampled(self, kp: int) -> int:
-        return max(kp, int(np.ceil(kp * self.refine_ratio)))
-
-    def _query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
-        """q8 (nq, d) int8 for int8, the (nq, m, 256) float32 tables for
-        pq8; computed on the host by the codebook, as the reference does."""
-        with child_span("filter.query_prep"):
-            if self.quantization == "int8":
-                return torch.from_numpy(
-                    self.codebook.encode_query(Q)).to(dev)
-            return torch.from_numpy(np.ascontiguousarray(
-                self.codebook.lut(Q), np.float32)).to(dev)
+        return adc_codes.oversampled(kp, self.refine_ratio)
 
     # ------------------------------------------------------- candidates
 
@@ -433,34 +415,25 @@ class ADCFilter:
         nq = Q.shape[0]
         kp2 = min(self.oversampled(kp), self._n)
         dev = self._ok.device
-        qop = self._query_operand(Q, dev)
+        qop = self.codes.query_operand(Q, dev)
         if self.kind == "flat":
-            if self.quantization == "int8":
-                _, idx = adc_ops.sq_knn(qop, self._c8, self._cn, kp2,
-                                        ok=self._ok)
-            else:
-                _, idx = adc_ops.pq_knn(qop, self._codes_t, kp2, ok=self._ok)
+            _, idx = self.codes.knn(qop, kp2, self._ok)
             # -1 marks slots beyond the valid-row count (kp' > n); the
             # refine sees them masked, never a wrapped gather index
             valid = idx >= 0
             cand = torch.where(valid, idx, 0)
-            self.last_filter_bytes = self._n * self._code_bytes()
+            self.last_filter_bytes = self._n * self.codes.row_bytes
             return cand, valid, nq * self._n
 
         pools = [self.ivf.probe(q, self.nprobe) for q in Q]
         cand, valid = layout_pools(nq, pools, kp2)
         cand = torch.from_numpy(cand).to(dev)
         valid = torch.from_numpy(valid).to(dev)
-        if self.quantization == "int8":
-            ids, vout = adc_ops.sq_pool_scan(self._c8, self._cn, qop, cand,
-                                             valid, kp2)
-        else:
-            ids, vout = adc_ops.pq_pool_scan(self._codes_t, qop, cand, valid,
-                                             kp2)
+        ids, vout = self.codes.pool_scan(qop, cand, valid, kp2)
         evals = sum(p.size for p in pools) \
             + nq * self.ivf.centroids.shape[0]
         self.last_filter_bytes = (sum(p.size for p in pools)
-                                  * self._code_bytes()
+                                  * self.codes.row_bytes
                                   + self.ivf.centroids.nbytes)
         return ids, vout, evals
 

@@ -68,7 +68,6 @@ import torch
 from ..core.hnsw import HNSW
 from ..graph.csr import CSRGraph
 from ..graph.traverse import beam_plan
-from ..kernels.adc_topk import ops as adc_ops
 from ..kernels.common import next_bucket, top_positions
 from ..kernels.l2_topk import ops as l2_ops
 from ..launch.mesh import local_devices
@@ -279,6 +278,11 @@ class ShardedBackend(DeltaAwareBackend):
         host = torch.from_numpy(np.ascontiguousarray(x))
         return {card: host.to(card) for card in dict.fromkeys(self.devices)}
 
+    def _adc_operand(self, Q: np.ndarray) -> dict:
+        """The ADC query operand, made once, on each real device."""
+        op = self.codes.query_operand(Q, self.devices[0])
+        return {card: op.to(card) for card in dict.fromkeys(self.devices)}
+
     # ------------------------------------------------------------ attach
 
     def on_delete(self, row: int):
@@ -328,16 +332,10 @@ class ShardedBackend(DeltaAwareBackend):
             self._C_all = RowSharded.put(self.devices, buf)
         self._scan_snapshot = snapshot
 
-    # row-sharded residency for the ADC code arrays (parent attach
-    # logic, these placement hooks): every shard streams only its codes
-    def _put_codes(self, buf: np.ndarray):
-        return RowSharded.put(self.devices, buf)
-
-    def _put_codes_t(self, buf: np.ndarray):
-        return RowSharded.put(self.devices, buf, axis=1)
-
-    def _put_rowvec(self, buf: np.ndarray):
-        return RowSharded.put(self.devices, buf)
+    # row-sharded residency for the ADC arrays (parent attach logic):
+    # every shard streams only its codes
+    def _put_rows(self, buf: np.ndarray, axis: int = 0):
+        return RowSharded.put(self.devices, buf, axis)
 
     def attach(self, C_sap: np.ndarray, engine):
         if self.kind == "graph":
@@ -443,10 +441,7 @@ class ShardedBackend(DeltaAwareBackend):
             self._attach_adc(C_sap)     # global codebook: surrogate
             # distances stay comparable across shards
             self._g_ok_sh = [self._adc_ok.shard(s) > 0 for s in range(S)]
-            self._g_db_sh = [
-                (self._adc_c8.shard(s), self._adc_cn.shard(s))
-                if self.quantization == "int8"
-                else (self._adc_codes_t.shard(s),) for s in range(S)]
+            self._g_db_sh = [self.codes.shard(s) for s in range(S)]
         else:
             self._refresh_scan_array(C_sap)
             ok = np.zeros(per * S, bool)
@@ -596,23 +591,12 @@ class ShardedBackend(DeltaAwareBackend):
         st = self.store
         nq = Q_sap.shape[0]
         bucket = int(self._adc_ok.shape[0])
-        Q = np.asarray(Q_sap, np.float32)
-        ok = self._adc_ok
-        if self.quantization == "int8":
-            q8 = self._on_cards(self.adc_codebook.encode_query(Q))
-            cand = self._flat_merge(
-                lambda s, k: adc_ops.sq_knn(
-                    q8[self.devices[s]], self._adc_c8.shard(s),
-                    self._adc_cn.shard(s), k, ok=ok.shard(s)),
-                nq, bucket, kp2)
-        else:
-            lut = self._on_cards(
-                np.asarray(self.adc_codebook.lut(Q), np.float32))
-            cand = self._flat_merge(
-                lambda s, k: adc_ops.pq_knn(
-                    lut[self.devices[s]], self._adc_codes_t.shard(s), k,
-                    ok=ok.shard(s)),
-                nq, bucket, kp2)
+        qop = self._adc_operand(np.asarray(Q_sap, np.float32))
+        codes, ok = self.codes, self._adc_ok
+        cand = self._flat_merge(
+            lambda s, k: codes.knn(qop[self.devices[s]], k, ok.shard(s),
+                                   db=codes.shard(s)),
+            nq, bucket, kp2)
         safe, valid = self._mask_alive(cand, np.ones(cand.shape, bool))
         self.last_filter_bytes = self._adc_code_bytes(bucket)
         return safe, valid, nq * st.n_total     # same accounting as the
@@ -671,39 +655,24 @@ class ShardedBackend(DeltaAwareBackend):
         Q = np.asarray(Q_sap, np.float32)
         pools = [self.ivf.probe(q, self.nprobe) for q in Q]
         pm = self._pool_alive()
-        int8 = self.quantization == "int8"
-        qop = self._on_cards(self.adc_codebook.encode_query(Q) if int8
-                             else np.asarray(self.adc_codebook.lut(Q),
-                                             np.float32))
-        c8, cn, ct = self._adc_c8, self._adc_cn, self._adc_codes_t
+        qop = self._adc_operand(Q)
+        codes = self.codes
         if self.oblivious:
             bucket = int(self._adc_ok.shape[0])
             member = se.pool_membership(nq, pools, bucket, pool_mask=pm)
-            if int8:
-                ids, vout = self._oblivious_scan(
-                    lambda s, m: adc_ops.sq_oblivious_dists(
-                        c8.shard(s), cn.shard(s), qop[self.devices[s]], m),
-                    member, kp2)
-            else:
-                ids, vout = self._oblivious_scan(
-                    lambda s, m: adc_ops.pq_oblivious_dists(
-                        ct.shard(s), qop[self.devices[s]], m),
-                    member, kp2)
+            ids, vout = self._oblivious_scan(
+                lambda s, m: codes.oblivious_dists(
+                    qop[self.devices[s]], m, db=codes.shard(s)),
+                member, kp2)
             evals = nq * bucket + nq * self.ivf.centroids.shape[0]
             self.last_filter_bytes = (self._adc_code_bytes(bucket)
                                       + self.ivf.centroids.nbytes)
             return ids, vout, evals
         cand, valid = se.layout_pools(nq, pools, kp2, pool_mask=pm)
-        if int8:
-            ids, vout = self._pool_scan(
-                lambda s, loc, mine: adc_ops.sq_pool_dists(
-                    c8.shard(s), cn.shard(s), qop[self.devices[s]], loc,
-                    mine), cand, valid, kp2)
-        else:
-            ids, vout = self._pool_scan(
-                lambda s, loc, mine: adc_ops.pq_pool_dists(
-                    ct.shard(s), qop[self.devices[s]], loc, mine),
-                cand, valid, kp2)
+        ids, vout = self._pool_scan(
+            lambda s, loc, mine: codes.pool_dists(
+                qop[self.devices[s]], loc, mine, db=codes.shard(s)),
+            cand, valid, kp2)
         evals = sum(p.size for p in pools) \
             + nq * self.ivf.centroids.shape[0]
         self.last_filter_bytes = (
@@ -758,13 +727,7 @@ class ShardedBackend(DeltaAwareBackend):
         per = self._g_per
         kp2 = max(1, min(self.oversampled(kp), per))
         ef_eff, ef_cap, max_hops = beam_plan(kp2, max(ef_search, kp2))
-        if self.quantization is None:
-            qd = self._on_cards(Q)
-        elif self.quantization == "int8":
-            qd = self._on_cards(self.adc_codebook.encode_query(Q))
-        else:
-            qd = self._on_cards(np.asarray(self.adc_codebook.lut(Q),
-                                           np.float32))
+        qd = self._on_cards(Q) if self.codes is None else self._adc_operand(Q)
         alive = self._alive_shards()
         ids_p, d_p, vis_p = [], [], []
         hops_t = edges_t = 0
@@ -796,8 +759,7 @@ class ShardedBackend(DeltaAwareBackend):
         safe, valid = self._mask_alive(cand, cand >= 0)
         self.last_n_hops = hops_t
         self.last_n_edges_scanned = edges_t
-        row_bytes = (st.d * 4 if self.quantization is None
-                     else self.adc_codebook.code_bytes_per_vector())
+        row_bytes = st.d * 4 if self.codes is None else self.codes.row_bytes
         self.last_filter_bytes = (edges_t + nq * len(alive)) * row_bytes
         self.last_scan_trace = np.concatenate(vis_p, axis=1)
         return safe, valid, edges_t + nq * len(alive)

@@ -216,11 +216,13 @@ def test_incremental_uploads_bit_equal_to_full_upload(corpus, kind, quant):
         assert torch.equal(b._C_dce_dev, full._C_dce_dev)
         names = {"flat": ["_C_main", "_C_delta"], "ivf": ["_C_all"],
                  "graph": ["_C_all", "_g_neigh0", "_g_neigh_up", "_g_ok"]}
-        names = (names[kind] if quant is None
-                 else ["_adc_c8", "_adc_cn", "_adc_ok"] if quant == "int8"
-                 else ["_adc_codes_t", "_adc_ok"])
+        names = names[kind] if quant is None else ["_adc_ok"]
         for name in names:
             assert torch.equal(getattr(b, name), getattr(full, name)), name
+        if quant is not None:       # c8 and cn, or the (m, n) PQ codes
+            assert len(b.codes.arrays) == (2 if quant == "int8" else 1)
+            for got, want in zip(b.codes.arrays, full.codes.arrays):
+                assert torch.equal(got, want)
         # the next burst crosses the 512-row bucket: a fresh tensor
         col.insert_encrypted(np.repeat(C_sap[:1], 512 - n + 1, 0),
                              np.repeat(C_dce[:1], 512 - n + 1, 0))

@@ -457,15 +457,19 @@ def test_two_real_devices_answer_as_one(monkeypatch, owner_and_query,
             extra = svc.insert("t", spec.name, x_sap, x_dce)
             svc.delete("t", spec.name, [int(extra[0]), 3])
             b = svc.collection("t", spec.name)._backend
-            arr = b._C_all if quant is None else b._adc_ok
-            return svc.submit(_request(api, query, spec.name)).ids, arr
+            # the scan rows, or the validity stream and the codes
+            arrs = ([b._C_all] if quant is None
+                    else [b._adc_ok, *b.codes.arrays])
+            return svc.submit(_request(api, query, spec.name)).ids, arrs
 
-    want, one = run()
+    want, ones = run()
     monkeypatch.setattr(mesh, "_real_devices", lambda device=None: [
         torch.device("cpu", 0), torch.device("cpu", 1)])
-    got, two = run()
+    got, twos = run()
     np.testing.assert_array_equal(got, want)
-    assert len(one.parts) == 1 and len(two.parts) == 2
-    assert isinstance(two, RowSharded) and two.shape == one.shape
-    for s in range(4):
-        assert torch.equal(two.shard(s), one.shard(s))
+    assert len(ones) == len(twos) == {None: 1, "int8": 3, "pq8": 2}[quant]
+    for one, two in zip(ones, twos):
+        assert len(one.parts) == 1 and len(two.parts) == 2
+        assert isinstance(two, RowSharded) and two.shape == one.shape
+        for s in range(4):
+            assert torch.equal(two.shard(s), one.shard(s))
