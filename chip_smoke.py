@@ -41,6 +41,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
      line before each of their records splits the call's device time
      into scan, selection and merge (torch.profiler by kernel; the scan
      alone is the same call with every row masked);
+     sq_encode_queries (K4's query operand quantized on the card, nq
+     1024 and 32 at d 128 and 960): codes bit-equal to numpy's
+     `SQCodebook.encode_query` and to the plain version;
      l2 tiles: |kernel - plain| <= 1e-5 * (||q||^2 + ||x||^2);
      Z tiles:  |kernel - plain| <= 1e-5 * max|Z|, and equal signs
                wherever |Z_plain| > 1e-5 * max|Z|;
@@ -452,7 +455,9 @@ def plain_kernels():
               (dce_ops, "refine_topk", dce_comp.plain_refine_topk),
               (graph_ops, "graph_walk", graph_expand.plain_graph_walk),
               (adc_ops, "sq_adc_topk", adc_topk.plain_sq_adc_topk),
-              (adc_ops, "pq_adc_topk", adc_topk.plain_pq_adc_topk)]
+              (adc_ops, "pq_adc_topk", adc_topk.plain_pq_adc_topk),
+              (adc_ops, "sq_encode_queries",
+               adc_topk.plain_sq_encode_queries)]
     saved = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, plain)
@@ -1307,6 +1312,60 @@ def check_pq_adc(nq: int, m: int, n: int, kp: int, gen,
     }
 
 
+def check_sq_encode(nq: int, d: int) -> dict:
+    """K4's query operand quantized on the card against numpy's
+    `SQCodebook.encode_query` (the codes the port made on the host before)
+    and against its plain version: bit-equal codes over ciphertext-like
+    queries with every third row on half-steps of the grid and every fifth
+    saturating.  Beside the kernel's device time, the host-clock time of
+    the old operand (numpy encode, pageable upload of the codes) and of
+    the new one (pageable upload of the float32 queries, the kernel)."""
+    import torch
+    from repro_torch.core import adc
+    from repro_torch.kernels.adc_topk import adc_topk
+    rng = np.random.default_rng(nq * d)
+    cb = adc.SQCodebook.train(
+        (40.0 * rng.standard_normal((8192, d))).astype(np.float32))
+    off, s = cb.offset.astype(np.float64), cb.scale
+    Q = (45.0 * rng.standard_normal((nq, d))).astype(np.float32)
+    Q[::3] = off + (rng.integers(-128, 128, Q[::3].shape) + 0.5) * s
+    Q[::5] = off + rng.choice([-1.0, 1.0], Q[::5].shape) * 300.0 * s
+    want = cb.encode_query(Q)
+    Qd = torch.from_numpy(Q).cuda()
+    offset = torch.from_numpy(cb.offset).cuda()
+    args = (Qd, offset, cb.scale)
+    got = adc_topk.sq_encode_queries(*args)
+    plain = adc_topk.plain_sq_encode_queries(*args)
+    torch.cuda.synchronize()
+    wrong = int((got.cpu().numpy() != want).sum())
+    if wrong or not torch.equal(got, plain):
+        raise AssertionError(f"sq_encode_queries at nq={nq} d={d}: {wrong} "
+                             f"codes differ from encode_query, plain equal "
+                             f"{torch.equal(got, plain)}")
+    b_ms, b_by = bound(3.0 * nq * d, 5.0 * nq * d + 4.0 * d)
+    return {
+        "name": f"adc_topk.sq_encode_queries[nq={nq},d={d}]",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/adc_topk.cu",
+        "replaces": "none: src/repro/core/adc.py SQCodebook.encode_query "
+                    "(numpy, on the host)",
+        "codes_equal_encode_query": True, "max_abs_err": 0,
+        "ms": device_ms(lambda: adc_topk.sq_encode_queries(*args)),
+        "plain_ms": device_ms(
+            lambda: adc_topk.plain_sq_encode_queries(*args), reps=10,
+            warmup=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "host_ms_encode_query_upload": host_ms(
+            lambda: torch.from_numpy(cb.encode_query(Q)).to("cuda"), 30),
+        "host_ms_upload_kernel": host_ms(
+            lambda: adc_topk.sq_encode_queries(
+                torch.from_numpy(Q).to("cuda"), offset, cb.scale), 30),
+        "library_ms": None,
+        "library_call": "none (no one PyTorch call quantizes: the plain "
+                        "version is four)",
+    }
+
+
 # --------------------------------------------------------------- phase 3
 
 def run_batches(eng, Q, T, stats=None):
@@ -1732,8 +1791,9 @@ def timed_codebook(out: dict):
 def adc_breakdown(eng, Q, T, reps: int = 10) -> dict:
     """Host-clock time of one flat ADC batch and of its stages run alone
     on the same queries (each ended by a synchronize; medians of reps):
-    the filter, the query operand that the codebook makes on the host
-    (int8 codes or the PQ tables) with its upload, the fused kernel, and
+    the filter, the query operand with its upload (int8: the float32
+    queries up, codes made on the card; pq8: the codebook's tables made
+    on the host, then up), the fused kernel, and
     the refine of the filter's candidates; and the device time of the
     kernel and of the refine."""
     import torch
@@ -5237,6 +5297,8 @@ def main() -> int:
                    check_sq_adc(32, 100, 128, 30, gen, n_valid=12),
                    # the int8 cell's shape
                    check_sq_adc(1024, 1_000_000, 128, 160, gen),
+                   *[check_sq_encode(nq, d) for nq in (1024, 32)
+                     for d in (128, 960)],
                    check_pq_adc(32, 16, 1_000_000, 320, gen),
                    check_pq_adc(32, 8, 2 ** 18, 320, gen),
                    check_knn(32, 1_000_000, 128, 1600, gen,
@@ -5351,6 +5413,7 @@ def main() -> int:
             "graph_expand.graph_walk": "graph",
             "graph_expand.expand_layer0": "graph",
             "adc_topk.sq_adc_topk": "adc_int8",
+            "adc_topk.sq_encode_queries": "adc_int8",
             "adc_topk.pq_adc_topk": "adc_pq8"}
     for r in records:
         kern = r["name"].split("[")[0]

@@ -5,8 +5,11 @@ and `ShardedBackend` hold their codes in one `SQCodes` or `PQCodes`
 in `axes` -- int8 (c8 (n, d) int8, cn (n,) int32) on axis 0, pq8
 (codes_t (m, n) uint8,) on axis 1.  That tuple is the graph walk's `db`,
 `kind` its `quant` tag.  The caller places the arrays (`put`, `write`):
-tensors, or `RowSharded` blocks (`shard(s)`).  The query operand is made
-on the host by the codebook, as the reference does.
+tensors, or `RowSharded` blocks (`shard(s)`).  The query operand: int8
+uploads the float32 queries and quantizes them where they lie
+(`adc_topk.sq_encode_queries`, the codebook's codes bit for bit, with
+the codebook's offset uploaded once a device); pq8 builds its tables on the
+host by the codebook, as the reference does, and uploads them.
 """
 
 from __future__ import annotations
@@ -73,16 +76,6 @@ class _Codes:
     def shard(self, s: int) -> tuple:
         return tuple(a.shard(s) for a in self.arrays)
 
-    def query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
-        """q8 (nq, d) int8, or the (nq, m, 256) float32 PQ tables, on dev,
-        made and uploaded inside the `filter.query_prep` span."""
-        with child_span("filter.query_prep"):
-            if self.kind == "int8":
-                host = self.codebook.encode_query(Q)
-            else:
-                host = np.ascontiguousarray(self.codebook.lut(Q), np.float32)
-            return torch.from_numpy(host).to(dev)
-
     # the `adc_topk.ops` scans (`<_ops>_<scan>`) over the arrays held, or
     # over `db` (a shard's blocks)
 
@@ -110,8 +103,38 @@ class _Codes:
 class SQCodes(_Codes):
     kind, axes, _ops = "int8", (0, 0), "sq"
 
+    @property
+    def codebook(self):
+        return self._codebook
+
+    @codebook.setter
+    def codebook(self, codebook):
+        """A new codebook (trained or installed) drops the offsets that the
+        old one uploaded."""
+        self._codebook = codebook
+        self._offsets = {}
+
     def _rows(self, C):
         return self.codebook.encode(C)          # (codes, cn)
+
+    def _offset(self, dev) -> torch.Tensor:
+        """The codebook's offset (d,) float32 on dev, uploaded once a
+        device."""
+        offset = self._offsets.get(dev)
+        if offset is None:
+            offset = self._offsets[dev] = torch.from_numpy(
+                np.asarray(self.codebook.offset, np.float32)).to(dev)
+        return offset
+
+    def query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
+        """q8 (nq, d) int8 on dev, the codebook's `encode_query` codes bit
+        for bit, inside the `filter.query_prep` span: the float32 queries
+        uploaded, then quantized there (the card's kernel on the stream,
+        no sync; on the host its plain version)."""
+        with child_span("filter.query_prep"):
+            Qd = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(dev)
+            return adc_ops.sq_encode_queries(Qd, self._offset(Qd.device),
+                                             self.codebook.scale)
 
 
 class PQCodes(_Codes):
@@ -119,6 +142,13 @@ class PQCodes(_Codes):
 
     def _rows(self, C):
         return (self.codebook.encode(C).T,)
+
+    def query_operand(self, Q: np.ndarray, dev) -> torch.Tensor:
+        """The (nq, m, 256) float32 PQ tables, made by the codebook on the
+        host and uploaded to dev inside the `filter.query_prep` span."""
+        with child_span("filter.query_prep"):
+            host = np.ascontiguousarray(self.codebook.lut(Q), np.float32)
+            return torch.from_numpy(host).to(dev)
 
 
 def make(quantization: str | None) -> _Codes | None:

@@ -1213,6 +1213,55 @@ PqKernel pq_kernel(int qb, bool floor) {
   }
 }
 
+// K4's query operand: the int8 query codes on the codebook's grid,
+// q8 = rint((q - offset) / scale) clipped to [-127, 127].
+//
+// Replaces no TPU kernel: the reference quantizes its queries on the host
+// (src/repro/core/adc.py :: SQCodebook.encode_query, numpy), and so did
+// the port, which then uploaded the codes from pageable memory, with the
+// card idle: the int8 cell's largest host cost.  Here the float32
+// queries go up and the card quantizes them on the stream, before K4.
+// The codes must equal numpy's bit for bit (the codes of the rows were
+// made by the same grid on the host): a subtract and a true division,
+// each rounded to nearest (no reciprocal, no FMA: the intrinsics keep
+// the compiler from either), then rint, round half to even, as np.rint.
+// Bound by bytes: 5 bytes an element (4 read, 1 written), 0.66 MB at the
+// int8 cell's 1024 x 128, 0.2 us at 3.35 TB/s; so the launch itself is
+// most of its time.  A thread takes 4 elements of a row (16-byte loads,
+// 4-byte stores) where d % 4 == 0 and the pointers allow, else one.
+constexpr int ENC_THREADS = 256;
+constexpr int ENC_MAX_BLOCKS = 4096;     // then a grid-stride loop
+
+__device__ __forceinline__ signed char sq_code(float q, float offset,
+                                               float scale) {
+  const float v = rintf(__fdiv_rn(__fsub_rn(q, offset), scale));
+  return (signed char)(int)fminf(fmaxf(v, -127.0f), 127.0f);
+}
+
+__global__ void __launch_bounds__(ENC_THREADS)
+sq_encode_kernel(const float* __restrict__ q, const float* __restrict__ offset,
+                 float scale, int8_t* __restrict__ q8, long long total, int d,
+                 int vec) {
+  const long long stride = (long long)gridDim.x * ENC_THREADS;
+  long long i = (long long)blockIdx.x * ENC_THREADS + threadIdx.x;
+  if (vec) {                             // 4 elements of one row a step
+    for (; i < total / 4; i += stride) {
+      const float4 x = reinterpret_cast<const float4*>(q)[i];
+      const float4 o =
+          reinterpret_cast<const float4*>(offset)[(int)(i % (d / 4))];
+      char4 c;
+      c.x = sq_code(x.x, o.x, scale);
+      c.y = sq_code(x.y, o.y, scale);
+      c.z = sq_code(x.z, o.z, scale);
+      c.w = sq_code(x.w, o.w, scale);
+      reinterpret_cast<char4*>(q8)[i] = c;
+    }
+  } else {
+    for (; i < total; i += stride)
+      q8[i] = sq_code(q[i], offset[(int)(i % d)], scale);
+  }
+}
+
 }  // namespace
 
 // Shared memory (bytes) that stage 1 of K4 (pq = 0, width = d) or K5
@@ -1392,4 +1441,27 @@ extern "C" int repro_pq_adc_topk(const float* lut, const uint8_t* codes_t,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part, out_d, out_i, floor_out, nq, G, kp, 1, stream);
+}
+
+// q (nq, d) float32, offset (d,) float32, q8 (nq, d) int8 out, all
+// contiguous on `device`: q8 = rint((q - offset) / scale) clipped to
+// [-127, 127], scale the codebook's scale rounded to float32.  One launch
+// on `stream`; returns cudaGetLastError().
+extern "C" int repro_sq_encode_queries(const float* q, const float* offset,
+                                       float scale, int8_t* q8, int nq, int d,
+                                       int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nq < 0 || d < 1) return cudaErrorInvalidValue;
+  const long long total = (long long)nq * d;
+  if (total == 0) return cudaSuccess;
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(offset) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(q8) % 4 == 0;
+  const long long items = vec ? total / 4 : total;
+  const long long want = (items + ENC_THREADS - 1) / ENC_THREADS;
+  const int blocks = (int)(want < ENC_MAX_BLOCKS ? want : ENC_MAX_BLOCKS);
+  sq_encode_kernel<<<blocks, ENC_THREADS, 0, stream>>>(q, offset, scale, q8,
+                                                       total, d, vec);
+  return cudaGetLastError();
 }

@@ -36,6 +36,13 @@ before), each pass counted in `launches`.  The small operands are
 converted as the reference's `astype` converts them: K4's `cn` of any
 integer dtype to int32, K5's tables of any float dtype to float32.  For
 `meta` tensors the wrappers make the outputs a launch would allocate.
+
+K4's query operand is made on the card too: `sq_encode_queries`
+quantizes the float32 queries on the codebook's grid in one launch
+(`csrc/adc_topk.cu`'s `sq_encode_kernel`), the codes numpy's
+`SQCodebook.encode_query` gives, bit for bit; CPU tensors run its plain
+version.  While a kernel profiler is active each call adds the rows it
+quantized to its counters, `card_rows` or `host_rows`.
 """
 
 from __future__ import annotations
@@ -46,19 +53,22 @@ from typing import NamedTuple
 
 import torch
 
+from ...obs.profiler import active_profiler
 from .. import _build
 from ..common import (block_plan, count_plan, float_operand, floor_passes,
                       int_operand, on_cpu, on_meta)
 from .ref import INT_BIG
 from .ref import pq_adc_topk as plain_pq_adc_topk
 from .ref import sq_adc_topk as plain_sq_adc_topk
+from .ref import sq_encode_queries as plain_sq_encode_queries
 
-__all__ = ["sq_adc_topk", "pq_adc_topk", "plain_sq_adc_topk",
-           "plain_pq_adc_topk", "INT_BIG", "MAX_KP", "launches"]
+__all__ = ["sq_adc_topk", "pq_adc_topk", "sq_encode_queries",
+           "plain_sq_adc_topk", "plain_pq_adc_topk",
+           "plain_sq_encode_queries", "INT_BIG", "MAX_KP", "launches"]
 
 # Kernel launches since import, per kernel (a call's two stages count as
 # one launch); a caller auditing a run resets the counts to 0.
-launches = {"sq_adc_topk": 0, "pq_adc_topk": 0}
+launches = {"sq_adc_topk": 0, "pq_adc_topk": 0, "sq_encode_queries": 0}
 
 MAX_KP = 1024                   # the kernels' largest top-kp a pass
 MAX_D = 2048                    # the int8 kernel's widest row
@@ -75,6 +85,8 @@ _CHUNK_COST = {"sq": 30.0, "sq_tma": 74.0, "pq": 11.0}
 _SQ_ARGTYPES = ([_build.PTR] * 9 + [_build.INT] * 6 + [_build.PTR]
                 + [_build.INT] * 3 + [_build.PTR])
 _PQ_ARGTYPES = [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR]
+_ENC_ARGTYPES = ([_build.PTR] * 2 + [ctypes.c_float, _build.PTR]
+                 + [_build.INT] * 3 + [_build.PTR])
 # Mirrors csrc/adc_topk.cu's TMA route: depth bytes a stage, query A
 # fragment registers a lane at most, the ring stages tried (the most that
 # fit).
@@ -386,3 +398,47 @@ def pq_adc_topk(lut: torch.Tensor, codes_t: torch.Tensor, ok: torch.Tensor,
         return out_d, out_i
 
     return floor_passes(kp, MAX_KP, nq, one_pass, float("inf"), dev)
+
+
+def _count_rows(where: str, rows: int) -> None:
+    prof = active_profiler()
+    if prof is not None:
+        prof.count("adc_topk.sq_encode_queries", **{f"{where}_rows": rows})
+
+
+def sq_encode_queries(Q: torch.Tensor, offset: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """K4's int8 query operand on the codebook's grid.
+
+    Q (nq, d) of any float dtype (made float32), offset (d,) float32,
+    scale a float (rounded to float32) -> q8 (nq, d) int8, rint((Q -
+    offset) / scale) clipped to [-127, 127]: `SQCodebook.encode_query`'s
+    codes, bit for bit.  CUDA tensors launch one kernel on the current
+    stream without synchronizing (counted in `launches`), CPU tensors run
+    the plain version; a profiler counts the rows as `card_rows` or
+    `host_rows`."""
+    meta = on_meta(Q, offset)
+    if not meta and on_cpu(Q, offset):
+        _count_rows("host", Q.shape[0])
+        return plain_sq_encode_queries(Q, offset, scale)
+    if Q.dim() != 2 or offset.shape != (Q.shape[1],):
+        raise ValueError(f"sq_encode_queries needs Q (nq, d) and offset "
+                         f"(d,); got {tuple(Q.shape)}, {tuple(offset.shape)}")
+    if offset.dtype != torch.float32:
+        raise TypeError(f"sq_encode_queries takes a float32 offset; got "
+                        f"{offset.dtype}")
+    Q = float_operand(Q, "adc_topk.sq_encode_queries' Q").contiguous()
+    offset = offset.contiguous()
+    nq, d = Q.shape
+    dev = Q.device
+    q8 = torch.empty((nq, d), dtype=torch.int8, device=dev)
+    if meta or q8.numel() == 0:
+        return q8
+    fn = _build.function("repro_sq_encode_queries", _ENC_ARGTYPES)
+    _build.check(fn(Q.data_ptr(), offset.data_ptr(), float(scale),
+                    q8.data_ptr(), nq, d, dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "adc_topk.sq_encode_queries")
+    launches["sq_encode_queries"] += 1
+    _count_rows("card", nq)
+    return q8

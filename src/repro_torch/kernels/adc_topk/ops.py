@@ -14,7 +14,10 @@ Counterpart of `repro.kernels.adc_topk.ops`:
       every row's surrogate, masked by per-query pool membership;
   *_pool_dists / *_oblivious_dists — those four scans' masked distances
       before their top-kp (the sharded backend merges them across
-      shards).
+      shards);
+  sq_encode_queries — the int8 query operand, quantized where the
+      queries lie (`adc_topk.sq_encode_queries`: the card's kernel or
+      its plain version); the reference makes it in numpy on the host.
 
 The four pool and oblivious scans keep the reference's float32
 `cn - 2 * cross`, exact while the surrogate stays below 2^24 (d <= 346;
@@ -22,7 +25,8 @@ the cross term alone is exact for d <= 1040), and the PQ sums in
 ascending subspace order.  `lax.top_k` of the negated distances becomes
 a stable ascending sort (ties to the lowest position).  The reference's
 `use_kernel=` switch is not ported: CUDA tensors always take the kernel.  The six scans are wrapped by the
-opt-in kernel profiler (`obs.profiler`).
+opt-in kernel profiler (`obs.profiler`), and the query encode under its
+own name, so the scans' entries time the scans alone.
 """
 
 from __future__ import annotations
@@ -32,13 +36,13 @@ import torch
 from ...device import full_fp32
 from ...obs.profiler import instrument as _instrument
 from ..common import top_positions
-from .adc_topk import INT_BIG, pq_adc_topk, sq_adc_topk
+from .adc_topk import INT_BIG, pq_adc_topk, sq_adc_topk, sq_encode_queries
 from .ref import pq_dists
 
 __all__ = ["sq_knn", "pq_knn", "sq_pool_scan", "pq_pool_scan",
            "sq_oblivious_scan", "pq_oblivious_scan", "sq_pool_dists",
            "pq_pool_dists", "sq_oblivious_dists", "pq_oblivious_dists",
-           "sq_adc_topk", "pq_adc_topk", "INT_BIG"]
+           "sq_adc_topk", "pq_adc_topk", "sq_encode_queries", "INT_BIG"]
 
 _GATHER_ELEMENTS = 2 ** 27      # gathered code elements per step (int8 pool)
 
@@ -150,3 +154,5 @@ sq_oblivious_scan = _instrument("adc_topk.sq_oblivious_scan",
                                 sq_oblivious_scan)
 pq_oblivious_scan = _instrument("adc_topk.pq_oblivious_scan",
                                 pq_oblivious_scan)
+sq_encode_queries = _instrument("adc_topk.sq_encode_queries",
+                                sq_encode_queries)

@@ -17,6 +17,10 @@ lowest id (a stable merge, as `lax.top_k` of the negated row).  Rows with
 ok = 0 never win a slot: a slot whose distance is >= the sentinel
 (INT_BIG, +inf) comes back as (sentinel, -1), so fewer valid rows than
 kp give empty slots, never a duplicated id.  kp = min(kp, n).
+
+The int8 query operand (`sq_encode_queries`) is the codebook's grid,
+rint((Q - offset) / scale) clipped to [-127, 127] in float32: the
+`core.adc.SQCodebook.encode_query` codes, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ...device import full_fp32
 from ..common import running_topk_scan
 
 __all__ = ["INT_BIG", "CHUNK", "sq_dists", "pq_dists", "sq_adc_topk",
-           "pq_adc_topk"]
+           "pq_adc_topk", "sq_encode_queries"]
 
 INT_BIG = 2 ** 30          # sentinel surrogate distance of the int8 path
 CHUNK = 8192               # rows per merge step
@@ -94,3 +98,14 @@ def pq_adc_topk(lut, codes_t, ok, kp: int):
 
     return _topk(dist_fn, lut.shape[0], codes_t.shape[1], kp, torch.float32,
                  float("inf"), lut.device)
+
+
+def sq_encode_queries(Q: torch.Tensor, offset: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """(nq, d) float (made float32), (d,) float32, scale -> (nq, d) int8:
+    a true float32 division by the scale rounded to float32 (a tensor
+    divisor: no multiplication by a rounded reciprocal), then round half
+    to even."""
+    s = torch.full((), scale, dtype=torch.float32, device=Q.device)
+    q = torch.round((Q.to(torch.float32) - offset) / s)
+    return q.clamp_(-127, 127).to(torch.int8)

@@ -92,6 +92,57 @@ def test_sq_codebook_bit_identical_both_directions():
         assert back.scale == j.scale and back.trained_n == j.trained_n
 
 
+def _query_rows(cb, nq: int, seed: int) -> dict:
+    """Query sets of nq rows on the grid of cb: ciphertext-like rows,
+    rows on half-steps offset + (j + 0.5) scale (j in [-128, 127], so
+    both ends clip), rows 128-1000 steps out (saturating), the offset."""
+    rng = np.random.default_rng(seed)
+    d, off, s = cb.d, cb.offset.astype(np.float64), cb.scale
+    steps = rng.integers(-128, 128, (nq, d)) + 0.5
+    far = rng.choice([-1.0, 1.0], (nq, d)) * rng.uniform(128, 1000, (nq, d))
+    return {"data": _ciphertext_like(nq, d, seed),
+            "half_steps": (off + steps * s).astype(np.float32),
+            "saturating": (off + far * s).astype(np.float32),
+            "offset": np.repeat(cb.offset[None], nq, axis=0)}
+
+
+@pytest.mark.parametrize("nq", [1, 33, 1024])
+@pytest.mark.parametrize("d", [128, 960, 100])
+def test_sq_encode_queries_equals_encode_query(nq, d):
+    """The int8 query operand as the port makes it on the host (the plain
+    `sq_encode_queries`, its dispatching wrapper, `SQCodes.query_operand`)
+    equals the codebook's `encode_query` bit for bit, the port's and the
+    JAX package's, on a trained grid and on a dyadic one (scale 0.25,
+    offsets in eighths), where every half-step is exact in float32 and
+    must round to even."""
+    from repro_torch.core import adc_codes
+    C = _ciphertext_like(500, d, d)
+    rng = np.random.default_rng(d + nq)
+    dyadic = (rng.integers(-400, 400, d) / 8.0).astype(np.float32)
+    books = {"trained": (adc.SQCodebook.train(C),
+                         jadc.SQCodebook.train(C)),
+             "dyadic": (adc.SQCodebook(dyadic, 0.25),
+                        jadc.SQCodebook(dyadic, 0.25))}
+    cpu = torch.device(CPU)
+    for t, j in books.values():
+        codes = adc_codes.make("int8")
+        codes.codebook = t
+        offset = torch.from_numpy(t.offset)
+        for Q in _query_rows(t, nq, d + nq).values():
+            want = t.encode_query(Q)
+            _same(want, j.encode_query(Q))
+            for got in (adc_ref.sq_encode_queries(_t(Q), offset, t.scale),
+                        adc_topk.sq_encode_queries(_t(Q), offset, t.scale),
+                        codes.query_operand(Q, cpu)):
+                _same(got.numpy(), want)
+    t = books["dyadic"][0]
+    half = _query_rows(t, nq, 0)["half_steps"]
+    j = (half.astype(np.float64) - t.offset) / t.scale - 0.5
+    assert (j == np.round(j)).all()                  # exact half-steps
+    even = np.clip(np.where(j % 2 == 0, j, j + 1), -127, 127)
+    _same(t.encode_query(half), even.astype(np.int8))
+
+
 @pytest.mark.parametrize("n,d,m", [(600, 16, 4), (300, 18, 16), (40, 8, 2)])
 def test_pq_codebook_bit_identical_both_directions(n, d, m):
     """(300, 18, 16): pq_subspaces falls to 9; (40, 8, 2): fewer rows

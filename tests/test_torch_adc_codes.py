@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import adc_codes
+from repro_torch.core import adc, adc_codes
 from repro_torch.kernels import _build
 from repro_torch.kernels.adc_topk import ops as adc_ops
+from repro_torch.obs.profiler import profile_kernels
 from repro_torch.obs.trace import TraceRecorder
 from repro_torch.serving.search_engine import layout_pools, pool_membership
 from repro_torch.serving.sharded import RowSharded
@@ -145,6 +146,52 @@ def test_query_operand_is_the_codebooks(rows, quant):
         want = np.asarray(codes.codebook.lut(Q), np.float32)
         assert qop.dtype == torch.float32 and qop.shape == (6, PQ_M, 256)
     np.testing.assert_array_equal(qop.numpy(), want)
+
+
+@pytest.mark.parametrize("replace", ["train", "assign"])
+def test_int8_offset_follows_a_new_codebook(rows, replace):
+    """The offset held a device is made once and dropped when the codebook
+    is replaced, by training or by installing one (a snapshot's restore):
+    the operand is the new codebook's codes."""
+    C, Q = rows
+    codes = _codes("int8", C)
+    cpu = torch.device("cpu")
+    codes.query_operand(Q, cpu)
+    held = codes._offset(cpu)
+    assert codes._offset(cpu) is held                 # uploaded once
+    if replace == "train":
+        codes.train(2.0 * C + 1.0, m=PQ_M, seed=3)
+    else:
+        codes.codebook = adc.SQCodebook.train(2.0 * C + 1.0)
+    assert not codes._offsets
+    qop = codes.query_operand(Q, cpu)
+    assert codes._offset(cpu) is not held
+    np.testing.assert_array_equal(qop.numpy(),
+                                  codes.codebook.encode_query(Q))
+    assert not np.array_equal(qop.numpy(),
+                              adc.SQCodebook.train(C).encode_query(Q))
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_query_operand_counts_the_rows_it_quantizes(rows, quant):
+    """Under the kernel profiler the int8 operand counts its rows where
+    they were quantized (here `host_rows`; `card_rows` on the card, in
+    test_torch_isolation.py), once a call; pq8 and an inactive profiler
+    count nothing."""
+    C, Q = rows
+    codes = _codes(quant, C)
+    cpu = torch.device("cpu")
+    codes.query_operand(Q, cpu)
+    with profile_kernels() as prof:
+        codes.query_operand(Q, cpu)
+        codes.query_operand(Q[:1], cpu)
+    want = ({"adc_topk.sq_encode_queries": {"host_rows": 7}}
+            if quant == "int8" else {})
+    assert prof.summary().counters == want
+    if quant == "int8":
+        assert prof.summary()["adc_topk.sq_encode_queries"]["calls"] == 2
+        meta = codes.query_operand(Q, torch.device("meta"))
+        assert meta.dtype == torch.int8 and meta.shape == Q.shape
 
 
 @pytest.mark.parametrize("quant", QUANTS)

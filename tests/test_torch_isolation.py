@@ -467,9 +467,11 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     monkeypatch.setattr(graph_expand._ref, "beam_layer0", refuse)
     monkeypatch.setattr(graph_expand._traverse, "traverse", refuse)
     monkeypatch.setattr(graph_expand._traverse, "upper_entry", refuse)
-    for name in ("plain_sq_adc_topk", "plain_pq_adc_topk"):
+    for name in ("plain_sq_adc_topk", "plain_pq_adc_topk",
+                 "plain_sq_encode_queries"):
         monkeypatch.setattr(adc_topk, name, refuse)
-    for name in ("sq_adc_topk", "pq_adc_topk", "sq_dists", "pq_dists"):
+    for name in ("sq_adc_topk", "pq_adc_topk", "sq_dists", "pq_dists",
+                 "sq_encode_queries"):
         monkeypatch.setattr(adc_ref, name, refuse)
     monkeypatch.setattr(l2_topk, "plain_knn", refuse)
     monkeypatch.setattr(dce_comp, "plain_refine_topk", refuse)
@@ -491,6 +493,7 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
                             max_hops=64)
     adc_topk.sq_adc_topk(*_sq_inputs("cuda", 3, 300, 17), 20)
     adc_topk.pq_adc_topk(*_pq_inputs("cuda", 3, 300, 4), 20)
+    adc_topk.sq_encode_queries(Q, torch.zeros(33, device="cuda"), 0.5)
     torch.cuda.synchronize()
     assert _launch_counts() == {k: v + 1 for k, v in before.items()}
 
@@ -580,6 +583,54 @@ def test_graph_walk_kernel_matches_plain_on_the_card(nq, R, M0, M, LU, d,
         assert g.dtype == w.dtype and torch.equal(g, w)
     if e >= 0:
         assert int(got[3].min()) > LU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d,shift", [
+    (1, 128, 0), (33, 100, 0), (1024, 128, 0), (1024, 960, 0),
+    (32, 128, 0), (32, 960, 0),
+    (33, 30, 0),                     # d % 4 != 0: an element a thread
+    (33, 128, 1)])                   # queries 4 bytes off 16: the same
+def test_sq_encode_queries_on_the_card_equals_encode_query(nq, d, shift):
+    """The int8 query operand quantized on the card equals the codebook's
+    numpy `encode_query` bit for bit (ciphertext-like rows, rows on
+    half-steps, saturating rows, the offset), through the wrapper and the
+    code holder; fed to sq_knn it gives the host codes' ids and
+    distances; one launch, its rows counted as `card_rows`."""
+    _needs_card()
+    from repro_torch.core import adc, adc_codes
+    from repro_torch.kernels.adc_topk import ops as adc_ops
+    rng = np.random.default_rng(nq + d)
+    C = (40.0 * rng.standard_normal((4000, d))).astype(np.float32)
+    cb = adc.SQCodebook.train(C)
+    off, s = cb.offset.astype(np.float64), cb.scale
+    far = rng.choice([-1.0, 1.0], (nq, d)) * rng.uniform(128, 1000, (nq, d))
+    Q = np.concatenate([
+        (45.0 * rng.standard_normal((nq, d))).astype(np.float32),
+        (off + (rng.integers(-128, 128, (nq, d)) + 0.5) * s).astype(
+            np.float32),
+        (off + far * s).astype(np.float32),
+        np.repeat(cb.offset[None], nq, axis=0)])
+    want = torch.from_numpy(cb.encode_query(Q))
+    Qd = torch.empty(Q.size + shift, device="cuda")[shift:].view(Q.shape)
+    Qd.copy_(torch.from_numpy(Q))
+    offset = torch.from_numpy(cb.offset).cuda()
+    before = adc_topk.launches["sq_encode_queries"]
+    with profile_kernels() as prof:
+        q8 = adc_topk.sq_encode_queries(Qd, offset, cb.scale)
+    assert prof.summary().counters == {
+        "adc_topk.sq_encode_queries": {"card_rows": 4 * nq}}
+    assert adc_topk.launches["sq_encode_queries"] == before + 1
+    assert q8.dtype == torch.int8 and torch.equal(q8.cpu(), want)
+    codes = adc_codes.make("int8")
+    codes.codebook = cb
+    assert torch.equal(codes.query_operand(Q, torch.device("cuda")).cpu(),
+                       want)
+    c8, cn = (torch.from_numpy(a).cuda() for a in cb.encode(C))
+    got = adc_ops.sq_knn(q8, c8, cn, 50)
+    host = adc_ops.sq_knn(want.cuda(), c8, cn, 50)
+    for g, h in zip(got, host):
+        assert torch.equal(g, h)
 
 
 @pytest.mark.cuda
@@ -1143,8 +1194,9 @@ def test_filter_and_refine_spans_carry_device_seconds_on_the_card():
 def test_api_service_on_the_card_saves_what_the_host_loads(tmp_path, kind,
                                                            quant):
     """The api on the card: a keyless collection serves batch and
-    coalesced requests through the hand kernels (one filter launch and
-    one refine launch a batch), and the `.ppcol` it saves loads in a host
+    coalesced requests through the hand kernels (one filter launch, with
+    int8's query encode before it, and one refine launch a batch), and
+    the `.ppcol` it saves loads in a host
     service (plain versions) that answers with the same ids (>= 99% of
     slots: fp32 sums in another order) and equal file bytes on a second
     save."""
@@ -1170,8 +1222,9 @@ def test_api_service_on_the_card_saves_what_the_host_loads(tmp_path, kind,
         svc.warmup("t", kind, k=5)
         before = (sum(kern.values()), dce_comp.launches["refine_topk"])
         card = svc.submit(req).ids
+        filt = 2 if quant == "int8" else 1
         assert (sum(kern.values()) - before[0],
-                dce_comp.launches["refine_topk"] - before[1]) == (1, 1)
+                dce_comp.launches["refine_topk"] - before[1]) == (filt, 1)
         one = svc.submit(SearchRequest(
             tenant="t", collection=kind, params=SearchParams(k=5),
             query=EncryptedQuery(C_sap=Q[:1], T=T[:1]))).ids

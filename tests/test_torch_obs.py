@@ -452,7 +452,8 @@ def test_profile_kernels_counts_the_engine_spans(engine_inputs, quant):
     filter, filter.query_prep and refine call and three engine.wait
     calls (the trapdoors going up, the ids coming down, the comparison
     count) to the span table, with host seconds; the whole call outlasts
-    its waits.  The kernel table holds the kernels alone, and no sync is
+    its waits.  The kernel table holds the kernels alone (int8: its query
+    encode under an entry of its own beside the scan's), and no sync is
     counted without a card."""
     C_sap, C_dce, Q, T = engine_inputs
     eng = SecureSearchEngine(C_sap, C_dce, quantization=quant, device="cpu")
@@ -470,11 +471,12 @@ def test_profile_kernels_counts_the_engine_spans(engine_inputs, quant):
     whole = sp["engine.search_batch"]["total_s"]
     assert whole >= sp["engine.wait"]["total_s"]
     assert whole >= sp["filter"]["total_s"] + sp["refine"]["total_s"]
-    entry = "adc_topk.sq_knn" if quant else "l2_topk.knn"
-    assert set(s) == {entry, "dce_comp.refine_topk"}
-    assert s[entry]["calls"] == 3 and s["dce_comp.refine_topk"]["calls"] == 3
+    entries = ({"adc_topk.sq_encode_queries", "adc_topk.sq_knn"} if quant
+               else {"l2_topk.knn"}) | {"dce_comp.refine_topk"}
+    assert set(s) == entries
+    assert all(s[e]["calls"] == 3 for e in entries)
     assert prof.total_seconds() == pytest.approx(
-        s[entry]["total_s"] + s["dce_comp.refine_topk"]["total_s"])
+        sum(s[e]["total_s"] for e in entries))
 
 
 def test_profile_kernels_counts_syncs_inside_spans(monkeypatch):
